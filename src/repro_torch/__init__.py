@@ -1,0 +1,18 @@
+"""The PyTorch/CUDA port of the BaseJump mesh network reproduction.
+
+A package of its own beside the JAX reference ``repro``; it imports
+``torch`` and numpy and nothing of JAX or of ``repro``.
+
+* :mod:`repro_torch.mesh` — configuration, packed-header encoding,
+  topologies, the traffic library, telemetry and the ``Simulator`` facade
+  (counterpart of ``repro.mesh``);
+* :mod:`repro_torch.netsim` — the cycle-level simulator with an explicit
+  lane axis, its drivers, phased load–latency measurement and the state
+  conversions from the JAX package (counterpart of ``repro.netsim_jax``);
+* :mod:`repro_torch.kernels` — the device policy, the ``nvcc`` build and
+  the Hopper router-step kernel (counterpart of ``repro.kernels``);
+* :mod:`repro_torch.core` — the network constants.
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+"""
+__all__ = ["core", "kernels", "mesh", "netsim"]
