@@ -25,8 +25,25 @@ Phases (any failure raises and exits nonzero):
 6. times: the kernel per mesh cycle at 12 lanes x 16x32 with CUDA events,
    in calls of 400 cycles (as the sweep's measure and drain phases) and
    of 1 cycle (as a drain with ``check_every=1``), the plain version the
-   same way, and the kernels' device time from the profiler; then the
-   ``kernels`` JSON line and the ``ok`` line.
+   same way, and the kernels' device time from the profiler;
+7. the model kernels against their plain versions (flash attention, SSD
+   scan, grouped matmul) at the shapes of the full-width Jamba prefill's
+   first call and at the decode GMM's, in fp32 and in bf16;
+8. the reduced Jamba (fp32) on the card through the kernels against the
+   CPU through the plain versions, and teacher-forced ``decode_step``
+   against ``forward`` on the card;
+9. the main path of the model stack at full width: Jamba v0.1's widths
+   with one period of 8 layers (13.27 B parameters, bf16, drawn on the
+   card), a 1 x 4096-token prefill through ``prefill_step`` (1 flash,
+   7 SSD and 12 GMM launches), then the continuous-batching ``Server`` on
+   the same weights (8 requests of 16 prompt tokens, 16 new tokens each, 4
+   slots; 12 GMM launches per tick), each with the launch counts set to 0
+   just before it and read just after;
+10. where the time goes: the profiler over a warm prefill and over 10
+   server ticks (device time by kernel category, the device's idle share);
+   times of the model kernels at those shapes (kernel, plain version,
+   library call, bound); then the ``kernels`` JSON line and the ``ok``
+   line.
 
 It needs a card: without one it prints the reason to stderr and exits 1.
 """
@@ -352,6 +369,407 @@ def timings(device, nx=16, ny=32, kernel_cycles=800, plain_cycles=20):
     return ms_kernel, ms_plain, bound_ms, bound_by, dev_us
 
 
+# ----------------------------------------------------------------------
+# the model stack: Jamba served through the flash, SSD and GMM kernels
+# ----------------------------------------------------------------------
+JAMBA = "jamba-v0.1-52b"
+PREFILL_TOKENS = 4096          # batch 1 x 4096 tokens
+BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core rate, SXM data sheet
+MODEL_KERNELS = ("flash_attention", "ssd_scan", "moe_gmm")
+
+
+def _wrappers():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ssd_scan as ssd
+    return {"flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan,
+            "moe_gmm": gmm.grouped_matmul}
+
+
+def zero_counts():
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def read_counts():
+    return {k: w.launches for k, w in _wrappers().items()}
+
+
+def _bound(nbytes, ops, ops_per_s):
+    tb, to = nbytes / H100_BYTES_PER_S, ops / ops_per_s
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def _compare(name, note, got, want):
+    """Kernel against plain on the same inputs.  fp32: 1e-4 absolute plus
+    1e-4 relative (the sums run in another order).  bf16: one bf16 ulp of
+    the plain result (both sides compute in fp32 from the same bf16 inputs
+    and round once) plus 1e-3 of the result's RMS (fp32 sums in another
+    order, near zero, can straddle a rounding boundary).  Returns
+    max_abs_err."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if got.dtype == torch.float32:
+        tol, why = 1e-4 + 1e-4 * w.abs(), "1e-4 abs + 1e-4 rel"
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp_min(2.0 ** -126))) - 7)
+        tol = ulp + 1e-3 * float(w.square().mean().sqrt())
+        why = "1 bf16 ulp + 1e-3 RMS"
+    worst = float(err.max())
+    ok = bool((err <= tol).all()) and bool(torch.isfinite(g).all())
+    print(f"[model kernels] {name} {note} {str(got.dtype)[6:]}: "
+          f"max_abs_err {worst:.3e} (tolerance {why}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{name} {note} {got.dtype}: kernel differs from plain")
+    return worst
+
+
+def _model_inputs(device, dtype, seed=0):
+    """Each kernel's inputs at the shapes of the full-width prefill's
+    first call (batch 1 x 4096 tokens of Jamba v0.1), and the decode GMM's
+    (4 slots).  The SSD's A is the model's initial -linspace(1, 16)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+    cfg = get_config(JAMBA)
+    g = torch.Generator(device).manual_seed(seed)
+    S, H, K, hd = PREFILL_TOKENS, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = cfg.ssm
+    nh, G = s.num_heads(cfg.d_model), s.num_groups
+    E, D, Fe = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=device)
+                * scale).to(dtype)
+
+    flash = dict(q=rnd(1, H, S, hd), k=rnd(1, K, S, hd), v=rnd(1, K, S, hd))
+    ssd = dict(x=rnd(1, nh, S, s.head_dim, scale=0.5),
+               dt=(F.softplus(torch.randn(1, nh, S, generator=g,
+                                          device=device)) * 0.1).to(dtype),
+               B=rnd(1, G, S, s.state_dim, scale=0.5),
+               C=rnd(1, G, S, s.state_dim, scale=0.5),
+               A=-torch.linspace(1.0, 16.0, nh, device=device))
+    gmm = {}
+    for name, m, k, n in (("prefill gate/up", capacity(S, cfg.moe), D, Fe),
+                          ("prefill down", capacity(S, cfg.moe), Fe, D),
+                          ("decode gate/up", capacity(4, cfg.moe), D, Fe)):
+        gmm[name] = (rnd(E, m, k), rnd(E, k, n, scale=k ** -0.5))
+    return flash, ssd, gmm, s.chunk
+
+
+def model_kernels_vs_plain(device):
+    """Each new kernel against its plain version at the main path's
+    shapes, in fp32 and in bf16.  Returns {kernel: bf16 max_abs_err}."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        flash, ssd, gmm, chunk = _model_inputs(device, dtype)
+        out = fa.flash_attention(**flash, causal=True)
+        err = _compare("flash_attention", "(1,32,4096,128) causal, 8 KV heads",
+                       out, ref.flash_attention_ref(**flash, causal=True))
+        del out
+        y = ssd_mod.ssd_scan(**ssd, chunk=chunk)
+        err_s = _compare("ssd_scan", f"(1,128,4096,64) N=16 chunk {chunk}", y,
+                         ref.ssd_scan_ref(**ssd))
+        del y
+        err_g = 0.0
+        for name, (lhs, rhs) in gmm.items():
+            out = gmm_mod.grouped_matmul(lhs, rhs)
+            err_g = max(err_g, _compare(
+                "moe_gmm", f"{name} {tuple(lhs.shape)}@{tuple(rhs.shape)}",
+                out, ref.grouped_matmul_ref(lhs, rhs)))
+            del out
+        worst = {"flash_attention": err, "ssd_scan": err_s, "moe_gmm": err_g}
+        del flash, ssd, gmm
+        torch.cuda.empty_cache()
+    return worst
+
+
+def reduced_end_to_end(device, seq=40):
+    """The reduced Jamba (fp32, 2 periods of 2 layers, capacity factor 8 so
+    no token drops) on the card through the kernels against the CPU
+    through the plain versions; then teacher-forced ``decode_step`` on the
+    card against ``forward`` on the card (2e-4, the tolerance of
+    tests/test_models.py).  Returns the largest logit difference."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import init_params
+    cfg = reduced_config(get_config(JAMBA))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    Model = get_model(cfg)
+    card = Model(cfg, device, params={k: v.to(device)
+                                      for k, v in cpu_params.items()})
+    cpu = Model(cfg, "cpu", params=cpu_params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, seq)))
+    zero_counts()
+    on_card, _ = card(tokens.to(device))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    on_cpu, _ = cpu(tokens)
+    err = float((on_card.cpu() - on_cpu).abs().max())
+    print(f"[reduced] Jamba {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"fp32, 2 x {seq} tokens: card (kernels, launches {counts}) vs CPU "
+          f"(plain versions) max logit difference {err:.3e} (tolerance 2e-4)")
+    check(all(counts[k] > 0 for k in MODEL_KERNELS),
+          f"the reduced forward missed a kernel: {counts}")
+    check(err <= 2e-4, f"reduced Jamba: card and CPU logits differ by {err}")
+    cache = card.init_cache(2, seq)
+    steps = []
+    for i in range(seq):
+        lg, cache = card.decode_step(cache, tokens[:, i].to(device))
+        steps.append(lg)
+    derr = float((torch.stack(steps, 1) - on_card).abs().max())
+    print(f"[reduced] teacher-forced decode_step vs forward on the card: max "
+          f"logit difference {derr:.3e} (tolerance 2e-4)")
+    check(derr <= 2e-4, f"reduced Jamba: decode differs from forward by "
+          f"{derr}")
+    return max(err, derr)
+
+
+def full_width_prefill(device):
+    """The main path at full width: Jamba v0.1's widths, one period of 8
+    layers, bf16 weights from ``init_params`` on the card, batch 1 x 4096
+    tokens through ``prefill_step``.  Returns (cfg, params, record)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.step import prefill_step
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import init_params
+    cfg = dataclasses.replace(get_config(JAMBA), num_layers=8)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device).manual_seed(0), device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    model = get_model(cfg)(cfg, device, params=params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PREFILL_TOKENS))).to(device)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits = prefill_step(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(tuple(logits.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"prefill logits {tuple(logits.shape)} not finite of (1, V)")
+    t0 = time.perf_counter()
+    again = prefill_step(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    check(torch.equal(again, logits), "two prefills of the same tokens differ")
+    print(f"[prefill] Jamba widths, 8 layers ({cfg.param_count() / 1e9:.2f} B "
+          f"parameters, {nbytes / 2**30:.2f} GiB bf16, drawn in {init_s:.1f} "
+          f"s): 1 x {PREFILL_TOKENS} tokens, wall {wall:.3f} s "
+          f"({PREFILL_TOKENS / wall:.0f} tokens/s); again {warm:.3f} s "
+          f"({PREFILL_TOKENS / warm:.0f} tokens/s); launches {counts}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    check(counts == {"flash_attention": 1, "ssd_scan": 7, "moe_gmm": 12},
+          f"prefill launches {counts} != 1 flash, 7 SSD, 12 GMM")
+    del model, logits, again
+    return cfg, params, {"wall": wall, "warm": warm, "counts": counts}
+
+
+def full_width_server(device, cfg, params, requests=8, prompt=16,
+                      max_new=16, slots=4, max_seq=64):
+    """The continuous-batching ``Server`` at full width on the prefill's
+    weights: every request completes, every tick's 12 expert FFN products
+    go through the GMM kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import Request, Server
+    server = Server(cfg, slots=slots, max_seq=max_seq, device=device,
+                    params=params)
+    rng = np.random.default_rng(1)
+    for r in range(requests):
+        server.submit(Request(rid=r, max_new=max_new, prompt=rng.integers(
+            0, cfg.vocab_size, size=prompt).astype(np.int32)))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    ticks = server.run(tick_limit=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    done = sorted(server.completed, key=lambda r: r.rid)
+    toks = sum(len(r.out) for r in done)
+    print(f"[server] {requests} requests x {prompt} prompt tokens, max_new "
+          f"{max_new}, {slots} slots, max_seq {max_seq}: {len(done)} "
+          f"completed, {toks} tokens in {ticks} ticks, wall {wall:.3f} s "
+          f"({toks / wall:.1f} generated tokens/s, "
+          f"{wall / ticks * 1e3:.1f} ms per tick); launches {counts} "
+          f"(GMM per tick {counts['moe_gmm'] / ticks:g})")
+    check(len(done) == requests and all(len(r.out) == max_new for r in done),
+          "not every request completed")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+          "a token outside the vocabulary")
+    check(counts["moe_gmm"] == 12 * ticks,
+          f"GMM launches {counts['moe_gmm']} != 12 per tick x {ticks}")
+    return {"ticks": ticks, "wall": wall, "counts": counts,
+            "tokens": toks}
+
+
+_CATEGORIES = (("flash kernel", ("flash_fwd_kernel",)),
+               ("SSD kernel", ("ssd_scan_kernel",)),
+               ("GMM kernel", ("gmm_bf16_kernel", "gmm_f32_kernel")),
+               ("cuBLAS matmuls", ("gemm", "cutlass", "xmma", "nvjet",
+                                   "cublas")))
+
+
+def _device_breakdown(prof, wall_s):
+    """Device time of the profiled window by kernel category, and the
+    device's busy share of the host wall time."""
+    from torch.autograd import DeviceType
+    cats = {name: 0.0 for name, _ in _CATEGORIES}
+    cats["other kernels (elementwise, reductions, copies)"] = 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        name = ev.name.lower()
+        for cat, keys in _CATEGORIES:
+            if any(k in name for k in keys):
+                cats[cat] += us
+                break
+        else:
+            cats["other kernels (elementwise, reductions, copies)"] += us
+    busy = sum(cats.values()) / 1e6
+    return cats, busy, 1.0 - busy / wall_s
+
+
+def model_profile(device, cfg, params, ticks=10):
+    """Where the time goes: ``torch.profiler`` over one warm full-width
+    prefill and over ``ticks`` steady server ticks (4 slots generating),
+    device time by kernel category and the device's idle share of the
+    host wall time (the profiler's own cost is in the wall time)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.launch.step import prefill_step
+    from repro_torch.models import get_model
+    card = card_line()
+    model = get_model(cfg)(cfg, device, params=params)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, PREFILL_TOKENS))).to(device)
+    prefill_step(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    server = Server(cfg, slots=4, max_seq=64, device=device, params=params)
+    rng = np.random.default_rng(3)
+    for r in range(4):
+        server.submit(Request(rid=r, max_new=40, prompt=rng.integers(
+            0, cfg.vocab_size, size=4).astype(np.int32)))
+    for _ in range(6):                   # past the prompts: all generating
+        server.tick()
+    torch.cuda.synchronize()
+    out = {}
+    for what, fn, n in (("prefill 1 x 4096", lambda: prefill_step(
+            model, {"tokens": tokens}), 1),
+            (f"server, {ticks} ticks of 4 slots", server.tick, ticks)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        cats, busy, idle = _device_breakdown(prof, wall)
+        parts = ", ".join(f"{k} {v / 1e3 / n:.2f} ms"
+                          for k, v in sorted(cats.items(),
+                                             key=lambda kv: -kv[1]))
+        print(f"[where the time goes] {card}: {what}: wall {wall / n * 1e3:.1f}"
+              f" ms per {'step' if n == 1 else 'tick'} under the profiler, "
+              f"device busy {busy / n * 1e3:.1f} ms (idle share {idle:.3f}); "
+              f"{parts}")
+        out[what] = dict(wall=wall / n, busy=busy / n, idle=idle,
+                         cats={k: v / 1e3 / n for k, v in cats.items()})
+    return out
+
+
+def _event_ms(fn, reps):
+    """Mean device time of ``fn`` over ``reps`` calls after one warm-up
+    (CUDA events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def model_timings(device):
+    """Kernel, plain version and library call at the main path's shapes
+    (bf16), with CUDA events, beside each kernel's bound.  Returns
+    {kernel: record}; GMM at the prefill gate/up shape, with the decode
+    shape under "decode"."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    card = card_line()
+    flash, ssd, gmm, chunk = _model_inputs(device, torch.bfloat16, seed=1)
+    out = {}
+    q, k, v = flash["q"], flash["k"], flash["v"]
+    nb, ops = fa.flash_bound(q, k, causal=True)
+    out["flash_attention"] = dict(
+        ms=_event_ms(lambda: fa.flash_attention(q, k, v, causal=True), 5),
+        plain_ms=_event_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                           causal=True), 2),
+        library_ms=_event_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 10),
+        bound=_bound(nb, ops, BF16_OPS_PER_S), nbytes=nb, ops=ops,
+        shape="q (1,32,4096,128), k/v (1,8,4096,128), causal")
+    nb, ops = ssd_mod.ssd_bound(ssd["x"], ssd["B"], chunk)
+    out["ssd_scan"] = dict(
+        ms=_event_ms(lambda: ssd_mod.ssd_scan(**ssd, chunk=chunk), 10),
+        plain_ms=_event_ms(lambda: ref.ssd_scan_ref(**ssd), 1),
+        library_ms=None, bound=_bound(nb, ops, BF16_OPS_PER_S), nbytes=nb,
+        ops=ops, shape=f"x (1,128,4096,64), N=16, chunk {chunk}")
+    for name, key in (("prefill gate/up", "moe_gmm"),
+                      ("decode gate/up", "decode")):
+        lhs, rhs = gmm[name]
+        nb, ops = gmm_mod.gmm_bound(lhs, rhs)
+        out[key] = dict(
+            ms=_event_ms(lambda: gmm_mod.grouped_matmul(lhs, rhs), 5),
+            plain_ms=_event_ms(lambda: ref.grouped_matmul_ref(lhs, rhs), 3),
+            library_ms=_event_ms(lambda: torch.bmm(lhs, rhs), 5),
+            bound=_bound(nb, ops, BF16_OPS_PER_S), nbytes=nb, ops=ops,
+            shape=f"{name} {tuple(lhs.shape)}@{tuple(rhs.shape)}")
+    for key, r in out.items():
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"[times] {card}: {'moe_gmm' if key == 'decode' else key} "
+              f"{r['shape']} bf16: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{lib}, bound {r['bound'][0]:.4f} ms by {r['bound'][1]} "
+              f"({r['nbytes']} B, {r['ops']} FLOP)")
+    out["moe_gmm"]["decode"] = out.pop("decode")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -379,14 +797,54 @@ def main() -> int:
           f"16x16 knees {knees} != mesh 0.25, torus 0.40")
     facade("cuda")
     ms, plain_ms, bound_ms, bound_by, _ = timings("cuda")
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "router_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/router_step.cu",
         "replaces": "src/repro/kernels/router_step.py:114",
         "launches": launches, "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
-        "checked_against_plain": True}]}))
+        "checked_against_plain": True}]
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
+    torch.backends.cudnn.allow_tf32 = False
+    errs = model_kernels_vs_plain("cuda")
+    reduced_end_to_end("cuda")
+    cfg, params, pre = full_width_prefill("cuda")
+    srv = full_width_server("cuda", cfg, params)
+    model_profile("cuda", cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    times = model_timings("cuda")
+    replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:86",
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
+                "moe_gmm": "src/repro/kernels/moe_gmm.py:44"}
+    for name in MODEL_KERNELS:
+        t = times[name]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces[name],
+            "launches": pre["counts"][name] + srv["counts"][name],
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            "checked_against_plain": True,
+            "launches_prefill": pre["counts"][name],
+            "launches_server": srv["counts"][name], "shape": t["shape"]}
+        if "decode" in t:
+            d = t["decode"]
+            entry["decode"] = {"shape": d["shape"], "ms": d["ms"],
+                               "plain_ms": d["plain_ms"],
+                               "library_ms": d["library_ms"],
+                               "bound_ms": d["bound"][0],
+                               "bound_by": d["bound"][1]}
+        kernels.append(entry)
+    print(f"[summary] {card_line()}: prefill 1 x {PREFILL_TOKENS} tokens "
+          f"{pre['wall']:.3f} s (again {pre['warm']:.3f} s); server "
+          f"{srv['ticks']} ticks {srv['wall']:.3f} s, "
+          f"{srv['tokens'] / srv['wall']:.1f} generated tokens/s")
+    print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s; card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

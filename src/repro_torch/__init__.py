@@ -10,9 +10,16 @@ A package of its own beside the JAX reference ``repro``; it imports
   lane axis, its drivers, phased load–latency measurement and the state
   conversions from the JAX package (counterpart of ``repro.netsim_jax``);
 * :mod:`repro_torch.kernels` — the device policy, the ``nvcc`` build and
-  the Hopper router-step kernel (counterpart of ``repro.kernels``);
+  the Hopper kernels: the router step, flash attention, the SSD scan and
+  the grouped matmul (counterpart of ``repro.kernels``);
+* :mod:`repro_torch.configs` — the architecture configs;
+* :mod:`repro_torch.models` — the model stack the Jamba hybrid uses and
+  the ``Jamba`` module (counterpart of ``repro.models``);
+* :mod:`repro_torch.launch` — the prefill and serve steps and the
+  continuous-batching ``Server`` (counterpart of ``repro.launch``);
 * :mod:`repro_torch.core` — the network constants.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
-__all__ = ["core", "kernels", "mesh", "netsim"]
+__all__ = ["configs", "core", "kernels", "launch", "mesh", "models",
+           "netsim"]

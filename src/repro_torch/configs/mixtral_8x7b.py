@@ -1,0 +1,20 @@
+"""mixtral-8x7b [moe] — 8 experts top-2, sliding-window attention
+[arXiv:2401.04088; hf]."""
+from .base import ModelConfig, MoEConfig, register
+
+MIXTRAL_8X7B = register(ModelConfig(
+    name="mixtral-8x7b",
+    family="moe",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=0,                              # MoE every layer (no dense MLP)
+    vocab_size=32000,
+    sliding_window=4096,
+    moe=MoEConfig(num_experts=8, top_k=2, d_ff_expert=14336,
+                  every_n_layers=1),
+    rope_theta=1e6,
+    source="arXiv:2401.04088; hf",
+))

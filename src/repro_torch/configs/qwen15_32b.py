@@ -1,0 +1,17 @@
+"""qwen1.5-32b [dense] — MHA (kv=40) with QKV bias [hf:Qwen/Qwen1.5-0.5B; hf]."""
+from .base import ModelConfig, register
+
+QWEN15_32B = register(ModelConfig(
+    name="qwen1.5-32b",
+    family="dense",
+    num_layers=64,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=40,
+    head_dim=128,
+    d_ff=27392,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1e6,
+    source="hf:Qwen/Qwen1.5-0.5B; hf",
+))

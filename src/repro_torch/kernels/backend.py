@@ -40,7 +40,8 @@ def require_hopper(device: torch.device) -> None:
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``None`` -> the card (raising
     when there is none), ``"cpu"`` -> the CPU, ``"cuda[:i]"`` -> that card
-    after checking it is a Hopper."""
+    after checking it is a Hopper, with its index (the current device's
+    for a bare ``"cuda"``), so it compares equal to a tensor's device."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -54,4 +55,6 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(
             f"unsupported device {device}: expected 'cuda' or 'cpu'")
     require_hopper(device)
+    if device.index is None:     # "cuda" -> "cuda:<current>", as tensors report it
+        device = torch.device("cuda", torch.cuda.current_device())
     return device

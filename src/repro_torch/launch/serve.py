@@ -1,0 +1,174 @@
+"""Serving launcher: continuous-batched decode against a KV cache (the
+port's counterpart of ``repro.launch.serve``, one card).
+
+A bounded slot pool, per-slot sequence state, and one batched decode step
+per tick for every slot.  Admission is inline prefill: a newly admitted
+request spends its first ticks feeding prompt tokens through the same
+decode step (outputs discarded), so no slot stalls another.  A finished
+sequence frees its slot.  Tick for tick the reference's loop.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
+      --reduced --requests 8 --slots 4 --max-new 16
+
+runs on the card; ``--device cpu`` runs the plain versions on the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import time
+from typing import Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["Request", "Server", "main"]
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: "np.ndarray"
+    max_new: int
+    out: Optional[List[int]] = None
+    submitted_at: float = 0.0
+    done_at: float = 0.0
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Request
+    fed: int = 0          # prompt tokens already fed
+
+    @property
+    def prefilling(self) -> bool:
+        return self.fed < len(self.req.prompt)
+
+
+class Server:
+    """Continuous-batching decode server over the port's serve step.
+
+    The model is built on ``device`` (the card unless ``device="cpu"``)
+    around ``params`` (a state dict on that device, e.g. from
+    ``repro_torch.models.convert``; held, not copied), or around
+    ``init_params`` drawn from a generator seeded 0 when ``params`` is
+    None."""
+
+    def __init__(self, cfg, slots: int, max_seq: int, device=None,
+                 eos_id: int = -1,
+                 params: Optional[Dict[str, torch.Tensor]] = None):
+        from repro_torch.kernels.backend import resolve_device
+        from repro_torch.launch.step import serve_step
+        from repro_torch.models import get_model
+        from repro_torch.models.convert import init_params
+
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.slots, self.max_seq, self.eos_id = slots, max_seq, eos_id
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            params = init_params(cfg, gen, self.device)
+        self.model = get_model(cfg)(cfg, device=self.device, params=params)
+        self.serve_step = serve_step
+        self.cache = self.model.init_cache(slots, max_seq)
+        self.active: List[Optional[_Slot]] = [None] * slots
+        self.feed = np.zeros((slots,), np.int32)   # token each slot eats next
+        self.queue: Deque[Request] = collections.deque()
+        self.completed: List[Request] = []
+        self.ticks = 0
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        req.submitted_at = time.perf_counter()
+        req.out = []
+        self.queue.append(req)
+
+    def _admit(self):
+        for s in range(self.slots):
+            if self.active[s] is None and self.queue:
+                req = self.queue.popleft()
+                self.active[s] = _Slot(req=req, fed=1)
+                self._reset_slot(s)
+                self.feed[s] = int(req.prompt[0])
+
+    def _reset_slot(self, s: int):
+        """Zero slot ``s``'s length and, for the hybrid, its SSM state and
+        convolution tail (dimension 2 of ``state`` and ``conv``).  Stale
+        KV needs no wipe: attention masks by length, and new appends
+        overwrite."""
+        self.cache["len"][s] = 0
+        if "state" in self.cache:
+            self.cache["state"][:, :, s] = 0
+            self.cache["conv"][:, :, s] = 0
+
+    # ------------------------------------------------------------------
+    def tick(self):
+        """One decode step for every slot (idle slots eat a pad token)."""
+        self._admit()
+        feed = torch.from_numpy(self.feed.copy()).to(self.device)
+        nxt, self.cache = self.serve_step(self.model, self.cache, feed)
+        nxt = nxt.cpu().numpy()
+        self.ticks += 1
+        for s, slot in enumerate(self.active):
+            if slot is None:
+                continue
+            req = slot.req
+            if slot.prefilling:
+                self.feed[s] = int(req.prompt[slot.fed])   # ignore output
+                slot.fed += 1
+                continue
+            tok = int(nxt[s])
+            req.out.append(tok)
+            self.feed[s] = tok
+            if tok == self.eos_id or len(req.out) >= req.max_new:
+                req.done_at = time.perf_counter()
+                self.completed.append(req)
+                self.active[s] = None   # slot freed
+
+    def run(self, tick_limit: int = 10_000) -> int:
+        while (self.queue or any(sl is not None for sl in self.active)) \
+                and self.ticks < tick_limit:
+            self.tick()
+        return self.ticks
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--device", default=None,
+                    help="'cpu' for the plain versions; default the card")
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs import get_config, reduced_config
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    rng = np.random.default_rng(0)
+    server = Server(cfg, slots=args.slots, max_seq=args.max_seq,
+                    device=args.device)
+    for r in range(args.requests):
+        server.submit(Request(
+            rid=r, prompt=rng.integers(0, cfg.vocab_size,
+                                       size=args.prompt_len).astype(np.int32),
+            max_new=args.max_new))
+    t0 = time.perf_counter()
+    ticks = server.run()
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.out) for r in server.completed)
+    lat = [r.done_at - r.submitted_at for r in server.completed]
+    print(f"served {len(server.completed)}/{args.requests} requests, "
+          f"{toks} tokens in {ticks} ticks / {dt:.1f}s "
+          f"({toks/max(dt,1e-9):.1f} tok/s), "
+          f"mean latency {np.mean(lat):.2f}s")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,69 @@
+"""Parameters for the port's models: conversion from the JAX package's
+parameter dictionaries, and random initialisation on the card.
+
+Both return a ``state_dict`` keyed by the reference's names, for
+``Jamba.load_state_dict``; the arrays come in as numpy, so nothing here
+imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.backend import resolve_device
+from .jamba import param_dtype, param_table
+from .layers import init_dense
+
+__all__ = ["params_from_jax", "init_params"]
+
+
+def params_from_jax(cfg: ModelConfig, params: Mapping[str, np.ndarray],
+                    device=None) -> Dict[str, torch.Tensor]:
+    """``{name: array}`` of the reference (``repro.models.jamba``: names,
+    shapes, dtypes as its ``init_params`` makes them) -> a state dict.
+    Arrays of any float dtype (bf16 arrays included, which numpy holds as
+    an extension dtype) are read through float32, which holds bf16 and
+    fp32 values exactly, and cast to the port's dtype for that name."""
+    table = param_table(cfg)
+    if set(params) != set(table):
+        raise KeyError(f"parameter names differ: missing "
+                       f"{sorted(set(table) - set(params))}, unexpected "
+                       f"{sorted(set(params) - set(table))}")
+    device = resolve_device(device)
+    out = {}
+    for name, shape in table.items():
+        a = np.asarray(params[name])
+        if a.shape != shape:
+            raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
+        out[name] = torch.tensor(np.asarray(a, np.float32)).to(
+            device=device, dtype=param_dtype(cfg, name))
+    return out
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> Dict[str, torch.Tensor]:
+    """Random parameters as the reference initialises them
+    (``repro.models.jamba.init_params``): norms and ``D_skip`` ones,
+    ``A_log`` the log of ``linspace(1, 16)`` over the heads, ``dt_bias`` and
+    ``conv_b`` zeros, the router in fp32, everything else truncated-normal
+    fan-in in the parameter dtype.  Drawn from ``generator`` (which must
+    live on ``device``) in sorted name order; the reference's JAX keys give
+    other numbers."""
+    device = resolve_device(device)
+    out = {}
+    for name, shape in sorted(param_table(cfg).items()):
+        dtype = param_dtype(cfg, name)
+        if "norm" in name or name.endswith("D_skip"):
+            out[name] = torch.ones(shape, dtype=dtype, device=device)
+        elif name.endswith("A_log"):
+            a = torch.log(torch.linspace(1.0, 16.0, shape[-1],
+                                         dtype=torch.float32, device=device))
+            out[name] = a.expand(shape).to(dtype).contiguous()
+        elif name.endswith(("dt_bias", "conv_b")):
+            out[name] = torch.zeros(shape, dtype=dtype, device=device)
+        else:
+            out[name] = init_dense(shape, dtype, generator, device)
+    return out

@@ -1,0 +1,70 @@
+"""Shared model layers (the port's counterpart of ``repro.models.layers``):
+norms, RoPE, embeddings, the SwiGLU MLP and the dense initialiser.
+
+Functions on tensors, with the reference's numerics: RMSNorm and the
+rotary embedding in fp32, SiLU in fp32 cast back to the activation dtype.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["init_dense", "rms_norm", "rope", "swiglu", "embed_lookup"]
+
+F32 = torch.float32
+
+
+def init_dense(shape: Sequence[int], dtype: torch.dtype,
+               generator: torch.Generator, device=None) -> torch.Tensor:
+    """Truncated-normal fan-in init: N(0, 1) cut at +-2, times
+    ``fan_in ** -0.5`` (fan_in = ``shape[-2]``, or ``shape[-1]`` for a
+    vector).  Drawn in fp32 one slice of the leading dimensions at a time,
+    so a large stacked weight never needs a whole fp32 copy, then cast."""
+    shape = tuple(shape)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    s = fan_in ** -0.5
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1, *shape[-2:]) if len(shape) >= 2 else out.view(1, -1)
+    for sl in flat:
+        t = torch.empty(sl.shape, dtype=F32, device=device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        sl.copy_(t.mul_(s))
+    return out
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with fp32 accumulation whatever the activation dtype."""
+    xf = x.to(F32)
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.to(F32)).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 1e4) -> torch.Tensor:
+    """Rotary embedding, half-split.  x: (B, S, H, hd); positions (B, S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=F32, device=x.device)
+                      / half)
+    ang = positions.to(F32)[..., None] * freqs          # (B, S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(F32).split(half, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP: silu(x W_g) * (x W_u), then W_d; SiLU in fp32."""
+    g = x @ w_gate
+    u = x @ w_up
+    h = F.silu(g.to(F32)).to(x.dtype) * u
+    return h @ w_down
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]

@@ -114,10 +114,12 @@ def test_port_imports_nothing_of_jax_or_repro():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib'))\n"
         "             or n == 'repro' or n.startswith('repro.'))\n"
-        "assert 'repro_torch.kernels.router_step' in sys.modules\n"
+        "for m in ('kernels.router_step', 'kernels.flash_attention',\n"
+        "          'kernels.ssd_scan', 'kernels.moe_gmm', 'models.jamba'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 40

@@ -1,0 +1,417 @@
+"""The port's model kernels (flash attention, SSD scan, grouped matmul).
+
+On the CPU each wrapper runs its kernel's plain version.  Here every plain
+version is held, on the shapes of ``tests/test_kernels.py`` (odd lengths
+that the reference pads, GQA and MQA, causal with and without a window,
+several SSD chunks, grouped B/C, bf16 dt, ragged GMM dimensions), against
+both the JAX package's Pallas kernel run through ``repro.kernels.ops`` in
+interpret mode and its pure-jnp oracle in ``repro.kernels.ref``.  Inputs
+are made with numpy from a seed and handed to both packages.
+
+Tolerances: fp32 2e-5 (``tests/test_kernels.py``'s; the two sides sum in
+other orders).  bf16: both sides read the same bf16 inputs, compute in
+fp32 and round once, so they may differ by one bf16 ulp of the result
+(relative 2**-8 to 2**-7): rtol 2**-7, and atol 1e-5 for results near 0.
+
+The kernels themselves run only on a card: the ``gpu`` tests skip here.
+The JAX package is imported inside the tests that use it, so the card
+tests run where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu \\
+        tests/test_torch_model_kernels.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import moe_gmm as gmm_mod
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ssd_mod
+from repro_torch.models.mamba2 import ssd_chunked
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
+
+
+def _tol(dtype):
+    return BF16_TOL if dtype == "bfloat16" else F32_TOL
+
+
+def _pair(a, dtype):
+    """numpy fp32 array -> (jax array, torch tensor) of ``dtype``, equal
+    values (bf16 rounding happens once, on the torch side)."""
+    import jax.numpy as jnp
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        getattr(torch, dtype))
+    return jnp.asarray(t.float().numpy()).astype(jnp.dtype(dtype)), t
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [
+    # (B, S, H, K, hd)
+    (1, 64, 2, 2, 128),    # aligned, MHA
+    (2, 96, 4, 2, 48),     # padded seq + padded hd + GQA
+    (1, 128, 8, 1, 64),    # MQA
+    (1, 300, 4, 4, 80),    # stablelm-like hd=80
+    (2, 48, 4, 2, 128),    # seq < block
+]
+FLASH_CASES = [("float32", True, None), ("float32", False, None),
+               ("bfloat16", True, None), ("float32", True, 32)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype,causal,window", FLASH_CASES)
+def test_flash_plain_matches_pallas_and_ref(shape, dtype, causal, window):
+    from repro.kernels import flash_attention_op as j_flash
+    from repro.kernels import ref as jref
+    B, S, H, K, hd = shape
+    rng = np.random.default_rng(sum(shape))
+    jq, q = _pair(rng.standard_normal((B, S, H, hd)), dtype)
+    jk, k = _pair(rng.standard_normal((B, S, K, hd)), dtype)
+    jv, v = _pair(rng.standard_normal((B, S, K, hd)), dtype)
+    out = ops.flash_attention_op(q, k, v, causal=causal, window=window)
+    assert out.shape == (B, S, H, hd) and out.dtype == q.dtype
+    pallas = j_flash(jq, jk, jv, causal, window, 64, 64)
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    want = jref.flash_attention_ref(
+        jq.transpose(0, 2, 1, 3), jk.transpose(0, 2, 1, 3),
+        jv.transpose(0, 2, 1, 3), causal=causal,
+        window=window).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(out), _np(want), **_tol(dtype))
+
+
+def test_flash_plain_kv_len_masks_the_tail():
+    """``kv_len`` (the padded-tail mask of the kernel layout) equals
+    attention over the first ``kv_len`` keys only."""
+    from repro.kernels import ref as jref
+    rng = np.random.default_rng(3)
+    jq, q = _pair(rng.standard_normal((1, 2, 40, 32)), "float32")
+    jk, k = _pair(rng.standard_normal((1, 1, 40, 32)), "float32")
+    jv, v = _pair(rng.standard_normal((1, 1, 40, 32)), "float32")
+    out = fa_mod.flash_attention(q, k, v, causal=False, kv_len=29)
+    cut = ref.flash_attention_ref(q, k[:, :, :29], v[:, :, :29],
+                                  causal=False)
+    np.testing.assert_allclose(_np(out), _np(cut), **F32_TOL)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=False, kv_len=29)
+    np.testing.assert_allclose(_np(out), _np(want), **F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+SSD_SHAPES = [
+    # (b, s, h, p, g, n, chunk)
+    (1, 64, 2, 16, 1, 16, 16),
+    (2, 96, 4, 16, 2, 24, 32),    # padded seq, grouped B/C
+    (1, 128, 2, 64, 1, 128, 64),  # mamba2-370m-like head
+    (1, 33, 2, 8, 1, 8, 16),      # ragged seq
+]
+
+
+def _ssd_inputs(shape, dtype, seed):
+    b, s, h, p, g, n, _chunk = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.1
+    Bm = rng.standard_normal((b, s, g, n)) * 0.5
+    Cm = rng.standard_normal((b, s, g, n)) * 0.5
+    A = -np.abs(rng.standard_normal((h,)))
+    pairs = [_pair(a, dtype) for a in (x, dt, Bm, Cm)]
+    jA, tA = _pair(A, "float32")
+    return [p[0] for p in pairs] + [jA], [p[1] for p in pairs] + [tA]
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_plain_matches_pallas_and_ref(shape, dtype):
+    """x, dt, B and C all in ``dtype`` (the model casts dt to x's dtype,
+    so bf16 runs carry a bf16 dt)."""
+    from repro.kernels import ref as jref
+    from repro.kernels import ssd_scan_op as j_ssd
+    chunk = shape[-1]
+    jin, tin = _ssd_inputs(shape, dtype, sum(shape))
+    y = ops.ssd_scan_op(*tin, chunk=chunk)
+    assert y.shape == tin[0].shape and y.dtype == tin[0].dtype
+    pallas = j_ssd(*jin, chunk)
+    np.testing.assert_allclose(_np(y), _np(pallas), **_tol(dtype))
+    jx, jdt, jB, jC, jA = jin
+    want = jref.ssd_scan_ref(jx.transpose(0, 2, 1, 3), jdt.transpose(0, 2, 1),
+                             jB.transpose(0, 2, 1, 3),
+                             jC.transpose(0, 2, 1, 3),
+                             jA).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(y), _np(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_ssd_chunked_matches_reference_chunked_and_plain(chunk):
+    """The port's chunked algorithm equals the reference's
+    (``mamba2.ssd_chunked``) and the token-by-token plain version."""
+    from repro.models.mamba2 import ssd_chunked as j_ssd_chunked
+    shape = (2, 40, 4, 8, 2, 8, chunk)
+    jin, tin = _ssd_inputs(shape, "float32", 5)
+    y = ssd_chunked(*tin, chunk=chunk)
+    np.testing.assert_allclose(_np(y), _np(j_ssd_chunked(*jin, chunk=chunk)),
+                               **F32_TOL)
+    np.testing.assert_allclose(_np(y), _np(ops.ssd_scan_op(*tin, chunk)),
+                               **F32_TOL)
+
+
+def test_ssd_chunk_is_clamped_as_the_reference_clamps_it():
+    assert [ops.ssd_chunk(256, s) for s in (1, 10, 16, 17, 100, 4096)] == \
+        [16, 16, 16, 32, 128, 256]
+    assert ops.ssd_chunk(64, 1000) == 64
+
+
+# ---------------------------------------------------------------------------
+# grouped matmul
+# ---------------------------------------------------------------------------
+
+GMM_SHAPES = [
+    (1, 8, 16, 8), (3, 24, 40, 56), (4, 128, 128, 128), (2, 130, 257, 64),
+]
+
+
+@pytest.mark.parametrize("shape", GMM_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_plain_matches_pallas_and_ref(shape, dtype):
+    from repro.kernels import grouped_matmul as j_gmm
+    from repro.kernels import ref as jref
+    e, m, k, n = shape
+    rng = np.random.default_rng(sum(shape))
+    jl, lhs = _pair(rng.standard_normal((e, m, k)), dtype)
+    jr, rhs = _pair(rng.standard_normal((e, k, n)), dtype)
+    out = ops.grouped_matmul(lhs, rhs)
+    assert out.shape == (e, m, n) and out.dtype == lhs.dtype
+    np.testing.assert_allclose(_np(out), _np(j_gmm(jl, jr, impl="pallas")),
+                               **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(jref.grouped_matmul_ref(jl, jr)),
+                               **_tol(dtype))
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' contract
+# ---------------------------------------------------------------------------
+
+class _FakeCudaTensor:
+    device = torch.device("cuda")
+
+
+@pytest.mark.parametrize("mod,fn,plain,args", [
+    (fa_mod, "flash_attention", "flash_attention_ref", 3),
+    (ssd_mod, "ssd_scan", "ssd_scan_ref", 5),
+    (gmm_mod, "grouped_matmul", "grouped_matmul_ref", 2)])
+def test_cuda_tensor_without_card_raises_and_does_not_fall_back(
+        monkeypatch, mod, fn, plain, args):
+    """A CUDA tensor reaches the kernel or raises: with no card each
+    wrapper raises, never runs its plain version, counts nothing."""
+    def plain_must_not_run(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(mod, plain, plain_must_not_run)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wrapper = getattr(mod, fn)
+    wrapper.launches = 0
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wrapper(*[_FakeCudaTensor()] * args)
+    assert wrapper.launches == 0
+
+
+def test_cpu_calls_count_no_launches():
+    for w in (fa_mod.flash_attention, ssd_mod.ssd_scan,
+              gmm_mod.grouped_matmul):
+        w.launches = 0
+    q = torch.randn(1, 2, 5, 8)
+    fa_mod.flash_attention(q, q, q)
+    ssd_mod.ssd_scan(q, q[..., 0], q[:, :1], q[:, :1], -torch.ones(2))
+    gmm_mod.grouped_matmul(q[0], q[0].transpose(1, 2))
+    assert (fa_mod.flash_attention.launches, ssd_mod.ssd_scan.launches,
+            gmm_mod.grouped_matmul.launches) == (0, 0, 0)
+
+
+def test_bounds_count_bytes_and_operations():
+    """The bounds chip_smoke.py reports: bytes of each operand once, and
+    the operations the masks keep (causal: the lower triangle)."""
+    q = torch.empty(1, 4, 10, 16, dtype=torch.bfloat16)
+    k = torch.empty(1, 2, 10, 16, dtype=torch.bfloat16)
+    nbytes, flops = fa_mod.flash_bound(q, k, causal=True)
+    assert nbytes == 2 * (2 * 4 * 10 * 16 + 2 * 2 * 10 * 16)
+    assert flops == 4 * 16 * 4 * 55
+    assert fa_mod.flash_bound(q, k, causal=False)[1] == 4 * 16 * 4 * 100
+    lhs = torch.empty(3, 5, 7)
+    assert gmm_mod.gmm_bound(lhs, torch.empty(3, 7, 11)) == (
+        4 * (3 * 5 * 7 + 3 * 7 * 11 + 3 * 5 * 11), 2 * 3 * 5 * 7 * 11)
+    x = torch.empty(1, 2, 32, 4)
+    nbytes, flops = ssd_mod.ssd_bound(x, torch.empty(1, 1, 32, 3), chunk=16)
+    assert nbytes == 4 * (2 * 2 * 32 * 4 + 2 * 32 + 2 * 32 * 3) + 4 * 2
+    assert flops == 2 * 2 * (2 * 136 * 7 + 4 * 16 * 3 * 4)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA H100 (no CUDA device visible)")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a Hopper (sm_90) card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _card_tol(dtype):
+    # fp32: other summation orders; bf16: one bf16 ulp of the result plus
+    # the fp32 reordering of sums of up to a few hundred terms
+    return dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else \
+        dict(rtol=2 ** -7, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_on_card(dtype):
+    _need_card()
+    g = torch.Generator("cuda").manual_seed(0)
+    for (B, S, H, K, hd), causal, window in (
+            ((2, 96, 4, 2, 48), True, None), ((1, 300, 4, 4, 80), False, None),
+            ((1, 200, 8, 2, 128), True, 37), ((2, 33, 2, 1, 32), True, None)):
+        q = torch.randn(B, H, S, hd, generator=g, device="cuda").to(dtype)
+        k = torch.randn(B, K, S, hd, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, K, S, hd, generator=g, device="cuda").to(dtype)
+        before = fa_mod.flash_attention.launches
+        out = fa_mod.flash_attention(q, k, v, causal=causal, window=window,
+                                     kv_len=S - 3)
+        torch.cuda.synchronize()
+        assert fa_mod.flash_attention.launches == before + 1
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       kv_len=S - 3)
+        torch.testing.assert_close(out.float(), want.float(),
+                                   **_card_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain_on_card(dtype):
+    _need_card()
+    g = torch.Generator("cuda").manual_seed(1)
+    for b, s, h, p, gr, n, chunk in ((1, 64, 2, 16, 1, 16, 16),
+                                     (2, 96, 4, 16, 2, 24, 32),
+                                     (1, 128, 2, 64, 1, 128, 64),
+                                     (1, 300, 4, 64, 1, 16, 256),
+                                     (1, 33, 2, 8, 1, 8, 16)):
+        x = (torch.randn(b, h, s, p, generator=g, device="cuda") * 0.5)
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, h, s, generator=g, device="cuda")) * 0.1
+        Bm = torch.randn(b, gr, s, n, generator=g, device="cuda") * 0.5
+        Cm = torch.randn(b, gr, s, n, generator=g, device="cuda") * 0.5
+        A = -torch.rand(h, generator=g, device="cuda") - 0.1
+        x, dt, Bm, Cm = (t.to(dtype) for t in (x, dt, Bm, Cm))
+        before = ssd_mod.ssd_scan.launches
+        y = ssd_mod.ssd_scan(x, dt, Bm, Cm, A, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd_mod.ssd_scan.launches == before + 1
+        torch.testing.assert_close(y.float(),
+                                   ref.ssd_scan_ref(x, dt, Bm, Cm, A).float(),
+                                   **_card_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_matches_plain_on_card(dtype):
+    _need_card()
+    g = torch.Generator("cuda").manual_seed(2)
+    for e, m, k, n in ((1, 8, 16, 8), (3, 24, 40, 56), (2, 130, 257, 64),
+                       (4, 200, 512, 384), (2, 8, 1000, 136)):
+        lhs = torch.randn(e, m, k, generator=g, device="cuda").to(dtype)
+        rhs = (torch.randn(e, k, n, generator=g, device="cuda")
+               * k ** -0.5).to(dtype)
+        before = gmm_mod.grouped_matmul.launches
+        out = gmm_mod.grouped_matmul(lhs, rhs)
+        torch.cuda.synchronize()
+        assert gmm_mod.grouped_matmul.launches == before + 1
+        torch.testing.assert_close(out.float(),
+                                   ref.grouped_matmul_ref(lhs, rhs).float(),
+                                   **_card_tol(dtype))
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_wrong_dtype_or_layout_on_card():
+    """A wrong dtype, a non-contiguous tensor or mixed dtypes on the card
+    raise before any launch."""
+    _need_card()
+    q = torch.randn(1, 2, 16, 32, device="cuda")
+    q_t = torch.randn(1, 2, 32, 16, device="cuda").transpose(2, 3)
+    x = torch.randn(1, 2, 16, 8, device="cuda")
+    x_t = torch.randn(1, 2, 8, 16, device="cuda").transpose(2, 3)
+    A = -torch.ones(2, device="cuda")
+    lhs = torch.randn(2, 8, 16, device="cuda")
+    launches = (fa_mod.flash_attention.launches, ssd_mod.ssd_scan.launches,
+                gmm_mod.grouped_matmul.launches)
+    for bad in (lambda: fa_mod.flash_attention(q.half(), q.half(), q.half()),
+                lambda: fa_mod.flash_attention(q_t, q, q),
+                lambda: fa_mod.flash_attention(q, q.bfloat16(), q),
+                lambda: ssd_mod.ssd_scan(x.double(), x[..., 0].double(),
+                                         x.double(), x.double(), A),
+                lambda: ssd_mod.ssd_scan(x, x[..., 0], x, x, A.bfloat16()),
+                lambda: ssd_mod.ssd_scan(x_t, x[..., 0], x, x, A),
+                lambda: gmm_mod.grouped_matmul(lhs.half(),
+                                               lhs.half().transpose(1, 2)),
+                lambda: gmm_mod.grouped_matmul(lhs, lhs.transpose(1, 2)),
+                lambda: gmm_mod.grouped_matmul(lhs, lhs.transpose(1, 2)
+                                               .contiguous().bfloat16())):
+        with pytest.raises(ValueError):
+            bad()
+    assert launches == (fa_mod.flash_attention.launches,
+                        ssd_mod.ssd_scan.launches,
+                        gmm_mod.grouped_matmul.launches)
+
+
+@pytest.mark.gpu
+def test_reduced_jamba_on_card_matches_cpu():
+    """The reduced Jamba (fp32) through the kernels on the card against
+    the plain versions on the CPU: forward logits within 2e-4 (the
+    tolerance of tests/test_models.py), every kernel launched, and the
+    ``Server``'s greedy tokens identical."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import init_params
+    cfg = reduced_config(get_config("jamba-v0.1-52b"))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card_params = {k: v.cuda() for k, v in cpu_params.items()}
+    Model = get_model(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 21),
+                           generator=torch.Generator().manual_seed(1))
+    before = (fa_mod.flash_attention.launches, ssd_mod.ssd_scan.launches,
+              gmm_mod.grouped_matmul.launches)
+    on_card, _ = Model(cfg, "cuda", params=card_params)(tokens.cuda())
+    torch.cuda.synchronize()
+    after = (fa_mod.flash_attention.launches, ssd_mod.ssd_scan.launches,
+             gmm_mod.grouped_matmul.launches)
+    assert all(a > b for a, b in zip(after, before))
+    on_cpu, _ = Model(cfg, "cpu", params=cpu_params)(tokens)
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=2e-4, atol=2e-4)
+    outs = []
+    for dev, params in (("cuda", card_params), ("cpu", cpu_params)):
+        server = Server(cfg, slots=2, max_seq=32, device=dev, params=params)
+        for i in range(3):
+            server.submit(Request(rid=i, max_new=5, prompt=np.arange(
+                3 + i, dtype=np.int32) * 7 + i))
+        server.run(tick_limit=100)
+        outs.append([r.out for r in sorted(server.completed,
+                                           key=lambda r: r.rid)])
+    assert outs[0] == outs[1] and all(len(o) == 5 for o in outs[0])
