@@ -28,22 +28,28 @@ Phases (any failure raises and exits nonzero):
    same way, and the kernels' device time from the profiler;
 7. the model kernels against their plain versions (flash attention, SSD
    scan, grouped matmul) at the shapes of the full-width Jamba prefill's
-   first call and at the decode GMM's, in fp32 and in bf16;
+   first call and at the decode GMM's, in fp32 and in bf16; each bf16
+   main-path shape must go through its tensor-core variant (flash
+   ``wgmma_tma``, GMM ``tma`` in prefill and ``decode`` in decode);
 8. the reduced Jamba (fp32) on the card through the kernels against the
    CPU through the plain versions, and teacher-forced ``decode_step``
    against ``forward`` on the card;
 9. the main path of the model stack at full width: Jamba v0.1's widths
    with one period of 8 layers (13.27 B parameters, bf16, drawn on the
    card), a 1 x 4096-token prefill through ``prefill_step`` (1 flash,
-   7 SSD and 12 GMM launches), then the continuous-batching ``Server`` on
-   the same weights (8 requests of 16 prompt tokens, 16 new tokens each, 4
-   slots; 12 GMM launches per tick), each with the launch counts set to 0
-   just before it and read just after;
+   7 SSD and 12 GMM launches, all 12 of the ``tma`` variant), then the
+   continuous-batching ``Server`` on the same weights (8 requests of 16
+   prompt tokens, 16 new tokens each, 4 slots; 12 ``decode``-variant GMM
+   launches per tick), each with the launch counts set to 0 just before it
+   and read just after; no ``ragged`` GMM launch in either;
 10. where the time goes: the profiler over a warm prefill and over 10
    server ticks (device time by kernel category, the device's idle share);
-   times of the model kernels at those shapes (kernel, plain version,
-   library call, bound); then the ``kernels`` JSON line and the ``ok``
-   line.
+   times of the model kernels at those shapes, the GMM at its prefill
+   gate/up, prefill down and decode shapes (kernel, plain version, library
+   call, bound); each kernel's registers, spills and shared memory; then
+   the ``kernels`` JSON line (one entry per kernel variant on the main
+   path, with the time before the redesign beside the redesigned ones)
+   and the ``ok`` line.
 
 It needs a card: without one it prints the reason to stderr and exits 1.
 """
@@ -86,9 +92,9 @@ def build_kernels():
     print(f"[build] {names} built with nvcc in {secs:.1f} s")
     for name, path in paths.items():
         for line in open(str(path) + ".log"):
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill",
+                                       "Performance Loss")):
                 print(f"[build] {name}: {line.strip()}")
-    return secs
 
 
 def kernel_vs_plain(device, nx=16, ny=32, cycles=300, cycles_per_call=8):
@@ -389,10 +395,28 @@ def _wrappers():
 def zero_counts():
     for w in _wrappers().values():
         w.launches = 0
+        if hasattr(w, "launches_by_variant"):
+            w.launches_by_variant = dict.fromkeys(w.launches_by_variant, 0)
 
 
 def read_counts():
     return {k: w.launches for k, w in _wrappers().items()}
+
+
+def read_variants():
+    """{kernel: {variant: launches}} of the kernels that have variants."""
+    return {k: dict(w.launches_by_variant) for k, w in _wrappers().items()
+            if hasattr(w, "launches_by_variant")}
+
+
+def _variant_of(wrapper, fn):
+    """Run ``fn`` and return the one variant of ``wrapper`` it launched."""
+    before = dict(wrapper.launches_by_variant)
+    out = fn()
+    moved = [k for k, v in wrapper.launches_by_variant.items()
+             if v != before[k]]
+    check(len(moved) == 1, f"expected one launch of one variant, got {moved}")
+    return out, moved[0]
 
 
 def _bound(nbytes, ops, ops_per_s):
@@ -455,7 +479,8 @@ def _model_inputs(device, dtype, seed=0):
     gmm = {}
     for name, m, k, n in (("prefill gate/up", capacity(S, cfg.moe), D, Fe),
                           ("prefill down", capacity(S, cfg.moe), Fe, D),
-                          ("decode gate/up", capacity(4, cfg.moe), D, Fe)):
+                          ("decode gate/up", capacity(4, cfg.moe), D, Fe),
+                          ("decode down", capacity(4, cfg.moe), Fe, D)):
         gmm[name] = (rnd(E, m, k), rnd(E, k, n, scale=k ** -0.5))
     return flash, ssd, gmm, s.chunk
 
@@ -469,24 +494,50 @@ def model_kernels_vs_plain(device):
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd_mod
     worst = {}
+    want_gmm = {"prefill gate/up": "tma", "prefill down": "tma",
+                "decode gate/up": "decode", "decode down": "decode"}
     for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
         flash, ssd, gmm, chunk = _model_inputs(device, dtype)
-        out = fa.flash_attention(**flash, causal=True)
-        err = _compare("flash_attention", "(1,32,4096,128) causal, 8 KV heads",
-                       out, ref.flash_attention_ref(**flash, causal=True))
+        out, var = _variant_of(fa.flash_attention, lambda: fa.flash_attention(
+            **flash, causal=True))
+        check(var == ("wgmma_tma" if bf16 else "f32"),
+              f"flash_attention ran the {var} variant")
+        err = _compare("flash_attention", f"(1,32,4096,128) causal, 8 KV "
+                       f"heads [{var}]", out,
+                       ref.flash_attention_ref(**flash, causal=True))
         del out
         y = ssd_mod.ssd_scan(**ssd, chunk=chunk)
         err_s = _compare("ssd_scan", f"(1,128,4096,64) N=16 chunk {chunk}", y,
                          ref.ssd_scan_ref(**ssd))
         del y
-        err_g = 0.0
+        err_g = {"tma": 0.0, "decode": 0.0}
         for name, (lhs, rhs) in gmm.items():
-            out = gmm_mod.grouped_matmul(lhs, rhs)
-            err_g = max(err_g, _compare(
-                "moe_gmm", f"{name} {tuple(lhs.shape)}@{tuple(rhs.shape)}",
-                out, ref.grouped_matmul_ref(lhs, rhs)))
+            out, var = _variant_of(gmm_mod.grouped_matmul,
+                                   lambda: gmm_mod.grouped_matmul(lhs, rhs))
+            check(var == (want_gmm[name] if bf16 else "f32"),
+                  f"moe_gmm {name} ran the {var} variant")
+            e = _compare("moe_gmm", f"{name} {tuple(lhs.shape)}@"
+                         f"{tuple(rhs.shape)} [{var}]", out,
+                         ref.grouped_matmul_ref(lhs, rhs))
+            err_g[want_gmm[name]] = max(err_g[want_gmm[name]], e)
             del out
-        worst = {"flash_attention": err, "ssd_scan": err_s, "moe_gmm": err_g}
+        if bf16:
+            # the ragged variant (WMMA) on the prefill's operands: an lhs
+            # one element off 16-byte alignment, which TMA cannot take
+            lhs, rhs = gmm["prefill gate/up"]
+            buf = torch.empty(lhs.numel() + 1, dtype=dtype, device=device)
+            off = buf[1:].view(lhs.shape).copy_(lhs)
+            out, var = _variant_of(gmm_mod.grouped_matmul,
+                                   lambda: gmm_mod.grouped_matmul(off, rhs))
+            check(var == "ragged", f"moe_gmm misaligned lhs ran the {var} "
+                  "variant")
+            _compare("moe_gmm", f"prefill gate/up, lhs 1 element off "
+                     f"alignment {tuple(lhs.shape)}@{tuple(rhs.shape)} "
+                     f"[{var}]", out, ref.grouped_matmul_ref(lhs, rhs))
+            del out, off, buf
+        worst = {"flash_attention": err, "ssd_scan": err_s,
+                 "moe_gmm": err_g["tma"], "moe_gmm_decode": err_g["decode"]}
         del flash, ssd, gmm
         torch.cuda.empty_cache()
     return worst
@@ -566,6 +617,7 @@ def full_width_prefill(device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    variants = read_variants()
     check(tuple(logits.shape) == (1, cfg.vocab_size)
           and bool(torch.isfinite(logits.float()).all()),
           f"prefill logits {tuple(logits.shape)} not finite of (1, V)")
@@ -578,12 +630,18 @@ def full_width_prefill(device):
           f"parameters, {nbytes / 2**30:.2f} GiB bf16, drawn in {init_s:.1f} "
           f"s): 1 x {PREFILL_TOKENS} tokens, wall {wall:.3f} s "
           f"({PREFILL_TOKENS / wall:.0f} tokens/s); again {warm:.3f} s "
-          f"({PREFILL_TOKENS / warm:.0f} tokens/s); launches {counts}; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+          f"({PREFILL_TOKENS / warm:.0f} tokens/s); launches {counts} "
+          f"by variant {variants}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     check(counts == {"flash_attention": 1, "ssd_scan": 7, "moe_gmm": 12},
           f"prefill launches {counts} != 1 flash, 7 SSD, 12 GMM")
+    check(variants["flash_attention"]["wgmma_tma"] == 1
+          and variants["moe_gmm"]["tma"] == 12
+          and variants["moe_gmm"]["ragged"] == 0,
+          f"prefill variants {variants} != 1 wgmma_tma flash, 12 tma GMM")
     del model, logits, again
-    return cfg, params, {"wall": wall, "warm": warm, "counts": counts}
+    return cfg, params, {"wall": wall, "warm": warm, "counts": counts,
+                         "variants": variants}
 
 
 def full_width_server(device, cfg, params, requests=8, prompt=16,
@@ -607,6 +665,7 @@ def full_width_server(device, cfg, params, requests=8, prompt=16,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    variants = read_variants()
     done = sorted(server.completed, key=lambda r: r.rid)
     toks = sum(len(r.out) for r in done)
     print(f"[server] {requests} requests x {prompt} prompt tokens, max_new "
@@ -614,20 +673,25 @@ def full_width_server(device, cfg, params, requests=8, prompt=16,
           f"completed, {toks} tokens in {ticks} ticks, wall {wall:.3f} s "
           f"({toks / wall:.1f} generated tokens/s, "
           f"{wall / ticks * 1e3:.1f} ms per tick); launches {counts} "
-          f"(GMM per tick {counts['moe_gmm'] / ticks:g})")
+          f"by variant {variants} (GMM per tick "
+          f"{counts['moe_gmm'] / ticks:g})")
     check(len(done) == requests and all(len(r.out) == max_new for r in done),
           "not every request completed")
     check(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
           "a token outside the vocabulary")
     check(counts["moe_gmm"] == 12 * ticks,
           f"GMM launches {counts['moe_gmm']} != 12 per tick x {ticks}")
+    check(variants["moe_gmm"]["decode"] == 12 * ticks
+          and variants["moe_gmm"]["ragged"] == 0,
+          f"server GMM variants {variants['moe_gmm']} != 12 decode per tick")
     return {"ticks": ticks, "wall": wall, "counts": counts,
-            "tokens": toks}
+            "variants": variants, "tokens": toks}
 
 
-_CATEGORIES = (("flash kernel", ("flash_fwd_kernel",)),
+_CATEGORIES = (("flash kernel", ("flash_wgmma_kernel", "flash_fwd_kernel")),
                ("SSD kernel", ("ssd_scan_kernel",)),
-               ("GMM kernel", ("gmm_bf16_kernel", "gmm_f32_kernel")),
+               ("GMM kernel", ("gmm_tma_kernel", "gmm_decode_kernel",
+                               "gmm_bf16_kernel", "gmm_f32_kernel")),
                ("cuBLAS matmuls", ("gemm", "cutlass", "xmma", "nvjet",
                                    "cublas")))
 
@@ -721,8 +785,9 @@ def _event_ms(fn, reps):
 def model_timings(device):
     """Kernel, plain version and library call at the main path's shapes
     (bf16), with CUDA events, beside each kernel's bound.  Returns
-    {kernel: record}; GMM at the prefill gate/up shape, with the decode
-    shape under "decode"."""
+    {entry: record}: ``moe_gmm`` is the prefill gate/up shape,
+    ``moe_gmm_down`` the prefill down shape (both the ``tma`` variant),
+    ``moe_gmm_decode`` and ``moe_gmm_decode_down`` the decode shapes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -749,7 +814,9 @@ def model_timings(device):
         library_ms=None, bound=_bound(nb, ops, BF16_OPS_PER_S), nbytes=nb,
         ops=ops, shape=f"x (1,128,4096,64), N=16, chunk {chunk}")
     for name, key in (("prefill gate/up", "moe_gmm"),
-                      ("decode gate/up", "decode")):
+                      ("prefill down", "moe_gmm_down"),
+                      ("decode gate/up", "moe_gmm_decode"),
+                      ("decode down", "moe_gmm_decode_down")):
         lhs, rhs = gmm[name]
         nb, ops = gmm_mod.gmm_bound(lhs, rhs)
         out[key] = dict(
@@ -761,13 +828,47 @@ def model_timings(device):
     for key, r in out.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
-        print(f"[times] {card}: {'moe_gmm' if key == 'decode' else key} "
-              f"{r['shape']} bf16: kernel "
+        print(f"[times] {card}: {key} {r['shape']} bf16: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{lib}, bound {r['bound'][0]:.4f} ms by {r['bound'][1]} "
               f"({r['nbytes']} B, {r['ops']} FLOP)")
-    out["moe_gmm"]["decode"] = out.pop("decode")
     return out
+
+
+def gmm_cutover(device, rows=(8, 16, 32, 64)):
+    """Where ``decode`` should hand over to ``tma``: both variants on the
+    decode tick's two products (Jamba's K/N) at M = ``rows``, the widths of
+    the swapped product, each checked against the plain version and timed
+    with CUDA events.  ``moe_gmm.DECODE_MAX_M`` is set from these times."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_gmm as gmm_mod
+    from repro_torch.kernels import ref
+    cfg = get_config(JAMBA)
+    card = card_line()
+    E, D, Fe = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    g = torch.Generator(device).manual_seed(4)
+    for k, n, what in ((D, Fe, "gate/up"), (Fe, D, "down")):
+        rhs = (torch.randn(E, k, n, generator=g, device=device)
+               * k ** -0.5).to(torch.bfloat16)
+        for m in rows:
+            lhs = torch.randn(E, m, k, generator=g, device=device
+                              ).to(torch.bfloat16)
+            want = ref.grouped_matmul_ref(lhs, rhs)
+            out = torch.empty(E, m, n, dtype=lhs.dtype, device=device)
+            ms = {}
+            for variant, mp in (("decode", m), ("tma", 0)):
+                def run(variant=variant, mp=mp):
+                    return gmm_mod._launch(lhs, rhs, out, variant, mp)
+                _compare("moe_gmm", f"cut-over {what} {tuple(lhs.shape)}@"
+                         f"{tuple(rhs.shape)} [{variant}]", run(), want)
+                ms[variant] = _event_ms(run, 10)
+            print(f"[cut-over] {card}: {what} M={m}: decode "
+                  f"{ms['decode']:.4f} ms, tma {ms['tma']:.4f} ms; "
+                  f"gmm_variant chooses {gmm_mod.gmm_variant(m, k, n)}")
+            del lhs, want, out
+        del rhs
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -816,29 +917,42 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     times = model_timings("cuda")
+    gmm_cutover("cuda")
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:86",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
                 "moe_gmm": "src/repro/kernels/moe_gmm.py:44"}
-    for name in MODEL_KERNELS:
-        t = times[name]
+    # (entry, kernel, variant): one entry per kernel variant on the main
+    # path, its launches those of that variant in the prefill and server
+    entries = (("flash_attention", "flash_attention", "wgmma_tma"),
+               ("ssd_scan", "ssd_scan", None),
+               ("moe_gmm", "moe_gmm", "tma"),
+               ("moe_gmm_decode", "moe_gmm", "decode"))
+    for key, name, variant in entries:
+        t = times[key]
+        if variant is None:
+            lp, ls = pre["counts"][name], srv["counts"][name]
+        else:
+            lp = pre["variants"][name][variant]
+            ls = srv["variants"][name][variant]
+        check(lp + ls > 0, f"{key} was never launched on the main path")
         entry = {
-            "name": name, "route": "cuda",
+            "name": key, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces[name],
-            "launches": pre["counts"][name] + srv["counts"][name],
-            "max_abs_err": errs[name], "ms": t["ms"],
+            "replaces": replaces[name], "launches": lp + ls,
+            "max_abs_err": errs[key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-            "checked_against_plain": True,
-            "launches_prefill": pre["counts"][name],
-            "launches_server": srv["counts"][name], "shape": t["shape"]}
-        if "decode" in t:
-            d = t["decode"]
-            entry["decode"] = {"shape": d["shape"], "ms": d["ms"],
-                               "plain_ms": d["plain_ms"],
-                               "library_ms": d["library_ms"],
-                               "bound_ms": d["bound"][0],
-                               "bound_by": d["bound"][1]}
+            "checked_against_plain": True, "launches_prefill": lp,
+            "launches_server": ls, "shape": t["shape"]}
+        if variant is not None:
+            entry["variant"] = variant
+        if key.startswith("moe_gmm"):
+            d = times[key + "_down"]
+            entry["down"] = {"shape": d["shape"], "ms": d["ms"],
+                             "plain_ms": d["plain_ms"],
+                             "library_ms": d["library_ms"],
+                             "bound_ms": d["bound"][0],
+                             "bound_by": d["bound"][1]}
         kernels.append(entry)
     print(f"[summary] {card_line()}: prefill 1 x {PREFILL_TOKENS} tokens "
           f"{pre['wall']:.3f} s (again {pre['warm']:.3f} s); server "

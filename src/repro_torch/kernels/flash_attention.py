@@ -12,13 +12,18 @@ repeating KV).  Unlike the Pallas kernel it takes any Sq, Sk and
 hd <= 128: the kernel masks the ragged tails itself, so nothing is padded.
 
 What bounds it on an H100, and what the design does about it: see the
-source note of ``csrc/flash_attention.cu``.  :func:`flash_bound` gives the
-bound of one call.
+source note of ``csrc/flash_attention.cu``.  bf16 runs on the tensor cores
+(``wgmma``, P split into bf16 hi + lo), its tiles loaded by TMA
+(``wgmma_tma``) or, where TMA cannot describe the rows, by the threads of
+its producer warp (``wgmma_loads``); fp32 runs on the CUDA cores
+(``f32``).  :func:`flash_variant` chooses from dtype, head_dim and
+alignment alone.  :func:`flash_bound` gives the bound of one call.
 
 :func:`flash_attention` takes the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`) only for CPU tensors;
 for CUDA tensors it launches the kernel or raises.
-``flash_attention.launches`` counts its launches.
+``flash_attention.launches`` counts its launches and
+``flash_attention.launches_by_variant`` splits them by variant.
 """
 from __future__ import annotations
 
@@ -31,14 +36,26 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.backend import require_hopper
 from repro_torch.kernels.ref import flash_attention_ref
 
-__all__ = ["flash_attention", "flash_bound", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "flash_bound", "flash_variant",
+           "MAX_HEAD_DIM", "VARIANTS"]
 
 MAX_HEAD_DIM = 128
+VARIANTS = ("wgmma_tma", "wgmma_loads", "f32")
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    return _cuda.bind("flash_attention", "pppp" + "i" * 9 + "fi" + "p")
+    return _cuda.bind("flash_attention", "pppp" + "i" * 9 + "fii" + "p")
+
+
+def flash_variant(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
+    """Which kernel a call runs: ``f32`` for fp32; for bf16 the tensor-core
+    kernel, with TMA loads when a row of hd values is a multiple of 16
+    bytes and q, k, v are 16-byte ``aligned`` (``wgmma_tma``), else with
+    thread loads (``wgmma_loads``)."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma_tma" if hd % 8 == 0 and aligned else "wgmma_loads"
 
 
 def flash_bound(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
@@ -95,13 +112,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     scale = hd ** -0.5 if sm_scale is None else float(sm_scale)
+    variant = flash_variant(q.dtype, hd, all(t.data_ptr() % 16 == 0
+                                             for t in (q, k, v)))
     _cuda.launch(_library(), "flash_attention", dev, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kh, sq, sk,
                  hd, sk if kv_len is None else int(kv_len), int(causal),
                  0 if window is None else int(window), scale,
-                 _cuda.DTYPE_CODE[q.dtype])
+                 _cuda.DTYPE_CODE[q.dtype], int(variant == "wgmma_tma"))
     flash_attention.launches += 1
+    flash_attention.launches_by_variant[variant] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -289,14 +289,55 @@ def test_flash_kernel_matches_plain_on_card(dtype):
         k = torch.randn(B, K, S, hd, generator=g, device="cuda").to(dtype)
         v = torch.randn(B, K, S, hd, generator=g, device="cuda").to(dtype)
         before = fa_mod.flash_attention.launches
+        variant = "f32" if dtype == torch.float32 else "wgmma_tma"
+        by = fa_mod.flash_attention.launches_by_variant[variant]
         out = fa_mod.flash_attention(q, k, v, causal=causal, window=window,
                                      kv_len=S - 3)
         torch.cuda.synchronize()
         assert fa_mod.flash_attention.launches == before + 1
+        assert fa_mod.flash_attention.launches_by_variant[variant] == by + 1
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        kv_len=S - 3)
         torch.testing.assert_close(out.float(), want.float(),
                                    **_card_tol(dtype))
+
+
+def _launched(wrapper, fn):
+    """Run ``fn``, synchronise, and return the variants of ``wrapper`` it
+    launched, with the result."""
+    before = dict(wrapper.launches_by_variant)
+    out = fn()
+    torch.cuda.synchronize()
+    return [k for k, v in wrapper.launches_by_variant.items()
+            if v != before[k]], out
+
+
+@pytest.mark.gpu
+def test_flash_tensor_core_variants_on_card():
+    """The bf16 kernel at the main path's shape (Jamba's prefill, causal,
+    GQA 32/8, hd 128: ``wgmma_tma``) and where TMA cannot describe the rows
+    (hd 33, and q not 16-byte aligned: ``wgmma_loads``)."""
+    _need_card()
+    g = torch.Generator("cuda").manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").bfloat16()
+
+    cases = [(rnd(1, 32, 4096, 128), rnd(1, 8, 4096, 128),
+              rnd(1, 8, 4096, 128), True, None, "wgmma_tma"),
+             (rnd(1, 2, 70, 33), rnd(1, 1, 70, 33), rnd(1, 1, 70, 33), True,
+              None, "wgmma_loads"),
+             (rnd(2 * 64 * 64 + 8)[1:1 + 2 * 64 * 64].view(1, 2, 64, 64),
+              rnd(1, 2, 64, 64), rnd(1, 2, 64, 64), False, 20,
+              "wgmma_loads")]
+    for q, k, v, causal, window, variant in cases:
+        ran, out = _launched(fa_mod.flash_attention, lambda: fa_mod
+                             .flash_attention(q, k, v, causal=causal,
+                                              window=window))
+        assert ran == [variant]
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(out.float(), want.float(),
+                                   **_card_tol(torch.bfloat16))
 
 
 @pytest.mark.gpu
@@ -330,18 +371,52 @@ def test_ssd_kernel_matches_plain_on_card(dtype):
 def test_gmm_kernel_matches_plain_on_card(dtype):
     _need_card()
     g = torch.Generator("cuda").manual_seed(2)
-    for e, m, k, n in ((1, 8, 16, 8), (3, 24, 40, 56), (2, 130, 257, 64),
-                       (4, 200, 512, 384), (2, 8, 1000, 136)):
+    for (e, m, k, n), variant in (((1, 8, 16, 8), "decode"),
+                                  ((3, 24, 40, 56), "decode"),
+                                  ((2, 130, 257, 64), "ragged"),
+                                  ((4, 200, 512, 384), "tma"),
+                                  ((2, 8, 1000, 136), "decode")):
         lhs = torch.randn(e, m, k, generator=g, device="cuda").to(dtype)
         rhs = (torch.randn(e, k, n, generator=g, device="cuda")
                * k ** -0.5).to(dtype)
         before = gmm_mod.grouped_matmul.launches
-        out = gmm_mod.grouped_matmul(lhs, rhs)
-        torch.cuda.synchronize()
+        ran, out = _launched(gmm_mod.grouped_matmul,
+                             lambda: gmm_mod.grouped_matmul(lhs, rhs))
         assert gmm_mod.grouped_matmul.launches == before + 1
+        assert ran == ["f32" if dtype == torch.float32 else variant]
         torch.testing.assert_close(out.float(),
                                    ref.grouped_matmul_ref(lhs, rhs).float(),
                                    **_card_tol(dtype))
+
+
+@pytest.mark.gpu
+def test_gmm_variants_at_main_path_shapes_on_card():
+    """bf16 at Jamba's shapes: the prefill gate/up product through ``tma``,
+    a decode tick's (4 slots, 8 capacity rows) gate/up and down through
+    ``decode``; and an operand that does not start on 16 bytes through
+    ``ragged``."""
+    _need_card()
+    g = torch.Generator("cuda").manual_seed(4)
+
+    def pair(e, m, k, n):
+        return (torch.randn(e, m, k, generator=g, device="cuda").bfloat16(),
+                (torch.randn(e, k, n, generator=g, device="cuda")
+                 * k ** -0.5).bfloat16())
+
+    base = torch.randn(2 * 72 * 128 + 8, generator=g, device="cuda")
+    cases = [(*pair(16, 648, 4096, 14336), "tma"),
+             (*pair(16, 8, 4096, 14336), "decode"),
+             (*pair(16, 8, 14336, 4096), "decode"),
+             (base.bfloat16()[1:1 + 2 * 72 * 128].view(2, 72, 128),
+              pair(2, 72, 128, 64)[1], "ragged")]
+    for lhs, rhs, variant in cases:
+        ran, out = _launched(gmm_mod.grouped_matmul,
+                             lambda: gmm_mod.grouped_matmul(lhs, rhs))
+        assert ran == [variant]
+        torch.testing.assert_close(out.float(),
+                                   ref.grouped_matmul_ref(lhs, rhs).float(),
+                                   **_card_tol(torch.bfloat16))
+        del out
 
 
 @pytest.mark.gpu
