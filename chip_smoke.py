@@ -7,37 +7,47 @@ Phases (any failure raises and exits nonzero):
 
 1. print the card (``nvidia-smi`` name and power limit), build every CUDA
    source of ``src/repro_torch/kernels/csrc`` and print the build time;
-2. kernel against plain: the router-step kernel and its plain PyTorch
-   version on the paper's 512-core array (16x32, sweep widths), one batch
-   of lanes per topology plus one with ``resp_latency=3``, 300 cycles of
-   uniform traffic in launches of 8 cycles; every state leaf and every
-   per-cycle ``done`` / ``drained`` value must be identical;
+2. kernel against plain: both variants of the router-step kernel
+   (``direct`` on the state's own leaves, ``packed`` on its tile-innermost
+   working copies) and its plain PyTorch version on the paper's 512-core
+   array (16x32, sweep widths), one batch of lanes per topology plus one
+   with ``resp_latency=3``, 300 cycles of uniform traffic in launches of
+   8 cycles; every state leaf and every per-cycle ``done`` / ``drained``
+   value must be identical;
 3. the main path at full width: the 12-rate load–latency sweep on 16x32
    (12 lanes x 1000 cycles, one kernel call per phase), with the kernel's
-   launch count read around it; then the sweep's own inputs (programs,
+   launch count (each of the variant ``router_variant`` chooses for its
+   call length) read around it; then the sweep's own inputs (programs,
    phase windows, calls) through the kernel and the plain version side by
    side, every leaf and column identical and the plain version's
    statistics equal to the sweep's; and a 4x4 sweep on the card against
    the same sweep on the CPU;
 4. the reference's recorded knees: 16x16 uniform, 300/500/500 phases,
    seed 0 — saturation at 0.25 on the mesh and 0.40 on the torus;
-5. the facade: 16x32 tornado, 512 entries per tile, run until drained;
+5. the facade: 16x32 tornado, 512 entries per tile, run until drained
+   (one call a cycle);
 6. times: the kernel per mesh cycle at 12 lanes x 16x32 with CUDA events,
    in calls of 400 cycles (as the sweep's measure and drain phases) and
-   of 1 cycle (as a drain with ``check_every=1``), the plain version the
-   same way, and the kernels' device time from the profiler;
+   of 1 cycle (as a drain with ``check_every=1``); the cut-over between
+   the variants (both in turns at calls of 1 to 400 cycles, the pack
+   included, from 1 to 12 lanes of 16x32, at 12 lanes of 16x16, and at
+   1 lane of 16x16 and 4x4, where the card is nearly empty); the pack and
+   unpack of the working layout; the plain version; each kernel's device
+   time from the profiler; and the facade drain's wall time from phase 5;
 7. the model kernels against their plain versions (flash attention, SSD
    scan, grouped matmul) at the shapes of the full-width Jamba prefill's
    first call and at the decode GMM's, in fp32 and in bf16; each bf16
    main-path shape must go through its tensor-core variant (flash
-   ``wgmma_tma``, GMM ``tma`` in prefill and ``decode`` in decode);
+   ``wgmma_tma``, SSD ``tensor_core``, GMM ``tma`` in prefill and
+   ``decode`` in decode), fp32 SSD through ``cuda_core``;
 8. the reduced Jamba (fp32) on the card through the kernels against the
    CPU through the plain versions, and teacher-forced ``decode_step``
    against ``forward`` on the card;
 9. the main path of the model stack at full width: Jamba v0.1's widths
    with one period of 8 layers (13.27 B parameters, bf16, drawn on the
    card), a 1 x 4096-token prefill through ``prefill_step`` (1 flash,
-   7 SSD and 12 GMM launches, all 12 of the ``tma`` variant), then the
+   7 SSD and 12 GMM launches: the SSD's all ``tensor_core``, the GMM's
+   all ``tma``), then the
    continuous-batching ``Server`` on the same weights (8 requests of 16
    prompt tokens, 16 new tokens each, 4 slots; 12 ``decode``-variant GMM
    launches per tick), each with the launch counts set to 0 just before it
@@ -46,10 +56,11 @@ Phases (any failure raises and exits nonzero):
    server ticks (device time by kernel category, the device's idle share);
    times of the model kernels at those shapes, the GMM at its prefill
    gate/up, prefill down and decode shapes (kernel, plain version, library
-   call, bound); each kernel's registers, spills and shared memory; then
+   call, bound), the SSD beside the models' own chunked PyTorch
+   (``models/mamba2.py::ssd_chunked``, a yardstick, not a library call);
+   each kernel's registers, spills and shared memory; then
    the ``kernels`` JSON line (one entry per kernel variant on the main
-   path, with the time before the redesign beside the redesigned ones)
-   and the ``ok`` line.
+   paths) and the ``ok`` line.
 
 It needs a card: without one it prints the reason to stderr and exits 1.
 """
@@ -66,6 +77,7 @@ SWEEP_PHASES = (200, 400, 400)  # load_latency_sweep's warmup, measure, drain
 H100_BYTES_PER_S = 3.35e12     # HBM3, SXM data sheet
 H100_OPS_PER_S = 67e12         # non-tensor 32-bit rate (fp32 figure), an upper bound for int32
 INT_OPS_PER_TILE_CYCLE = 500   # integer operations per tile and lane, counted from the source
+ROUTER_KERNELS = ("arbitrate_kernel", "advance_kernel", "pack_kernel")
 
 
 def card_line() -> str:
@@ -92,16 +104,30 @@ def build_kernels():
     print(f"[build] {names} built with nvcc in {secs:.1f} s")
     for name, path in paths.items():
         for line in open(str(path) + ".log"):
-            if any(w in line for w in ("entry function", "registers", "spill",
-                                       "Performance Loss")):
+            if any(w in line for w in ("entry function", "Used ", "spill",
+                                       "Performance Loss", "C7518")):
                 print(f"[build] {name}: {line.strip()}")
+    # the router's instructions per thread: what bounds a cycle when the
+    # card is nearly empty (cuobjdump from the toolkit that built it)
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(paths["router_step"])],
+                              capture_output=True, text=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = next((k for k in ROUTER_KERNELS if k in line), None)
+                if fn and "ILb" in line:         # the template's PACKED
+                    fn += " packed" if "ILb1E" in line else " direct"
+            elif fn and "/*" in line and ";" in line:
+                counts[fn] = counts.get(fn, 0) + 1
+        print(f"[build] router_step SASS instructions per kernel: {counts}")
 
 
 def kernel_vs_plain(device, nx=16, ny=32, cycles=300, cycles_per_call=8):
     """Kernel and plain version side by side, every leaf and column;
     returns the largest absolute difference seen (0 when identical)."""
-    import torch
-    from repro_torch.kernels.router_step import (router_step_call,
+    from repro_torch.kernels.router_step import (VARIANTS, _launch,
                                                  router_step_plain)
     from repro_torch.mesh import Topology, make_traffic
     from repro_torch.netsim.measure import sweep_config
@@ -121,50 +147,57 @@ def kernel_vs_plain(device, nx=16, ny=32, cycles=300, cycles_per_call=8):
             for i, (_, _, r) in enumerate(lanes)])
         depths = [d for d, _, _ in lanes]
         credits = [c for _, c, _ in lanes]
-        ks = init_state(cfg, depths, credits, device=device)
+        ks = {v: init_state(cfg, depths, credits, device=device)
+              for v in VARIANTS}
         ps = init_state(cfg, depths, credits, device=device)
         sizes = launch_sizes(cycles, cycles_per_call)
         check(sizes[-1] != cycles_per_call, "no remainder launch")
         cols = []
         for c in sizes:
-            ks, kd, kr = router_step_call(cfg, prog, ks, c)
             ps, pd, pr = router_step_plain(cfg, prog, ps, c)
-            cols.append((kd, pd, kr, pr))
+            for v in VARIANTS:
+                ks[v], kd, kr = _launch(cfg, prog, ks[v], c, v)
+                cols.append((kd, pd, kr, pr))
         for kd, pd, kr, pr in cols:
             worst = max(worst, int((kd - pd).abs().max()),
                         int((kr - pr).abs().max()))
-        bad = []
-        for name, a, b in zip(STATE_LEAVES, flatten_state(ks),
-                              flatten_state(ps)):
-            d = int((a.long() - b.long()).abs().max())
-            worst = max(worst, d)
-            if d:
-                bad.append(name)
-        done = int(ks.completed.sum())
-        print(f"[kernel-vs-plain] {spec} resp_latency={lat} lanes={len(lanes)} "
-              f"{nx}x{ny} {cycles} cycles: completions {done}, "
-              f"mismatched leaves {bad}")
-        check(not bad and worst == 0,
-              f"kernel differs from plain on {spec}: {bad}")
-        check(done > 0, f"nothing completed on {spec}")
+        for v in VARIANTS:
+            bad = []
+            for name, a, b in zip(STATE_LEAVES, flatten_state(ks[v]),
+                                  flatten_state(ps)):
+                d = int((a.long() - b.long()).abs().max())
+                worst = max(worst, d)
+                if d:
+                    bad.append(name)
+            done = int(ks[v].completed.sum())
+            print(f"[kernel-vs-plain] {spec} resp_latency={lat} "
+                  f"lanes={len(lanes)} {nx}x{ny} {cycles} cycles, {v}: "
+                  f"completions {done}, mismatched leaves {bad}")
+            check(not bad and worst == 0,
+                  f"kernel ({v}) differs from plain on {spec}: {bad}")
+            check(done > 0, f"nothing completed on {spec}")
     return worst
 
 
 def main_path(device, nx=16, ny=32):
     """The load–latency sweep at full width with the kernel's launch
     count read around it; returns (record, wall seconds, launches, the
-    launches its cycles call for)."""
-    from repro_torch.kernels.router_step import router_step_call
+    launches its cycles call for, launches by variant)."""
+    from repro_torch.kernels.router_step import (router_step_call,
+                                                 router_variant)
     from repro_torch.netsim.measure import (DEFAULT_SWEEP_RATES,
                                             load_latency_sweep,
                                             stack_rate_programs, sweep_config)
     from repro_torch.netsim.sim import launch_sizes
     router_step_call.launches = 0
+    router_step_call.launches_by_variant = dict.fromkeys(
+        router_step_call.launches_by_variant, 0)
     t0 = time.perf_counter()
     out = load_latency_sweep("uniform", nx, ny, DEFAULT_SWEEP_RATES,
                              cfg=sweep_config(nx, ny), device=device)
     wall = time.perf_counter() - t0
     launches = router_step_call.launches
+    by_variant = dict(router_step_call.launches_by_variant)
     want = sum(len(launch_sizes(c, None)) for c in SWEEP_PHASES)
     t0 = time.perf_counter()            # the sweep's set-up on its own
     stack_rate_programs("uniform", nx, ny, DEFAULT_SWEEP_RATES,
@@ -175,7 +208,13 @@ def main_path(device, nx=16, ny=32):
           f"zero-load latency {out['zero_load_latency']:.4f} cycles, "
           f"wall {wall:.3f} s (building and copying its programs alone: "
           f"{setup:.3f} s), router_step launches {launches} "
-          f"(expected {want})")
+          f"(expected {want}) by variant {by_variant}")
+    calls = [c for n in SWEEP_PHASES for c in launch_sizes(n, None)]
+    cfg = sweep_config(nx, ny).to_sim()
+    check(by_variant == {v: sum(router_variant(cfg, 12, c) == v
+                                for c in calls) for v in by_variant},
+          f"the sweep's launches {by_variant} are not of the variants "
+          f"router_variant chooses for calls of {calls}")
     import numpy as np
     for k in ("offered", "accepted", "lat_mean", "lat_p99"):
         check(out[k].shape == (12,) and bool(np.isfinite(out[k]).all()),
@@ -187,7 +226,7 @@ def main_path(device, nx=16, ny=32):
     print(f"[main path] largest latency sum of a lane {weight} "
           f"({'above' if weight > 2 ** 24 else 'below'} 2**24, where a "
           f"float32 sum stops being exact)")
-    return out, wall, launches, want
+    return out, wall, launches, want, by_variant
 
 
 def sweep_against_plain(device, out, nx=16, ny=32):
@@ -290,8 +329,15 @@ def recorded_knees(device, nx=16, ny=16):
 
 
 def facade(device, nx=16, ny=32, length=512):
+    """The facade's drain, one kernel call a cycle, with the router's
+    launch counts set to 0 just before it and read just after; returns
+    (drain cycle, wall seconds, launches)."""
+    from repro_torch.kernels.router_step import router_step_call
     from repro_torch.mesh import MeshConfig, Simulator, make_traffic
     prog = make_traffic("tornado", nx, ny, length, rate=0.8, seed=0)
+    router_step_call.launches = 0
+    router_step_call.launches_by_variant = dict.fromkeys(
+        router_step_call.launches_by_variant, 0)
     t0 = time.perf_counter()
     sim = Simulator(MeshConfig(nx=nx, ny=ny, max_out_credits=32),
                     device=device).attach(prog)
@@ -299,80 +345,152 @@ def facade(device, nx=16, ny=32, length=512):
     wall = time.perf_counter() - t0
     entries = int((prog["op"] >= 0).sum())
     done = int(sim.completed.sum())
+    launches = router_step_call.launches
+    by_variant = dict(router_step_call.launches_by_variant)
     t = sim.telemetry()
     print(f"[facade] tornado {nx}x{ny}, {entries} entries: drained at cycle "
           f"{cyc}, {done} completions, wall {wall:.3f} s, mean latency "
-          f"{t.mean_latency():.4f}")
+          f"{t.mean_latency():.4f}; router_step launches {launches} by "
+          f"variant {by_variant}")
     check(done == entries, f"completed {done} != program entries {entries}")
     check(int(t.lat_hist.sum()) == entries, "histogram misses packets")
-    return cyc
+    check(launches > 0 and by_variant["direct"] == launches,
+          f"the drain's 1-cycle calls made {by_variant} launches, not all "
+          f"direct")
+    return cyc, wall, launches
 
 
-def timings(device, nx=16, ny=32, kernel_cycles=800, plain_cycles=20):
-    """Kernel and plain version per mesh cycle at 12 lanes (CUDA events,
-    warmed up), plus the profiler's device time per kernel."""
+def timings(device, facade_wall, nx=16, ny=32, plain_cycles=20):
+    """The router kernel per mesh cycle (CUDA events, warmed up), every
+    run of a configuration from the same state 200 cycles into its sweep
+    traffic: the main path's variant in calls of 400 cycles (as the
+    sweep's measure and drain phases) and the wrapper in calls of 1 cycle
+    (as a drain with ``check_every=1``) at 12 lanes x 16x32; the cut-over
+    between the variants (both, in turns, in calls of 1 to 400 cycles, the
+    pack included, from 1 to 12 lanes of 16x32, at 12 lanes of 16x16 and
+    at 1 lane of 16x16 and 4x4); the pack and unpack; the plain version;
+    each kernel's device time from the profiler; and the facade drain's
+    wall time (phase 5)."""
     import torch
-    from repro_torch.kernels.router_step import (cycle_bytes,
-                                                 router_step_call,
-                                                 router_step_plain)
+    from repro_torch.kernels import router_step as rs
     from repro_torch.netsim.measure import (DEFAULT_SWEEP_RATES, sweep_config,
                                             stack_rate_programs)
-    from repro_torch.netsim.sim import init_state
-    cfg = sweep_config(nx, ny).to_sim()
-    B = len(DEFAULT_SWEEP_RATES)
-    # programs long enough that no lane runs dry in the ~1550 cycles below
-    prog = stack_rate_programs("uniform", nx, ny, DEFAULT_SWEEP_RATES, 2000,
-                               seed=0, device=device)
+    from repro_torch.netsim.sim import (flatten_state, init_state,
+                                        unflatten_state)
+    card = card_line()
 
-    def timed(fn, st, cycles, per_call):
-        fn(cfg, prog, st, per_call)                    # warm up
+    def warm_state(n, rates):
+        cfg = sweep_config(n[0], n[1]).to_sim()
+        # programs long enough that no lane runs dry in any run below
+        prog = stack_rate_programs("uniform", n[0], n[1], rates, 4000,
+                                   seed=0, device=device)
+        st = init_state(cfg, lanes=len(rates), device=device)
+        st, _, _ = rs.router_step_call(cfg, prog, st, 200)
+        warm = [t.clone() for t in flatten_state(st)]
+        return cfg, prog, lambda: unflatten_state([t.clone() for t in warm])
+
+    def per_cycle(fn, cfg, prog, fresh, C, cycles):
+        st = fresh()
+        st, _, _ = fn(cfg, prog, st, C)                # warm up
         torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
+        calls = max(cycles // C, 1)
         t0.record()
-        for _ in range(cycles // per_call):
-            st, _, _ = fn(cfg, prog, st, per_call)
+        for _ in range(calls):
+            st, _, _ = fn(cfg, prog, st, C)
         t1.record()
         torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / cycles, st
+        return t0.elapsed_time(t1) / (calls * C)
 
-    st = init_state(cfg, lanes=B, device=device)
-    st, _, _ = router_step_call(cfg, prog, st, 200)    # into steady state
-    ms_kernel, st = timed(router_step_call, st, kernel_cycles, 400)
-    ms_kernel_c1, st = timed(router_step_call, st, 100, 1)
-    ms_plain, _ = timed(router_step_plain, init_state(cfg, lanes=B,
-                                                      device=device),
-                        plain_cycles, plain_cycles)
-    nbytes = cycle_bytes(cfg, B)
-    ops = INT_OPS_PER_TILE_CYCLE * B * nx * ny
-    bound_ms = max(nbytes / H100_BYTES_PER_S, ops / H100_OPS_PER_S) * 1e3
-    bound_by = "bytes" if nbytes / H100_BYTES_PER_S >= ops / H100_OPS_PER_S \
-        else "operations"
+    def of(v):
+        return lambda c, p, s, n: rs._launch(c, p, s, n, v)
+
+    B = len(DEFAULT_SWEEP_RATES)
+    cfg, prog, fresh = warm_state((nx, ny), DEFAULT_SWEEP_RATES)
+    variant = rs.router_variant(cfg, B, 400)
+    ms_kernel = per_cycle(rs.router_step_call, cfg, prog, fresh, 400, 800)
+    ms_kernel_c1 = per_cycle(rs.router_step_call, cfg, prog, fresh, 1, 100)
+    # the cut-over: both variants in turns at each call length, from 1 lane
+    # to the sweep's 12 lanes of 16x32, the knees' 12 lanes of 16x16, and
+    # 1 lane of 16x16 and 4x4 (the card nearly empty)
+    cut = {}
+    for lanes, n in ((1, (nx, ny)), (2, (nx, ny)), (4, (nx, ny)),
+                     (8, (nx, ny)), (B, (nx, ny)), (B, (16, 16)),
+                     (1, (16, 16)), (1, (4, 4))):
+        if (lanes, n) == (B, (nx, ny)):
+            cfg_l, prog_l, fresh_l = cfg, prog, fresh
+        else:
+            rates = DEFAULT_SWEEP_RATES if lanes == B else \
+                DEFAULT_SWEEP_RATES[3:3 + lanes]
+            cfg_l, prog_l, fresh_l = warm_state(n, rates)
+        if (lanes, n) == (1, (nx, ny)):   # the facade's shape
+            cfg1, prog1, fresh1 = cfg_l, prog_l, fresh_l
+        for C in (1, 16, 64, 128, 256, 400):
+            ab = {v: [] for v in rs.VARIANTS}
+            for v in rs.VARIANTS + rs.VARIANTS[::-1]:
+                ab[v].append(per_cycle(of(v), cfg_l, prog_l, fresh_l, C,
+                                       100 if C == 1 else max(2 * C, 400)))
+            cut[lanes, n, C] = ab
+            print(f"[router cut-over] {card}: {lanes} lane(s) x "
+                  f"{n[0]}x{n[1]} ({lanes * n[0] * n[1]} lanes x tiles), "
+                  f"calls of {C}: " + ", ".join(
+                      f"{v} " + " / ".join(f"{ms * 1e3:.3f}" for ms in runs)
+                      for v, runs in ab.items())
+                  + f" us per cycle; router_variant chooses "
+                  f"{rs.router_variant(cfg_l, lanes, C)}")
+    ms_plain = per_cycle(rs.router_step_plain, cfg, prog, fresh,
+                         plain_cycles, plain_cycles)
+    ms_plain1 = per_cycle(rs.router_step_plain, cfg1, prog1, fresh1, 1,
+                          plain_cycles)
+    st = fresh()
+    packed = rs.pack_state(st)
+    pack = rs._pack_call(rs._library(), st, packed)
+    sid = torch.cuda.current_stream().cuda_stream
+    ms_pack = _event_ms(lambda: pack(False, sid), 20)
+    ms_unpack = _event_ms(lambda: pack(True, sid), 20)
+    bounds = {lanes: _bound(rs.cycle_bytes(cfg, lanes),
+                            INT_OPS_PER_TILE_CYCLE * lanes * nx * ny,
+                            H100_OPS_PER_S) for lanes in (B, 1)}
 
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        st, _, _ = router_step_call(cfg, prog, st, 50)
-        torch.cuda.synchronize()
     dev_us = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0)
-        if ("arbitrate" in ev.key or "advance" in ev.key) and us:
-            dev_us["arbitrate" if "arbitrate" in ev.key else "advance"] = \
-                us / 50
-    card = card_line()
-    print(f"[times] {card}: router_step kernel {ms_kernel * 1e3:.3f} us per "
-          f"mesh cycle in calls of 400 cycles, {ms_kernel_c1 * 1e3:.3f} us "
-          f"in calls of 1 cycle; plain PyTorch version "
-          f"{ms_plain * 1e3:.1f} us per cycle; 12 lanes x {nx}x{ny}")
-    print(f"[times] {card}: bound {bound_ms * 1e3:.3f} us per cycle "
-          f"({nbytes} B at 3.35 TB/s; {ops} int ops), bound by {bound_by}; "
-          f"device time per cycle from the profiler: "
+    for v in rs.VARIANTS:
+        st = fresh()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st, _, _ = rs._launch(cfg, prog, st, 100, v)
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0)
+            name = next((k for k in ROUTER_KERNELS if k in ev.key), None)
+            if name and us:
+                dev_us[f"{v} {name}"] = us / 100
+    print(f"[times] {card}: router_step kernel ({variant}) "
+          f"{ms_kernel * 1e3:.3f} us per mesh cycle in calls of 400 cycles; "
+          f"through the wrapper in calls of 1 cycle "
+          f"({rs.router_variant(cfg, B, 1)}) {ms_kernel_c1 * 1e3:.3f} us; "
+          f"plain PyTorch version {ms_plain * 1e3:.1f} us per cycle; "
+          f"12 lanes x {nx}x{ny}")
+    print(f"[times] {card}: pack {ms_pack * 1e3:.1f} us, unpack "
+          f"{ms_unpack * 1e3:.1f} us a call (12 lanes x {nx}x{ny}); facade "
+          f"tornado drain (phase 5, one call a cycle, "
+          f"{rs.router_variant(cfg1, 1, 1)}) wall {facade_wall:.3f} s")
+    print(f"[times] {card}: bound {bounds[B][0] * 1e3:.3f} us per cycle "
+          f"at 12 lanes ({rs.cycle_bytes(cfg, B)} B at 3.35 TB/s), "
+          f"{bounds[1][0] * 1e3:.3f} us at 1 lane, by {bounds[B][1]}; "
+          f"1 lane through the plain version {ms_plain1 * 1e3:.1f} us per "
+          f"cycle; device time per cycle from the profiler (calls of 100): "
           + (", ".join(f"{k} {v:.3f} us" for k, v in sorted(dev_us.items()))
              or "not measured"))
-    return ms_kernel, ms_plain, bound_ms, bound_by, dev_us
+    # one entry per variant, each at its own path's shape: packed at the
+    # sweep's (12 lanes, calls of 400), direct at the facade's (1 lane,
+    # calls of 1)
+    return {variant: dict(ms=ms_kernel, plain_ms=ms_plain, bound=bounds[B]),
+            "direct": dict(ms=cut[1, (nx, ny), 1]["direct"][0],
+                           plain_ms=ms_plain1, bound=bounds[1])}
 
 
 # ----------------------------------------------------------------------
@@ -507,9 +625,12 @@ def model_kernels_vs_plain(device):
                        f"heads [{var}]", out,
                        ref.flash_attention_ref(**flash, causal=True))
         del out
-        y = ssd_mod.ssd_scan(**ssd, chunk=chunk)
-        err_s = _compare("ssd_scan", f"(1,128,4096,64) N=16 chunk {chunk}", y,
-                         ref.ssd_scan_ref(**ssd))
+        y, var = _variant_of(ssd_mod.ssd_scan, lambda: ssd_mod.ssd_scan(
+            **ssd, chunk=chunk))
+        check(var == ("tensor_core" if bf16 else "cuda_core"),
+              f"ssd_scan ran the {var} variant")
+        err_s = _compare("ssd_scan", f"(1,128,4096,64) N=16 chunk {chunk} "
+                         f"[{var}]", y, ref.ssd_scan_ref(**ssd))
         del y
         err_g = {"tma": 0.0, "decode": 0.0}
         for name, (lhs, rhs) in gmm.items():
@@ -637,8 +758,10 @@ def full_width_prefill(device):
           f"prefill launches {counts} != 1 flash, 7 SSD, 12 GMM")
     check(variants["flash_attention"]["wgmma_tma"] == 1
           and variants["moe_gmm"]["tma"] == 12
-          and variants["moe_gmm"]["ragged"] == 0,
-          f"prefill variants {variants} != 1 wgmma_tma flash, 12 tma GMM")
+          and variants["moe_gmm"]["ragged"] == 0
+          and variants["ssd_scan"]["tensor_core"] == 7,
+          f"prefill variants {variants} != 1 wgmma_tma flash, 12 tma GMM, "
+          "7 tensor_core SSD")
     del model, logits, again
     return cfg, params, {"wall": wall, "warm": warm, "counts": counts,
                          "variants": variants}
@@ -689,7 +812,7 @@ def full_width_server(device, cfg, params, requests=8, prompt=16,
 
 
 _CATEGORIES = (("flash kernel", ("flash_wgmma_kernel", "flash_fwd_kernel")),
-               ("SSD kernel", ("ssd_scan_kernel",)),
+               ("SSD kernel", ("ssd_state_", "ssd_pass_", "ssd_out_")),
                ("GMM kernel", ("gmm_tma_kernel", "gmm_decode_kernel",
                                "gmm_bf16_kernel", "gmm_f32_kernel")),
                ("cuBLAS matmuls", ("gemm", "cutlass", "xmma", "nvjet",
@@ -794,6 +917,7 @@ def model_timings(device):
     from repro_torch.kernels import moe_gmm as gmm_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.models.mamba2 import ssd_chunked
     card = card_line()
     flash, ssd, gmm, chunk = _model_inputs(device, torch.bfloat16, seed=1)
     out = {}
@@ -808,11 +932,14 @@ def model_timings(device):
         bound=_bound(nb, ops, BF16_OPS_PER_S), nbytes=nb, ops=ops,
         shape="q (1,32,4096,128), k/v (1,8,4096,128), causal")
     nb, ops = ssd_mod.ssd_bound(ssd["x"], ssd["B"], chunk)
+    models_layout = [ssd[k].transpose(1, 2) for k in ("x", "dt", "B", "C")]
     out["ssd_scan"] = dict(
         ms=_event_ms(lambda: ssd_mod.ssd_scan(**ssd, chunk=chunk), 10),
         plain_ms=_event_ms(lambda: ref.ssd_scan_ref(**ssd), 1),
         library_ms=None, bound=_bound(nb, ops, BF16_OPS_PER_S), nbytes=nb,
-        ops=ops, shape=f"x (1,128,4096,64), N=16, chunk {chunk}")
+        ops=ops, shape=f"x (1,128,4096,64), N=16, chunk {chunk}",
+        yardstick_ms=_event_ms(lambda: ssd_chunked(
+            *models_layout, ssd["A"], chunk=chunk), 3))
     for name, key in (("prefill gate/up", "moe_gmm"),
                       ("prefill down", "moe_gmm_down"),
                       ("decode gate/up", "moe_gmm_decode"),
@@ -825,13 +952,35 @@ def model_timings(device):
             library_ms=_event_ms(lambda: torch.bmm(lhs, rhs), 5),
             bound=_bound(nb, ops, BF16_OPS_PER_S), nbytes=nb, ops=ops,
             shape=f"{name} {tuple(lhs.shape)}@{tuple(rhs.shape)}")
+    # the SSD's three passes, each kernel's device time (profiler, 5 calls)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ssd_mod.ssd_scan(**ssd, chunk=chunk)
+        torch.cuda.synchronize()
+    passes = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        name = next((k for k in ("ssd_state_", "ssd_pass_", "ssd_out_")
+                     if k in ev.key), None)
+        if name and us:
+            passes[name.strip("_")] = us / 5
+    print(f"[times] {card}: ssd_scan device time per call by pass: "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in passes.items()))
     for key, r in out.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
+        yard = "" if "yardstick_ms" not in r else \
+            (f"; yardstick (not a library call): the models' plain chunked "
+             f"PyTorch (models/mamba2.py::ssd_chunked, cuBLAS) "
+             f"{r['yardstick_ms']:.4f} ms")
         print(f"[times] {card}: {key} {r['shape']} bf16: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{lib}, bound {r['bound'][0]:.4f} ms by {r['bound'][1]} "
-              f"({r['nbytes']} B, {r['ops']} FLOP)")
+              f"({r['nbytes']} B, {r['ops']} FLOP){yard}")
     return out
 
 
@@ -889,23 +1038,35 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     build_kernels()
     worst = kernel_vs_plain("cuda")
-    out, _, launches, want = main_path("cuda")
+    out, _, launches, want, sweep_by_variant = main_path("cuda")
     check(launches == want, f"router_step launches {launches} != {want}")
     worst = max(worst, sweep_against_plain("cuda", out))
     small_sweep_against_cpu("cuda")
     knees = recorded_knees("cuda")
     check(knees == {"mesh": 0.25, "torus": 0.40},
           f"16x16 knees {knees} != mesh 0.25, torus 0.40")
-    facade("cuda")
-    ms, plain_ms, bound_ms, bound_by, _ = timings("cuda")
+    _, facade_wall, facade_launches = facade("cuda")
+    router = timings("cuda", facade_wall)
+    # the sweep's long calls run packed and its short ones direct, the
+    # facade's drain direct (phases 3 and 5)
     kernels = [{
-        "name": "router_step", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/router_step.cu",
         "replaces": "src/repro/kernels/router_step.py:114",
-        "launches": launches, "max_abs_err": worst,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
-        "checked_against_plain": True}]
+        "launches": n, "max_abs_err": worst, "ms": router[v]["ms"],
+        "plain_ms": router[v]["plain_ms"], "bound_ms": router[v]["bound"][0],
+        "bound_by": router[v]["bound"][1], "library_ms": None,
+        "checked_against_plain": True, "variant": v, "shape": shape}
+        for name, v, n, shape in (
+            ("router_step", "packed", sweep_by_variant["packed"],
+             "12 lanes x 16x32, calls of 400 cycles (the sweep)"),
+            ("router_step_direct", "direct",
+             sweep_by_variant["direct"] + facade_launches,
+             "1 lane x 16x32, calls of 1 cycle (the facade's drain; "
+             "the sweep's 200-cycle warm-up also runs direct)"))]
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a router variant was never launched on the main paths: "
+          f"{[(k['name'], k['launches']) for k in kernels]}")
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -924,7 +1085,7 @@ def main() -> int:
     # (entry, kernel, variant): one entry per kernel variant on the main
     # path, its launches those of that variant in the prefill and server
     entries = (("flash_attention", "flash_attention", "wgmma_tma"),
-               ("ssd_scan", "ssd_scan", None),
+               ("ssd_scan", "ssd_scan", "tensor_core"),
                ("moe_gmm", "moe_gmm", "tma"),
                ("moe_gmm_decode", "moe_gmm", "decode"))
     for key, name, variant in entries:
@@ -946,6 +1107,8 @@ def main() -> int:
             "launches_server": ls, "shape": t["shape"]}
         if variant is not None:
             entry["variant"] = variant
+        if "yardstick_ms" in t:
+            entry["yardstick_ms"] = t["yardstick_ms"]
         if key.startswith("moe_gmm"):
             d = times[key + "_down"]
             entry["down"] = {"shape": d["shape"], "ms": d["ms"],

@@ -9,40 +9,46 @@ with the whole state resident in VMEM).  The Hopper kernel is
 
 What bounds it on an H100.  A cycle is an integer state machine with
 cross-tile data flow and almost no arithmetic (about 500 integer
-operations per tile and lane), so it is bound by memory and by launches,
-never by compute.  The least traffic a cycle needs
-(:func:`cycle_bytes`) is each tile's small per-tile state read and
-written once plus the ten head packets, the endpoint's head packet, one
-memory word and one program entry: ~0.78 KB per tile and lane, 4.8 MB for
-12 lanes of a 16x32 mesh, 1.4 us at 3.35 TB/s.  The kernel takes 2
-launches per cycle (arbitrate, then advance; see the source), and a
-launch costs a few microseconds, so the launch latency bounds it above
-the bytes.  Measured on an H100, neither is the limit yet: a cycle takes
-34 us, 31 us of it inside the two kernels (``PERF.md``), whose loads of
-the reference's layout are uncoalesced (neighbouring tiles are
-``5 x cap`` words apart) and whose 48 blocks leave most SMs idle.
+operations per tile and lane), so it is never bound by compute.  The
+least traffic a cycle needs (:func:`cycle_bytes`) is each tile's small
+per-tile state read and written once plus the ten head packets, the
+endpoint's head packet, one memory word and one program entry: ~0.78 KB
+per tile and lane, 4.8 MB for 12 lanes of a 16x32 mesh, 1.4 us at
+3.35 TB/s.  Measured on an H100 (``PERF.md``), what holds a cycle above
+that is one thread's chain of instructions and dependent loads in each
+phase: a cycle costs about as much with one lane of 4x4 as with 12 lanes
+of 16x32.
 
-What the design does about it.  The state stays in device memory, where
-12 lanes (~23 MB) fit the 50 MB L2; one thread per (lane, tile) makes the
-per-cycle work wide (6144 threads at 12 lanes of 16x32) and the lane axis
-grows it further; a call issues its ``C`` cycles back to back on the
-current stream with no host sync, so Python overhead is paid once per
-call.  One persistent launch per call with a grid-wide barrier, or a CUDA
-graph of the ``2C`` launches, would remove the launch latency and is left
-for later work.
+What the design does about it (the source note of ``csrc/router_step.cu``
+has the detail).  Each phase issues all its loads before its first store,
+so a thread waits on L2 a few times a cycle rather than once a load, and
+the phases run one thread per (lane, network, tile) and per (lane, tile)
+in small blocks, which fills the card from a few lanes up: two launches a
+cycle.  Two variants of the same phases differ in layout, chosen before
+the launch from the configuration, the lanes and the cycles per call
+alone (:func:`router_variant`):
+``packed`` runs on working copies of :data:`PACKED_LEAVES` with the tile
+index innermost (:func:`pack_state`; :func:`unpack_state` writes them
+back at the end of the call; on the card one launch of the kernel's own
+transpose each way), so neighbouring threads touch neighbouring words;
+``direct`` runs on the state's own leaves and packs nothing.  A loaded
+card's cycle is cheaper packed, but the pack and its host work are paid
+per call, so only long calls on many lanes x tiles (a sweep's phases) go
+``packed``; a drain that checks its fence every cycle goes ``direct``.
 
 Beside the kernel: :func:`router_step_plain`, the plain PyTorch version
 (``C`` calls of :func:`repro_torch.netsim.sim.step_core`), which the CPU
 tests use and ``chip_smoke.py`` compares the kernel against.  The wrapper
 :func:`router_step_call` takes the plain version only for CPU tensors; for
 CUDA tensors it launches the kernel or raises.  ``router_step_call.launches``
-counts the calls that launched the kernel (each call is ``2C`` CUDA
-launches).
+counts the calls that launched the kernel and
+``router_step_call.launches_by_variant`` the same calls by variant.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -55,18 +61,32 @@ from repro_torch.netsim.sim import (BOOL_LEAVES, F, PROG_FIELDS, STATE_LEAVES,
                                     flatten_state, step_core)
 
 __all__ = ["router_step_call", "router_step_plain", "leaf_shapes",
+           "packed_shapes", "pack_state", "unpack_state", "router_variant",
            "kernel_dims", "cycle_bytes", "DIM_FIELDS", "ARG_FIELDS",
-           "SCRATCH_WORDS"]
+           "SCRATCH_WORDS", "PORT_LEAVES", "PACKED_LEAVES", "VARIANTS",
+           "PACKED_MIN_CYCLES", "PACKED_MIN_TILES"]
 
 I32 = torch.int32
 
-# scratch record per (lane, tile, network, output): winner + its packet
+# scratch record per (lane, network, output, tile): winner + its packet
 SCRATCH_WORDS = 1 + F
+
+# the leaves the wrapper packs into the kernel's working layout
+PORT_LEAVES = ("net_head", "net_count", "rr", "link_util", "fifo_hwm")
+PACKED_LEAVES = ("net_buf",) + PORT_LEAVES
+
+# the kernel's variants, by their code in RouterDims.variant
+VARIANTS = ("direct", "packed")
+
+# where ``packed`` runs (chip_smoke.py's [router cut-over] lines): calls
+# of at least this many cycles, on at least this many lanes x tiles
+PACKED_MIN_CYCLES = 256
+PACKED_MIN_TILES = 4096
 
 # the kernel's two argument structs (csrc/router_step.cu: RouterDims,
 # RouterArgs); field order is the C layout
 DIM_FIELDS = ("B", "ny", "nx", "cap", "ep_fifo", "mem_words", "L", "Lp",
-              "wrap_x", "wrap_y", "chip_w", "period")
+              "wrap_x", "wrap_y", "chip_w", "period", "variant")
 ARG_FIELDS = STATE_LEAVES + ("prog_buf", "prog_len", "scratch", "cyc_snap",
                              "done", "busy")
 
@@ -98,16 +118,84 @@ def leaf_shapes(cfg: SimConfig, lanes: int) -> Dict[str, Tuple[int, ...]]:
             "measure_stop": (B,)}
 
 
-def kernel_dims(cfg: SimConfig, lanes: int, prog_len: int) -> Dict[str, int]:
-    """The kernel's ``RouterDims``: shapes plus the topology flags (the
-    boundary gate as chip width and period; width 0 means no gate)."""
+def packed_shapes(cfg: SimConfig, lanes: int
+                  ) -> Dict[str, Tuple[int, ...]]:
+    """Shape of every packed leaf in the kernel's working layout (the tile
+    index ``T = ny * nx`` innermost), and of the scratch."""
+    B, T = lanes, cfg.ny * cfg.nx
+    port = (B, 2, NUM_DIRS, T)
+    shapes = {"net_buf": (B, F, 2, NUM_DIRS, cfg.router_fifo, T)}
+    shapes.update(dict.fromkeys(PORT_LEAVES, port))
+    shapes["scratch"] = (B, 2, NUM_DIRS, SCRATCH_WORDS, T)
+    return shapes
+
+
+def _as_matrices(name: str, leaf: torch.Tensor) -> torch.Tensor:
+    """A public packed leaf as the batch of (T, K) matrices the pack
+    transposes: the axes before the tile axes (ny, nx), the tiles, the
+    axes after: net_buf (B F 2, T, 5 cap), a port leaf (B 2, T, 5)."""
+    a = 3 if name == "net_buf" else 2
+    s = leaf.shape
+    return leaf.view(math.prod(s[:a]), s[a] * s[a + 1], math.prod(s[a + 2:]))
+
+
+def _public_leaves(st: SimState):
+    leaves = dict(zip(STATE_LEAVES, flatten_state(st)))
+    return [(name, leaves[name]) for name in PACKED_LEAVES]
+
+
+def pack_state(st: SimState) -> Dict[str, torch.Tensor]:
+    """The kernel's working copies of :data:`PACKED_LEAVES`, in plain
+    PyTorch: ``net_buf`` and the five port leaves (stacked, one tensor
+    ``(5, B, 2, 5, T)`` under ``"ports"``).  Each leaf's (T, K) matrices
+    are transposed to (K, T); on the card the kernel's own pack does the
+    same (``csrc/router_step.cu``: pack_kernel)."""
+    out = {}
+    for name, leaf in _public_leaves(st):
+        out[name] = _as_matrices(name, leaf).transpose(1, 2).contiguous()
+    B, T = st.cycle.shape[0], st.net.head.shape[2] * st.net.head.shape[3]
+    cap = st.net.buf.shape[-1]
+    return {"net_buf": out["net_buf"].view(B, F, 2, NUM_DIRS, cap, T),
+            "ports": torch.stack([out[n].view(B, 2, NUM_DIRS, T)
+                                  for n in PORT_LEAVES])}
+
+
+def unpack_state(packed: Dict[str, torch.Tensor], st: SimState) -> None:
+    """Write the working copies of :func:`pack_state` back into ``st``'s
+    leaves, in place."""
+    srcs = [packed["net_buf"]] + list(packed["ports"])
+    for (name, leaf), src in zip(_public_leaves(st), srcs):
+        m = _as_matrices(name, leaf)
+        m.copy_(src.reshape(m.shape[0], m.shape[2], m.shape[1])
+                .transpose(1, 2))
+
+
+def router_variant(cfg: SimConfig, lanes: int, cycles_per_call: int) -> str:
+    """The kernel variant for a call of ``cycles_per_call`` cycles on
+    ``lanes`` lanes of ``cfg``, chosen before the launch from these alone:
+    ``packed`` where the card is loaded (at least
+    :data:`PACKED_MIN_TILES` lanes x tiles) and the call long (at least
+    :data:`PACKED_MIN_CYCLES` cycles), so that its cheaper cycles repay
+    the pack, the unpack and their host work; ``direct`` otherwise."""
+    if lanes * cfg.nx * cfg.ny >= PACKED_MIN_TILES \
+            and cycles_per_call >= PACKED_MIN_CYCLES:
+        return "packed"
+    return "direct"
+
+
+def kernel_dims(cfg: SimConfig, lanes: int, prog_len: int,
+                variant: str = "direct") -> Dict[str, int]:
+    """The kernel's ``RouterDims``: shapes, the topology flags (the
+    boundary gate as chip width and period; width 0 means no gate) and
+    the variant's code."""
     topo = cfg.topology
     return {"B": lanes, "ny": cfg.ny, "nx": cfg.nx, "cap": cfg.router_fifo,
             "ep_fifo": cfg.ep_fifo, "mem_words": cfg.mem_words,
             "L": cfg.resp_latency, "Lp": prog_len,
             "wrap_x": int(topo.wrap_x), "wrap_y": int(topo.wrap_y),
             "chip_w": topo.chip_width(cfg.nx) if topo.gated else 0,
-            "period": topo.boundary_period}
+            "period": topo.boundary_period,
+            "variant": VARIANTS.index(variant)}
 
 
 def cycle_bytes(cfg: SimConfig, lanes: int) -> int:
@@ -154,6 +242,11 @@ def _library() -> ctypes.CDLL:
     lib.router_step_abi.restype = None
     lib.router_step_error_string.argtypes = [ctypes.c_int]
     lib.router_step_error_string.restype = ctypes.c_char_p
+    lib.router_pack_launch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.router_pack_launch.restype = ctypes.c_int
     sizes = (ctypes.c_int * 2)()
     lib.router_step_abi(sizes)
     want = (ctypes.sizeof(_Args), ctypes.sizeof(_Dims))
@@ -177,6 +270,13 @@ def _check_operands(cfg: SimConfig, prog: Program, st: SimState,
                 f"shape {shapes[name]} on {device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
+    big = [n for n, t in zip(STATE_LEAVES + ("program buffer",),
+                             flatten_state(st) + [prog.buf])
+           if t.numel() >= 2 ** 31]
+    if big:
+        raise ValueError(f"router_step kernel indexes with 32-bit offsets; "
+                         f"{big} hold 2**31 words or more: run fewer lanes "
+                         f"a call")
     nprog = len(PROG_FIELDS)
     if prog.buf.dim() != 5 or tuple(prog.buf.shape[:4]) != (B, nprog, cfg.ny,
                                                             cfg.nx):
@@ -193,28 +293,71 @@ def _check_operands(cfg: SimConfig, prog: Program, st: SimState,
                          f"{cfg.nx}), got {tuple(prog.length.shape)}")
 
 
-def _launch(cfg: SimConfig, prog: Program, st: SimState, C: int
-            ) -> Tuple[SimState, torch.Tensor, torch.Tensor]:
+def _pack_call(lib: ctypes.CDLL, st: SimState, packed):
+    """The kernel's pack between ``st``'s packed leaves and ``packed``
+    (:func:`pack_state`, or with ``unpack`` :func:`unpack_state`, as one
+    launch), a function of (unpack, stream) with its arguments built
+    once."""
+    mats = [_as_matrices(n, leaf) for n, leaf in _public_leaves(st)]
+    dsts = [packed["net_buf"]] + list(packed["ports"])
+    n = len(mats)
+    pub = (ctypes.c_void_p * n)(*[m.data_ptr() for m in mats])
+    pk = (ctypes.c_void_p * n)(*[t.data_ptr() for t in dsts])
+    batch = (ctypes.c_int * n)(*[m.shape[0] for m in mats])
+    cols = (ctypes.c_int * n)(*[m.shape[2] for m in mats])
+    T = mats[0].shape[1]
+
+    def call(unpack: bool, stream: int) -> None:
+        err = lib.router_pack_launch(pub, pk, batch, cols, n, T, int(unpack),
+                                     ctypes.c_void_p(stream))
+        if err:
+            raise RuntimeError(f"router_step pack kernel launch failed: "
+                               f"{lib.router_step_error_string(err).decode()}")
+    return call
+
+
+def _launch(cfg: SimConfig, prog: Program, st: SimState, C: int,
+            variant: str) -> Tuple[SimState, torch.Tensor, torch.Tensor]:
+    """Run ``C`` cycles of ``variant`` (``packed``: pack, run, unpack), all
+    on the current stream with no host sync."""
     dev = st.cycle.device
     B = st.cycle.shape[0]
     lib = _library()
-    scratch = torch.empty((B, cfg.ny, cfg.nx, 2, NUM_DIRS, SCRATCH_WORDS),
-                          dtype=I32, device=dev)
+    shapes = packed_shapes(cfg, B)
+    leaves = flatten_state(st)
+    pack = None
+    if variant == "packed":
+        packed = {"net_buf": torch.empty(shapes["net_buf"], dtype=I32,
+                                         device=dev),
+                  "ports": torch.empty((len(PORT_LEAVES),) +
+                                       shapes["net_head"], dtype=I32,
+                                       device=dev)}
+        pack = _pack_call(lib, st, packed)
+        leaves[0] = packed["net_buf"]
+        for name, t in zip(PORT_LEAVES, packed["ports"]):
+            leaves[STATE_LEAVES.index(name)] = t
+    scratch = torch.empty(shapes["scratch"], dtype=I32, device=dev)
     cyc_snap = torch.empty((B,), dtype=I32, device=dev)
     done = torch.zeros((B, C), dtype=I32, device=dev)
     busy = torch.zeros((B, C), dtype=I32, device=dev)
-    operands = flatten_state(st) + [prog.buf, prog.length, scratch, cyc_snap,
-                                    done, busy]
+    operands = leaves + [prog.buf, prog.length, scratch, cyc_snap, done,
+                         busy]
     args = _Args(*[t.data_ptr() for t in operands])
-    dims = _Dims(**kernel_dims(cfg, B, prog.buf.shape[-1]))
+    dims = _Dims(**kernel_dims(cfg, B, prog.buf.shape[-1], variant))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        if pack:
+            pack(False, stream)
         err = lib.router_step_launch(ctypes.byref(args), ctypes.byref(dims),
                                      C, ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"router_step kernel launch failed: "
-                           f"{lib.router_step_error_string(err).decode()}")
+        if err:
+            raise RuntimeError(
+                f"router_step kernel launch failed ({variant}): "
+                f"{lib.router_step_error_string(err).decode()}")
+        if pack:
+            pack(True, stream)
     router_step_call.launches += 1
+    router_step_call.launches_by_variant[variant] += 1
     return st, done, (busy == 0).to(I32)
 
 
@@ -241,7 +384,9 @@ def router_step_call(cfg: SimConfig, prog: Program, st: SimState,
                          f"got {dev}")
     require_hopper(dev)
     _check_operands(cfg, prog, st, dev)
-    return _launch(cfg, prog, st, C)
+    B = st.cycle.shape[0]
+    return _launch(cfg, prog, st, C, router_variant(cfg, B, C))
 
 
 router_step_call.launches = 0
+router_step_call.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -11,14 +11,24 @@ Same layout as the Pallas kernel: x (b, h, S, P), dt (b, h, S), B/C
 ``hh // (h / g)``.  Unlike the Pallas kernel it takes any S: steps past
 the end are dt = 0 inside the kernel (exact), so nothing is padded.
 
-What bounds it on an H100, and what the design does about it: see the
-source note of ``csrc/ssd_scan.cu``.  :func:`ssd_bound` gives the bound
-of one call.
+What bounds it on an H100.  At Jamba's widths a call reads and writes
+~135 MB against ~13 GFLOP (:func:`ssd_bound`): bound by bytes, ~40 us,
+as long as the products run on the tensor cores (on the CUDA cores alone
+the work takes >= 0.19 ms).  What the design does about it (the source
+note of ``csrc/ssd_scan.cu`` has the detail): the chunks run in parallel
+in three launches (each chunk's own state, a short pass carrying the
+state across chunks, each chunk's output), and for bf16 the chunk's
+products are ``wgmma``s, with the decay-weighted ``C B^T`` and ``B o w``
+as bf16 hi + lo and x, exact, loaded by TMA.  :func:`ssd_variant` chooses
+the ``tensor_core`` or the ``cuda_core`` variant from the dtype and the
+shapes alone.
 
 :func:`ssd_scan` takes the plain version
 (:func:`repro_torch.kernels.ref.ssd_scan_ref`, the token-by-token
 recurrence, which has no chunk) only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.  ``ssd_scan.launches`` counts its launches.
+launches the kernel or raises.  ``ssd_scan.launches`` counts its calls
+(three CUDA launches each) and ``ssd_scan.launches_by_variant`` the same
+calls by variant.
 """
 from __future__ import annotations
 
@@ -31,22 +41,40 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.backend import require_hopper
 from repro_torch.kernels.ref import ssd_scan_ref
 
-__all__ = ["ssd_scan", "ssd_bound", "MAX_CHUNK", "MAX_HEAD_DIM",
-           "SMEM_BYTES"]
+__all__ = ["ssd_scan", "ssd_bound", "ssd_variant", "VARIANTS", "MAX_CHUNK",
+           "MAX_HEAD_DIM", "SMEM_BYTES", "TC_ROWS", "TC_MAX_N"]
 
-MAX_CHUNK = 256          # one thread per step of a chunk
-MAX_HEAD_DIM = 64        # P: output columns a thread keeps in registers
+VARIANTS = ("tensor_core", "cuda_core")
+_VARIANT_CODE = {"cuda_core": 0, "tensor_core": 1}   # csrc/ssd_scan.cu
+MAX_CHUNK = 256          # cuda_core: one thread per step of a chunk
+MAX_HEAD_DIM = 64        # P: one 128-byte row of bf16; cuda_core registers
+TC_ROWS = 64             # tensor_core: wgmma's rows; chunks are a multiple
+TC_MAX_N = 64            # tensor_core: C and B rows fit one 128-byte row
 SMEM_BYTES = 232448      # shared memory a Hopper block may use
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    return _cuda.bind("ssd_scan", "pppppp" + "i" * 8 + "p")
+    return _cuda.bind("ssd_scan", "p" * 8 + "i" * 9 + "p")
 
 
 def _smem_bytes(chunk: int, p: int, n: int) -> int:
-    return 4 * (chunk * p + chunk * n + chunk * (n + 1) + 2 * chunk
-                + n * p + 32)
+    """The cuda_core variant's larger pass (3): dt x, B, C (padded), cum,
+    the state and the scan's partials, in floats."""
+    return 4 * (chunk * p + chunk * n + chunk * (n + 1) + chunk + n * p + 32)
+
+
+def ssd_variant(dtype: torch.dtype, chunk: int, n: int, p: int,
+                aligned: bool = True) -> str:
+    """``tensor_core`` for bf16 when the chunk is a multiple of 64 (up to
+    256), N a multiple of 16 (up to 64), P a multiple of 8 (up to 64) and
+    x, B and C are 16-byte ``aligned`` (TMA and the 16-byte loads need
+    it); ``cuda_core`` for everything else.  A pure function of these."""
+    if dtype == torch.bfloat16 and aligned and chunk % TC_ROWS == 0 \
+            and 0 < chunk <= MAX_CHUNK and n % 16 == 0 and 0 < n <= TC_MAX_N \
+            and p % 8 == 0 and 0 < p <= MAX_HEAD_DIM:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def ssd_bound(x: torch.Tensor, B: torch.Tensor, chunk: int
@@ -72,7 +100,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
 
     x (b, h, S, P), dt (b, h, S), B/C (b, g, S, N), A (h,) -> y like x.
     CPU tensors: the plain recurrence; CUDA tensors (contiguous, x/dt/B/C
-    fp32 or bf16 in one dtype, A fp32, P <= 64, chunk <= 256): the kernel.
+    fp32 or bf16 in one dtype, A fp32, P <= 64, chunk <= 256): the
+    kernel, its variant chosen by :func:`ssd_variant` (x, B or C not
+    16-byte aligned take ``cuda_core``).
     """
     dev = x.device
     if dev.type == "cpu":
@@ -87,8 +117,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     b, h, s, p = x.shape
     g, n = B.shape[1], B.shape[3]
     chunk = int(chunk)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, B, C))
+    variant = ssd_variant(x.dtype, chunk, n, p, aligned)
     if g == 0 or h % g or p > MAX_HEAD_DIM or not 1 <= chunk <= MAX_CHUNK \
-            or _smem_bytes(chunk, p, n) > SMEM_BYTES:
+            or (variant == "cuda_core"
+                and _smem_bytes(chunk, p, n) > SMEM_BYTES):
         raise ValueError(
             f"ssd_scan: needs g | h, P <= {MAX_HEAD_DIM}, 1 <= chunk <= "
             f"{MAX_CHUNK} and {_smem_bytes(chunk, p, n)} <= {SMEM_BYTES} "
@@ -103,11 +136,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
+    nc = -(-s // chunk)
+    states = torch.empty((b, h, nc, n, p), dtype=torch.float32, device=dev)
+    decay = torch.empty((b, h, nc), dtype=torch.float32, device=dev)
     _cuda.launch(_library(), "ssd_scan", dev, x.data_ptr(), dt.data_ptr(),
-                 B.data_ptr(), C.data_ptr(), A.data_ptr(), y.data_ptr(), b, h,
-                 g, s, p, n, chunk, _cuda.DTYPE_CODE[x.dtype])
+                 B.data_ptr(), C.data_ptr(), A.data_ptr(), y.data_ptr(),
+                 states.data_ptr(), decay.data_ptr(), b, h, g, s, p, n, chunk,
+                 _cuda.DTYPE_CODE[x.dtype], _VARIANT_CODE[variant])
     ssd_scan.launches += 1
+    ssd_scan.launches_by_variant[variant] += 1
     return y
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_variant = dict.fromkeys(VARIANTS, 0)

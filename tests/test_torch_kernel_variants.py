@@ -1,7 +1,8 @@
-"""The tensor-core variants of the port's flash-attention and grouped-matmul
-kernels, as far as the CPU can hold them.
+"""The tensor-core variants of the port's flash-attention, grouped-matmul
+and SSD-scan kernels, as far as the CPU can hold them.
 
-The kernels (``csrc/flash_attention.cu``, ``csrc/moe_gmm.cu``) run only on
+The kernels (``csrc/flash_attention.cu``, ``csrc/moe_gmm.cu``,
+``csrc/ssd_scan.cu``) run only on
 a card (``tests/test_torch_model_kernels.py``'s ``gpu`` tests and
 ``chip_smoke.py``).  Here:
 
@@ -17,7 +18,12 @@ a card (``tests/test_torch_model_kernels.py``'s ``gpu`` tests and
   tiles, 64-key tiles, online softmax in fp32, P as bf16 hi + lo, fp32
   accumulation) meets the card tolerance against the plain version and the
   Pallas kernel in interpret mode, and misses it with P rounded to bf16
-  alone: why the kernel splits P.
+  alone: why the kernel splits P;
+* the SSD variant is a pure function of dtype and shape, and a plain
+  PyTorch emulation of the tensor-core variant's three chunk-parallel
+  passes (B o w and W as bf16 hi + lo against exact bf16 x) meets the card
+  tolerance against the plain version and the Pallas kernel in interpret
+  mode.
 
 The card tolerance is ``chip_smoke.py``'s for bf16: one bf16 ulp of the
 reference plus 1e-3 of its RMS.
@@ -32,6 +38,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import moe_gmm as gmm_mod
+from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models.moe import capacity
 
@@ -379,3 +386,206 @@ def test_flash_emulation_matches_pallas_interpret(shape, causal, window):
                               ).permute(0, 2, 1, 3).bfloat16()
     assert _misses(_emulate(q, k, v, causal=causal, window=window),
                    pallas) == 0
+
+
+# ---------------------------------------------------------------------------
+# SSD: variant, tiles, arithmetic
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,chunk,n,p,aligned,want", [
+    (torch.bfloat16, 256, 16, 64, True, "tensor_core"),   # Jamba's prefill
+    (torch.bfloat16, 64, 32, 8, True, "tensor_core"),
+    (torch.bfloat16, 192, 48, 16, True, "tensor_core"),
+    (torch.bfloat16, 128, 64, 40, True, "tensor_core"),
+    (torch.float32, 256, 16, 64, True, "cuda_core"),      # fp32 stays fp32
+    (torch.float32, 16, 16, 64, True, "cuda_core"),       # the reduced Jamba
+    (torch.bfloat16, 16, 16, 64, True, "cuda_core"),      # chunk below 64
+    (torch.bfloat16, 96, 16, 64, True, "cuda_core"),
+    (torch.bfloat16, 256, 24, 64, True, "cuda_core"),     # N not a multiple of 16
+    (torch.bfloat16, 64, 128, 64, True, "cuda_core"),     # N beyond one 128-byte row
+    (torch.bfloat16, 256, 16, 12, True, "cuda_core"),     # P not a multiple of 8
+    (torch.bfloat16, 256, 16, 64, False, "cuda_core"),    # x, B or C misaligned
+])
+def test_ssd_variant_follows_shape(dtype, chunk, n, p, aligned, want):
+    assert ssd_mod.ssd_variant(dtype, chunk, n, p, aligned) == want
+
+
+def test_ssd_main_path_takes_the_tensor_core_variant():
+    """The full-width prefill's SSD calls (1 x 4096 tokens, bf16, Jamba's
+    SSM widths and the chunk ``ops.ssd_chunk`` gives them) select
+    ``tensor_core``; the reduced Jamba's (fp32) ``cuda_core``."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import ops
+    s = JAMBA.ssm
+    chunk = ops.ssd_chunk(s.chunk, 4096)
+    assert ssd_mod.ssd_variant(torch.bfloat16, chunk, s.state_dim,
+                               s.head_dim) == "tensor_core"
+    r = reduced_config(JAMBA).ssm
+    assert ssd_mod.ssd_variant(torch.float32, ops.ssd_chunk(r.chunk, 40),
+                               r.state_dim, r.head_dim) == "cuda_core"
+
+
+def _two_arg_functions(name):
+    """The one-line ``constexpr int f(int a, int b) { return ...; }``
+    functions of ``csrc/<name>``, as Python functions over its constants."""
+    text = (CSRC / name).read_text()
+    consts = _constants(name)
+    return {f: (lambda expr, a1, a2: lambda u, v: int(eval(
+        expr, {}, {**consts, a1: u, a2: v})))(expr, a1, a2)
+        for f, a1, a2, expr in re.findall(
+            r"constexpr int (\w+)\(int (\w+), int (\w+)\) "
+            r"\{\s*return ([^;]+);", text)}
+
+
+@pytest.mark.parametrize("chunk", [64, 128, 192, 256])
+def test_ssd_kernel_constants_fit_the_card(chunk):
+    """The tensor-core passes' shared memory, evaluated from
+    csrc/ssd_scan.cu's own functions and constants at every chunk it takes
+    and the largest state (N = P = 64): within a block's 227 KB; two
+    blocks of pass 3 fit an SM at Jamba's widths (N 16, P 64, chunk 256);
+    x, C and B rows are one 128-byte swizzle span; pass 3 is two
+    warpgroups, pass 1 one."""
+    c = _constants("ssd_scan.cu")
+    f = _two_arg_functions("ssd_scan.cu")
+    assert c["MAX_P"] * 2 == 128 and c["MAX_N"] * 2 == 128
+    assert c["TC_ROWS"] == ssd_mod.TC_ROWS == 64
+    assert c["MAX_CHUNK"] == ssd_mod.MAX_CHUNK and chunk % c["TC_ROWS"] == 0
+    assert c["OUT_THREADS"] == 2 * 128 and c["STATE_THREADS"] == 128
+    assert f["out_tc_smem"](chunk, c["MAX_N"]) <= SMEM_PER_BLOCK
+    assert f["state_tc_smem"](chunk, 64) <= SMEM_PER_BLOCK
+    jamba = f["out_tc_smem"](256, JAMBA.ssm.state_dim)
+    assert 2 * (jamba + 1024) <= SMEM_PER_SM
+    # the cuda_core variant at the shapes it takes on the main path and in
+    # the card tests
+    for q, p, n in ((256, 64, 16), (16, 64, 16), (64, 64, 128), (32, 16, 24)):
+        assert ssd_mod._smem_bytes(q, p, n) <= ssd_mod.SMEM_BYTES
+
+
+def _ssd_emulate(x, dt, B, C, A, chunk, split=True):
+    """The tensor-core variant's arithmetic in plain PyTorch, chunk by
+    chunk as its three passes run: the in-chunk prefix of dt A in fp32;
+    pass 1 S_c^T = x^T (B o w) with B o w as bf16 hi (+ lo when ``split``)
+    against exact bf16 x, fp32 sums; pass 2 the fp32 recurrence of the
+    state entering each chunk; pass 3 the inter-chunk term C h with h as
+    bf16 hi (+ lo), scaled by exp(cum_i), plus W x with S = C B^T in fp32
+    (exact products of bf16), W = S o exp(cum_i - cum_j) o dt_j below the
+    diagonal (factored through each 64-column tile's last step off the
+    diagonal tile) as bf16 hi (+ lo) against bf16 x; one rounding to bf16
+    at the end.  Steps past S are dt = 0 and are not written."""
+    b, h, s, p = x.shape
+    g, n = B.shape[1], B.shape[3]
+    nc = -(-s // chunk)
+    out = torch.empty(b, h, s, p)
+    zero = torch.tensor(0.0)
+
+    def bf(t):
+        return t.bfloat16().float()
+
+    def split2(t):                     # the operand as hi (+ lo)
+        hi = bf(t)
+        return (hi, bf(t - hi)) if split else (hi,)
+
+    rows = torch.arange(chunk)
+    rb, jt = rows[:, None] // 64, rows[None, :] // 64
+    end = rows // 64 * 64 + 63            # each column's tile end
+    for bi in range(b):
+        for hh in range(h):
+            gg = hh // (h // g)
+            a = float(A[hh])
+            hstate = torch.zeros(n, p)
+            for c in range(nc):
+                c0, c1 = c * chunk, min(s, (c + 1) * chunk)
+
+                def take(t):
+                    z = torch.zeros((chunk,) + t.shape[1:])
+                    z[:c1 - c0] = t[c0:c1].float()
+                    return z
+
+                dtc, xc = take(dt[bi, hh]), take(x[bi, hh])
+                Bc, Cc = take(B[bi, gg]), take(C[bi, gg])
+                cum = torch.cumsum(dtc * a, 0)
+                # pass 1
+                bw = Bc * (dtc * torch.exp(cum[-1] - cum))[:, None]
+                state_c = sum(xc.T @ part for part in split2(bw)).T
+                # pass 3
+                y = torch.exp(cum)[:, None] * sum(Cc @ part
+                                                  for part in split2(hstate))
+                S = Cc @ Bc.T
+                off = torch.exp(cum[:, None] - cum[end][None, :]) * (
+                    torch.exp(cum[end] - cum) * dtc)[None, :]
+                low = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+                on = torch.exp(torch.where(low, cum[:, None] - cum[None, :],
+                                           zero)) * dtc[None, :]
+                w = torch.where(rb > jt, S * off,
+                                torch.where((rb == jt) & low, S * on, zero))
+                y = y + sum(part @ xc for part in split2(w))
+                out[bi, hh, c0:c1] = y[:c1 - c0]
+                # pass 2
+                hstate = torch.exp(cum[-1]) * hstate + state_c
+    return out.to(x.dtype)
+
+
+def _ssd_bf16_inputs(b, h, g, s, p, n, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=0.5):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * scale).bfloat16()
+
+    dt = torch.from_numpy(np.log1p(np.exp(rng.standard_normal(
+        (b, h, s)))).astype(np.float32) * 0.1).bfloat16()
+    A = -torch.from_numpy(np.linspace(1.0, 4.0, h).astype(np.float32))
+    return t(b, h, s, p), dt, t(b, g, s, n), t(b, g, s, n), A
+
+
+SSD_EMULATION_CASES = [
+    # (b, h, g, S, P, N, chunk): S ragged against the chunk, G < H
+    (1, 4, 2, 150, 8, 16, 64),
+    (2, 2, 1, 200, 16, 32, 64),
+    (1, 4, 1, 300, 64, 16, 128),
+    (1, 2, 2, 97, 64, 48, 64),
+]
+
+
+@pytest.mark.parametrize("shape", SSD_EMULATION_CASES)
+def test_ssd_emulation_meets_the_card_tolerance(shape):
+    """The tensor-core variant's arithmetic against the plain version
+    (the token-by-token recurrence) within chip_smoke.py's bf16
+    tolerance."""
+    b, h, g, s, p, n, chunk = shape
+    assert ssd_mod.ssd_variant(torch.bfloat16, chunk, n, p) == "tensor_core"
+    x, dt, B, C, A = _ssd_bf16_inputs(b, h, g, s, p, n, seed=s + p)
+    want = ssd_mod.ssd_scan_ref(x, dt, B, C, A)
+    assert _misses(_ssd_emulate(x, dt, B, C, A, chunk), want) == 0
+
+
+@pytest.mark.parametrize("shape", SSD_EMULATION_CASES[:2])
+def test_ssd_emulation_matches_pallas_interpret(shape):
+    """The emulation against the JAX package's Pallas SSD kernel run in
+    interpret mode (through its ops.py wrapper, in the models' layout),
+    same bf16 inputs, the card tolerance."""
+    import jax.numpy as jnp
+    from repro.kernels import ssd_scan_op as j_ssd
+    b, h, g, s, p, n, chunk = shape
+    x, dt, B, C, A = _ssd_bf16_inputs(b, h, g, s, p, n, seed=1)
+
+    def to_jax(t, perm):
+        return jnp.asarray(t.float().numpy().transpose(perm)).astype(
+            jnp.bfloat16)
+
+    pallas = j_ssd(to_jax(x, (0, 2, 1, 3)), to_jax(dt, (0, 2, 1)),
+                   to_jax(B, (0, 2, 1, 3)), to_jax(C, (0, 2, 1, 3)),
+                   jnp.asarray(A.numpy()), chunk)
+    pallas = torch.from_numpy(np.array(pallas.astype(jnp.float32))
+                              ).permute(0, 2, 1, 3).bfloat16()
+    assert _misses(_ssd_emulate(x, dt, B, C, A, chunk), pallas) == 0
+
+
+def test_ssd_emulation_without_the_split_misses_it():
+    """Why the kernel splits W, B o w and h: with each rounded to bf16 once,
+    thousands of outputs fall outside one bf16 ulp + 1e-3 RMS of the plain
+    version at a 300-step, 128-chunk head."""
+    x, dt, B, C, A = _ssd_bf16_inputs(1, 4, 1, 300, 64, 16, seed=364)
+    want = ssd_mod.ssd_scan_ref(x, dt, B, C, A)
+    assert _misses(_ssd_emulate(x, dt, B, C, A, 128), want) == 0
+    assert _misses(_ssd_emulate(x, dt, B, C, A, 128, split=False), want) > 1000

@@ -343,13 +343,22 @@ def test_flash_tensor_core_variants_on_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain_on_card(dtype):
+    """Both variants against the plain version: bf16 shapes with the chunk
+    a multiple of 64, N of 16 and P of 8 run ``tensor_core`` (S ragged
+    against the chunk, G < H, N 16 to 64, P 8 to 64), the rest, x one
+    element off 16-byte alignment, and all of fp32 ``cuda_core``."""
     _need_card()
     g = torch.Generator("cuda").manual_seed(1)
-    for b, s, h, p, gr, n, chunk in ((1, 64, 2, 16, 1, 16, 16),
-                                     (2, 96, 4, 16, 2, 24, 32),
-                                     (1, 128, 2, 64, 1, 128, 64),
-                                     (1, 300, 4, 64, 1, 16, 256),
-                                     (1, 33, 2, 8, 1, 8, 16)):
+    for b, s, h, p, gr, n, chunk, off in ((1, 64, 2, 16, 1, 16, 16, 0),
+                                          (2, 96, 4, 16, 2, 24, 32, 0),
+                                          (1, 128, 2, 64, 1, 128, 64, 0),
+                                          (1, 300, 4, 64, 1, 16, 256, 0),
+                                          (1, 33, 2, 8, 1, 8, 16, 0),
+                                          (2, 200, 4, 32, 2, 32, 64, 0),
+                                          (1, 131, 6, 8, 3, 64, 128, 0),
+                                          (1, 700, 2, 64, 1, 48, 192, 0),
+                                          (1, 4096, 8, 64, 1, 16, 256, 0),
+                                          (1, 300, 4, 64, 1, 16, 256, 1)):
         x = (torch.randn(b, h, s, p, generator=g, device="cuda") * 0.5)
         dt = torch.nn.functional.softplus(
             torch.randn(b, h, s, generator=g, device="cuda")) * 0.1
@@ -357,10 +366,19 @@ def test_ssd_kernel_matches_plain_on_card(dtype):
         Cm = torch.randn(b, gr, s, n, generator=g, device="cuda") * 0.5
         A = -torch.rand(h, generator=g, device="cuda") - 0.1
         x, dt, Bm, Cm = (t.to(dtype) for t in (x, dt, Bm, Cm))
+        if off:      # the same x, a contiguous view off elements in
+            x = torch.cat([x.new_zeros(off), x.reshape(-1)])[off:] \
+                .view(b, h, s, p)
+        aligned = x.data_ptr() % 16 == 0
+        assert aligned == (off == 0)
         before = ssd_mod.ssd_scan.launches
-        y = ssd_mod.ssd_scan(x, dt, Bm, Cm, A, chunk=chunk)
-        torch.cuda.synchronize()
+        ran, y = _launched(ssd_mod.ssd_scan, lambda: ssd_mod.ssd_scan(
+            x, dt, Bm, Cm, A, chunk=chunk))
         assert ssd_mod.ssd_scan.launches == before + 1
+        assert ran == [ssd_mod.ssd_variant(dtype, chunk, n, p, aligned)]
+        assert ran == ["tensor_core" if dtype == torch.bfloat16 and aligned
+                       and chunk % 64 == 0 and n % 16 == 0 and n <= 64
+                       and p % 8 == 0 else "cuda_core"]
         torch.testing.assert_close(y.float(),
                                    ref.ssd_scan_ref(x, dt, Bm, Cm, A).float(),
                                    **_card_tol(dtype))
