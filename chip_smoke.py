@@ -34,33 +34,49 @@ Phases (any failure raises and exits nonzero):
    1 lane of 16x16 and 4x4, where the card is nearly empty); the pack and
    unpack of the working layout; the plain version; each kernel's device
    time from the profiler; and the facade drain's wall time from phase 5;
-7. the model kernels against their plain versions (flash attention, SSD
-   scan, grouped matmul) at the shapes of the full-width Jamba prefill's
-   first call and at the decode GMM's, in fp32 and in bf16; each bf16
-   main-path shape must go through its tensor-core variant (flash
-   ``wgmma_tma``, SSD ``tensor_core``, GMM ``tma`` in prefill and
-   ``decode`` in decode), fp32 SSD through ``cuda_core``;
-8. the reduced Jamba (fp32) on the card through the kernels against the
-   CPU through the plain versions, and teacher-forced ``decode_step``
-   against ``forward`` on the card;
-9. the main path of the model stack at full width: Jamba v0.1's widths
-   with one period of 8 layers (13.27 B parameters, bf16, drawn on the
-   card), a 1 x 4096-token prefill through ``prefill_step`` (1 flash,
-   7 SSD and 12 GMM launches: the SSD's all ``tensor_core``, the GMM's
-   all ``tma``), then the
-   continuous-batching ``Server`` on the same weights (8 requests of 16
-   prompt tokens, 16 new tokens each, 4 slots; 12 ``decode``-variant GMM
-   launches per tick), each with the launch counts set to 0 just before it
-   and read just after; no ``ragged`` GMM launch in either;
-10. where the time goes: the profiler over a warm prefill and over 10
-   server ticks (device time by kernel category, the device's idle share);
-   times of the model kernels at those shapes, the GMM at its prefill
-   gate/up, prefill down and decode shapes (kernel, plain version, library
-   call, bound), the SSD beside the models' own chunked PyTorch
-   (``models/mamba2.py::ssd_chunked``, a yardstick, not a library call);
-   each kernel's registers, spills and shared memory; then
-   the ``kernels`` JSON line (one entry per kernel variant on the main
-   paths) and the ``ok`` line.
+7. the model kernels against their plain versions, in fp32 and in bf16,
+   at every main path's shapes (``FLASH_CASES``, ``GMM_CASES``,
+   ``SSD_CASES``): flash at Jamba's, Mixtral's (1 x 8192 with its 4096
+   window), Qwen2-VL's (GQA 64/8) and StableLM's (hd 80) prefill; the GMM
+   at Jamba's and Mixtral's prefill and decode and Moonshot's prefill (E
+   64, N 1408); the SSD at Jamba's (N 16) and Mamba-2 370M's (N 128)
+   prefill.  Each bf16 call must go through its tensor-core variant
+   (flash ``wgmma_tma``, SSD ``tensor_core``, GMM ``tma`` in prefill and
+   ``decode`` in decode), fp32 through ``f32`` / ``cuda_core``; and the
+   GMM's ``ragged`` variant on an lhs TMA cannot describe;
+8. the reduced Jamba, Mixtral (window 16, 50 tokens: decode wraps its
+   cache three times), Qwen2-VL (distinct (3, B, S) positions) and
+   Mamba-2 LM (fp32) on the card through the kernels against the CPU
+   through the plain versions, and teacher-forced ``decode_step`` against
+   ``forward`` on the card;
+9. the model stack's main paths at full width, one model at a time, each
+   freed before the next, bf16 weights drawn on the card; for each a
+   prefill through ``prefill_step``, then the continuous-batching
+   ``Server`` on the same weights, each with the launch counts set to 0
+   just before it and read just after (every kernel and variant not named
+   here 0), then where the time goes (the profiler over a warm prefill and
+   over 10 server ticks: device time by kernel category, the device's
+   idle share):
+   - Jamba v0.1's widths, one period of 8 layers (13.27 B parameters):
+     1 x 4096 tokens, 1 ``wgmma_tma`` flash, 7 ``tensor_core`` SSD and 12
+     ``tma`` GMM; ``Server`` of 8 requests of 16 prompt tokens, 16 new
+     tokens each, 4 slots: 12 ``decode`` GMM a tick;
+   - Mixtral-8x7B's widths, 8 of 32 layers (11.87 B): 1 x 8192 tokens,
+     8 ``wgmma_tma`` flash and 24 ``tma`` GMM; the same ``Server``: 24
+     ``decode`` GMM a tick;
+   - Qwen2-VL-72B's widths, 4 of 80 layers (6.00 B): 1 x 4096 tokens
+     with (3, 1, S) positions, 4 ``wgmma_tma`` flash; a ``Server`` of 4
+     requests (no kernel in decode);
+   - Mamba-2 370M whole (48 layers): 1 x 4096 tokens, 48 ``tensor_core``
+     SSD; the ``Server`` of 8 requests (its decode is plain recurrence);
+10. times of the model kernels at the shapes of phase 7 (kernel, plain
+   version, library call, bound): flash beside SDPA (with a window, the
+   band as an explicit mask, naming the kernel SDPA ran, and the kernel
+   without the window), the GMM beside ``torch.bmm``, the SSD beside the
+   models' own chunked PyTorch (``models/mamba2.py::ssd_chunked``, a
+   yardstick, not a library call) with its passes' device time and its
+   fp32 (``cuda_core``) time; the decode/tma cut-over; then the ``kernels`` JSON line (one entry per
+   kernel variant and shape on the main paths) and the ``ok`` line.
 
 It needs a card: without one it prints the reason to stderr and exits 1.
 """
@@ -496,10 +512,27 @@ def timings(device, facade_wall, nx=16, ny=32, plain_cycles=20):
 # ----------------------------------------------------------------------
 # the model stack: Jamba served through the flash, SSD and GMM kernels
 # ----------------------------------------------------------------------
-JAMBA = "jamba-v0.1-52b"
+JAMBA, MIXTRAL = "jamba-v0.1-52b", "mixtral-8x7b"
+QWEN2_VL, MAMBA2 = "qwen2-vl-72b", "mamba2-370m"
+MOONSHOT, STABLELM = "moonshot-v1-16b-a3b", "stablelm-3b"
 PREFILL_TOKENS = 4096          # batch 1 x 4096 tokens
+MIXTRAL_TOKENS = 8192          # twice Mixtral's 4096-token window
 BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core rate, SXM data sheet
-MODEL_KERNELS = ("flash_attention", "ssd_scan", "moe_gmm")
+# The model kernels' shapes on the main paths: (name, arch, tokens) of each
+# flash call of a prefill, of each expert FFN's GMM pair (gate/up and down
+# at the capacity of ``tokens``: a prefill, or a decode tick of 4 slots)
+# and of each SSD call of a prefill.
+FLASH_CASES = (("Jamba prefill", JAMBA, PREFILL_TOKENS),
+               ("Mixtral prefill", MIXTRAL, MIXTRAL_TOKENS),
+               ("Qwen2-VL prefill", QWEN2_VL, PREFILL_TOKENS),
+               ("StableLM hd 80", STABLELM, PREFILL_TOKENS))
+GMM_CASES = (("Jamba prefill", JAMBA, PREFILL_TOKENS),
+             ("Jamba decode", JAMBA, 4),
+             ("Mixtral prefill", MIXTRAL, MIXTRAL_TOKENS),
+             ("Mixtral decode", MIXTRAL, 4),
+             ("Moonshot prefill", MOONSHOT, PREFILL_TOKENS))
+SSD_CASES = (("Jamba", JAMBA, PREFILL_TOKENS),
+             ("Mamba-2", MAMBA2, PREFILL_TOKENS))
 
 
 def _wrappers():
@@ -568,117 +601,151 @@ def _compare(name, note, got, want):
     return worst
 
 
-def _model_inputs(device, dtype, seed=0):
-    """Each kernel's inputs at the shapes of the full-width prefill's
-    first call (batch 1 x 4096 tokens of Jamba v0.1), and the decode GMM's
-    (4 slots).  The SSD's A is the model's initial -linspace(1, 16)."""
+def _rnd(device, dtype, seed):
     import torch
-    import torch.nn.functional as F
-    from repro_torch.configs import get_config
-    from repro_torch.models.moe import capacity
-    cfg = get_config(JAMBA)
     g = torch.Generator(device).manual_seed(seed)
-    S, H, K, hd = PREFILL_TOKENS, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    s = cfg.ssm
-    nh, G = s.num_heads(cfg.d_model), s.num_groups
-    E, D, Fe = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g, device=device)
                 * scale).to(dtype)
-
-    flash = dict(q=rnd(1, H, S, hd), k=rnd(1, K, S, hd), v=rnd(1, K, S, hd))
-    ssd = dict(x=rnd(1, nh, S, s.head_dim, scale=0.5),
-               dt=(F.softplus(torch.randn(1, nh, S, generator=g,
-                                          device=device)) * 0.1).to(dtype),
-               B=rnd(1, G, S, s.state_dim, scale=0.5),
-               C=rnd(1, G, S, s.state_dim, scale=0.5),
-               A=-torch.linspace(1.0, 16.0, nh, device=device))
-    gmm = {}
-    for name, m, k, n in (("prefill gate/up", capacity(S, cfg.moe), D, Fe),
-                          ("prefill down", capacity(S, cfg.moe), Fe, D),
-                          ("decode gate/up", capacity(4, cfg.moe), D, Fe),
-                          ("decode down", capacity(4, cfg.moe), Fe, D)):
-        gmm[name] = (rnd(E, m, k), rnd(E, k, n, scale=k ** -0.5))
-    return flash, ssd, gmm, s.chunk
+    return rnd, g
 
 
-def model_kernels_vs_plain(device):
-    """Each new kernel against its plain version at the main path's
-    shapes, in fp32 and in bf16.  Returns {kernel: bf16 max_abs_err}."""
+def _flash_inputs(device, dtype, arch, S, seed):
+    """q (1, H, S, hd), k, v (1, K, S, hd) at ``arch``'s widths, and its
+    window."""
+    from repro_torch.configs import get_config
+    c = get_config(arch)
+    rnd, _ = _rnd(device, dtype, seed)
+    H, K, hd = c.num_heads, c.num_kv_heads, c.head_dim
+    return (rnd(1, H, S, hd), rnd(1, K, S, hd), rnd(1, K, S, hd),
+            c.sliding_window)
+
+
+def _gmm_inputs(device, dtype, arch, tokens, seed):
+    """{"gate/up": (lhs, rhs), "down": (lhs, rhs)} of ``arch``'s expert FFN
+    at the capacity of ``tokens`` tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+    c = get_config(arch)
+    rnd, _ = _rnd(device, dtype, seed)
+    m, D, Fe = capacity(tokens, c.moe), c.d_model, c.moe.d_ff_expert
+    E = c.moe.num_experts
+    return {"gate/up": (rnd(E, m, D), rnd(E, D, Fe, scale=D ** -0.5)),
+            "down": (rnd(E, m, Fe), rnd(E, Fe, D, scale=Fe ** -0.5))}
+
+
+def _ssd_inputs(device, dtype, arch, S, seed):
+    """(x, dt, B, C, A as kwargs, chunk) of one of ``arch``'s SSD calls in
+    a prefill of S tokens; A is the models' initial -linspace(1, 16)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    c = get_config(arch)
+    s = c.ssm
+    rnd, g = _rnd(device, dtype, seed)
+    nh, G = s.num_heads(c.d_model), s.num_groups
+    return dict(x=rnd(1, nh, S, s.head_dim, scale=0.5),
+                dt=(F.softplus(torch.randn(1, nh, S, generator=g,
+                                           device=device)) * 0.1).to(dtype),
+                B=rnd(1, G, S, s.state_dim, scale=0.5),
+                C=rnd(1, G, S, s.state_dim, scale=0.5),
+                A=-torch.linspace(1.0, 16.0, nh, device=device)), s.chunk
+
+
+def kernels_vs_plain(device):
+    """Each model kernel against its plain version at every main path's
+    shapes (FLASH_CASES, GMM_CASES, SSD_CASES), in fp32 and in bf16, each
+    asserting the variant it ran (bf16: flash ``wgmma_tma``, SSD
+    ``tensor_core``, GMM ``tma`` in prefill and ``decode`` in decode; fp32:
+    ``f32`` and ``cuda_core``); and the GMM's ``ragged`` variant on an lhs
+    TMA cannot describe.  Returns {case: bf16 max_abs_err}."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd_mod
-    worst = {}
-    want_gmm = {"prefill gate/up": "tma", "prefill down": "tma",
-                "decode gate/up": "decode", "decode down": "decode"}
+    errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
-        flash, ssd, gmm, chunk = _model_inputs(device, dtype)
-        out, var = _variant_of(fa.flash_attention, lambda: fa.flash_attention(
-            **flash, causal=True))
-        check(var == ("wgmma_tma" if bf16 else "f32"),
-              f"flash_attention ran the {var} variant")
-        err = _compare("flash_attention", f"(1,32,4096,128) causal, 8 KV "
-                       f"heads [{var}]", out,
-                       ref.flash_attention_ref(**flash, causal=True))
-        del out
-        y, var = _variant_of(ssd_mod.ssd_scan, lambda: ssd_mod.ssd_scan(
-            **ssd, chunk=chunk))
-        check(var == ("tensor_core" if bf16 else "cuda_core"),
-              f"ssd_scan ran the {var} variant")
-        err_s = _compare("ssd_scan", f"(1,128,4096,64) N=16 chunk {chunk} "
-                         f"[{var}]", y, ref.ssd_scan_ref(**ssd))
-        del y
-        err_g = {"tma": 0.0, "decode": 0.0}
-        for name, (lhs, rhs) in gmm.items():
-            out, var = _variant_of(gmm_mod.grouped_matmul,
-                                   lambda: gmm_mod.grouped_matmul(lhs, rhs))
-            check(var == (want_gmm[name] if bf16 else "f32"),
-                  f"moe_gmm {name} ran the {var} variant")
-            e = _compare("moe_gmm", f"{name} {tuple(lhs.shape)}@"
-                         f"{tuple(rhs.shape)} [{var}]", out,
-                         ref.grouped_matmul_ref(lhs, rhs))
-            err_g[want_gmm[name]] = max(err_g[want_gmm[name]], e)
-            del out
+        for name, arch, S in FLASH_CASES:
+            q, k, v, window = _flash_inputs(device, dtype, arch, S, 0)
+            out, var = _variant_of(fa.flash_attention, lambda: fa
+                                   .flash_attention(q, k, v, causal=True,
+                                                    window=window))
+            check(var == ("wgmma_tma" if bf16 else "f32"),
+                  f"flash_attention {name} ran the {var} variant")
+            errs["flash " + name] = _compare(
+                "flash_attention", f"{name} q {tuple(q.shape)} k/v "
+                f"{tuple(k.shape)} causal window {window} [{var}]", out,
+                ref.flash_attention_ref(q, k, v, causal=True, window=window))
+            del q, k, v, out
+            torch.cuda.empty_cache()
+        for name, arch, tokens in GMM_CASES:
+            for part, (lhs, rhs) in _gmm_inputs(device, dtype, arch, tokens,
+                                                0).items():
+                out, var = _variant_of(gmm_mod.grouped_matmul,
+                                       lambda: gmm_mod.grouped_matmul(lhs,
+                                                                      rhs))
+                want = "f32" if not bf16 else \
+                    "decode" if "decode" in name else "tma"
+                check(var == want, f"moe_gmm {name} {part} ran the {var} "
+                      "variant")
+                errs[f"gmm {name} {part}"] = _compare(
+                    "moe_gmm", f"{name} {part} {tuple(lhs.shape)}@"
+                    f"{tuple(rhs.shape)} [{var}]", out,
+                    ref.grouped_matmul_ref(lhs, rhs))
+                del lhs, rhs, out
+            torch.cuda.empty_cache()
         if bf16:
-            # the ragged variant (WMMA) on the prefill's operands: an lhs
+            # the ragged variant (WMMA) on Jamba's prefill operands: an lhs
             # one element off 16-byte alignment, which TMA cannot take
-            lhs, rhs = gmm["prefill gate/up"]
+            lhs, rhs = _gmm_inputs(device, dtype, JAMBA, PREFILL_TOKENS,
+                                   0)["gate/up"]
             buf = torch.empty(lhs.numel() + 1, dtype=dtype, device=device)
             off = buf[1:].view(lhs.shape).copy_(lhs)
             out, var = _variant_of(gmm_mod.grouped_matmul,
                                    lambda: gmm_mod.grouped_matmul(off, rhs))
             check(var == "ragged", f"moe_gmm misaligned lhs ran the {var} "
                   "variant")
-            _compare("moe_gmm", f"prefill gate/up, lhs 1 element off "
+            _compare("moe_gmm", f"Jamba prefill gate/up, lhs 1 element off "
                      f"alignment {tuple(lhs.shape)}@{tuple(rhs.shape)} "
                      f"[{var}]", out, ref.grouped_matmul_ref(lhs, rhs))
-            del out, off, buf
-        worst = {"flash_attention": err, "ssd_scan": err_s,
-                 "moe_gmm": err_g["tma"], "moe_gmm_decode": err_g["decode"]}
-        del flash, ssd, gmm
+            del out, off, buf, lhs, rhs
+        for name, arch, S in SSD_CASES:
+            ssd, chunk = _ssd_inputs(device, dtype, arch, S, 0)
+            y, var = _variant_of(ssd_mod.ssd_scan, lambda: ssd_mod.ssd_scan(
+                **ssd, chunk=chunk))
+            check(var == ("tensor_core" if bf16 else "cuda_core"),
+                  f"ssd_scan {name} ran the {var} variant")
+            errs["ssd " + name] = _compare(
+                "ssd_scan", f"{name} x {tuple(ssd['x'].shape)} N="
+                f"{ssd['B'].shape[-1]} chunk {chunk} [{var}]", y,
+                ref.ssd_scan_ref(**ssd))
+            del y, ssd
         torch.cuda.empty_cache()
-    return worst
+    return errs
 
 
-def reduced_end_to_end(device, seq=40):
-    """The reduced Jamba (fp32, 2 periods of 2 layers, capacity factor 8 so
-    no token drops) on the card through the kernels against the CPU
-    through the plain versions; then teacher-forced ``decode_step`` on the
-    card against ``forward`` on the card (2e-4, the tolerance of
-    tests/test_models.py).  Returns the largest logit difference."""
+def reduced_end_to_end(device, arch=JAMBA, seq=40, positions=False):
+    """The reduced model of ``arch`` (fp32, capacity factor 8 so no token
+    drops) on the card through the kernels against the CPU through the
+    plain versions (logits within 2e-4, the tolerance of
+    tests/test_models.py), every kernel of the model launched; then
+    teacher-forced ``decode_step`` on the card against ``forward`` on the
+    card (for the reduced Mixtral, window 16, at ``seq`` 50: the cache
+    wraps three times).  ``positions``: distinct (3, B, S) M-RoPE positions, forward
+    only.  Returns the largest logit difference."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models import get_model
     from repro_torch.models.convert import init_params
-    cfg = reduced_config(get_config(JAMBA))
-    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, capacity_factor=8.0))
+    cfg = reduced_config(get_config(arch))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
     cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     Model = get_model(cfg)
     card = Model(cfg, device, params={k: v.to(device)
@@ -686,92 +753,118 @@ def reduced_end_to_end(device, seq=40):
     cpu = Model(cfg, "cpu", params=cpu_params)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, seq)))
+    pos = None
+    if positions:
+        i = torch.arange(seq)
+        pos = torch.stack([i // 4, i // 2, i])[:, None].expand(3, 2, seq) \
+            + torch.tensor([0, 1])[None, :, None]
     zero_counts()
-    on_card, _ = card(tokens.to(device))
+    on_card, _ = card(tokens.to(device),
+                      positions=None if pos is None else pos.to(device))
     torch.cuda.synchronize()
     counts = read_counts()
-    on_cpu, _ = cpu(tokens)
+    on_cpu, _ = cpu(tokens, positions=pos)
     err = float((on_card.cpu() - on_cpu).abs().max())
-    print(f"[reduced] Jamba {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"fp32, 2 x {seq} tokens: card (kernels, launches {counts}) vs CPU "
-          f"(plain versions) max logit difference {err:.3e} (tolerance 2e-4)")
-    check(all(counts[k] > 0 for k in MODEL_KERNELS),
-          f"the reduced forward missed a kernel: {counts}")
-    check(err <= 2e-4, f"reduced Jamba: card and CPU logits differ by {err}")
+    print(f"[reduced] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, window {cfg.sliding_window}, fp32, 2 x {seq} "
+          f"tokens{', distinct (3, B, S) positions' if positions else ''}: "
+          f"card (kernels, launches {counts}) vs CPU (plain versions) max "
+          f"logit difference {err:.3e} (tolerance 2e-4)")
+    want = {"flash_attention": cfg.family != "ssm",
+            "ssd_scan": cfg.ssm is not None,
+            "moe_gmm": cfg.moe is not None}
+    check({k: n > 0 for k, n in counts.items()} == want,
+          f"the reduced forward's kernels {counts}, expected {want}")
+    check(err <= 2e-4, f"reduced {arch}: card and CPU logits differ by {err}")
+    if positions:
+        return err
     cache = card.init_cache(2, seq)
     steps = []
     for i in range(seq):
         lg, cache = card.decode_step(cache, tokens[:, i].to(device))
         steps.append(lg)
     derr = float((torch.stack(steps, 1) - on_card).abs().max())
-    print(f"[reduced] teacher-forced decode_step vs forward on the card: max "
-          f"logit difference {derr:.3e} (tolerance 2e-4)")
-    check(derr <= 2e-4, f"reduced Jamba: decode differs from forward by "
+    held = f"{cache['k'].shape[2]} KV cache slots" if "k" in cache else \
+        "the recurrent state"
+    print(f"[reduced] {cfg.name}: teacher-forced decode_step vs forward on "
+          f"the card ({held}): max logit difference {derr:.3e} (tolerance "
+          f"2e-4)")
+    check(derr <= 2e-4, f"reduced {arch}: decode differs from forward by "
           f"{derr}")
     return max(err, derr)
 
 
-def full_width_prefill(device):
-    """The main path at full width: Jamba v0.1's widths, one period of 8
-    layers, bf16 weights from ``init_params`` on the card, batch 1 x 4096
-    tokens through ``prefill_step``.  Returns (cfg, params, record)."""
-    import dataclasses
-    import numpy as np
+def draw_params(device, cfg):
+    """``init_params`` of ``cfg`` on the card: (params, bytes, seconds)."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.launch.step import prefill_step
-    from repro_torch.models import get_model
     from repro_torch.models.convert import init_params
-    cfg = dataclasses.replace(get_config(JAMBA), num_layers=8)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device).manual_seed(0), device)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    return params, nbytes, time.perf_counter() - t0
+
+
+def prefill_path(device, cfg, params, seq, want, label, positions=False):
+    """The main path's prefill at full width: batch 1 x ``seq`` tokens
+    through ``prefill_step`` (with (3, 1, S) text positions when
+    ``positions``), the launch counts set to 0 just before and read just
+    after; ``want`` {kernel: {variant: launches}} must be exactly what ran
+    (every other kernel and variant 0).  Two prefills of the same tokens
+    must be equal.  Returns its record."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.step import prefill_step
+    from repro_torch.models import get_model
     model = get_model(cfg)(cfg, device, params=params)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (1, PREFILL_TOKENS))).to(device)
+        0, cfg.vocab_size, (1, seq))).to(device)
+    batch = {"tokens": tokens}
+    if positions:
+        batch["positions"] = torch.arange(seq, device=device).expand(3, 1, seq)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
-    logits = prefill_step(model, {"tokens": tokens})
+    logits = prefill_step(model, batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
     variants = read_variants()
     check(tuple(logits.shape) == (1, cfg.vocab_size)
           and bool(torch.isfinite(logits.float()).all()),
-          f"prefill logits {tuple(logits.shape)} not finite of (1, V)")
+          f"{label} prefill logits {tuple(logits.shape)} not finite of "
+          f"(1, V)")
     t0 = time.perf_counter()
-    again = prefill_step(model, {"tokens": tokens})
+    again = prefill_step(model, batch)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    check(torch.equal(again, logits), "two prefills of the same tokens differ")
-    print(f"[prefill] Jamba widths, 8 layers ({cfg.param_count() / 1e9:.2f} B "
-          f"parameters, {nbytes / 2**30:.2f} GiB bf16, drawn in {init_s:.1f} "
-          f"s): 1 x {PREFILL_TOKENS} tokens, wall {wall:.3f} s "
-          f"({PREFILL_TOKENS / wall:.0f} tokens/s); again {warm:.3f} s "
-          f"({PREFILL_TOKENS / warm:.0f} tokens/s); launches {counts} "
-          f"by variant {variants}; peak memory "
+    check(torch.equal(again, logits), f"{label}: two prefills of the same "
+          "tokens differ")
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    print(f"[prefill] {label} ({cfg.param_count() / 1e9:.2f} B parameters, "
+          f"{nbytes / 2**30:.2f} GiB bf16): 1 x {seq} tokens, wall "
+          f"{wall:.3f} s ({seq / wall:.0f} tokens/s); again {warm:.3f} s "
+          f"({seq / warm:.0f} tokens/s); launches {counts} by variant "
+          f"{variants}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    check(counts == {"flash_attention": 1, "ssd_scan": 7, "moe_gmm": 12},
-          f"prefill launches {counts} != 1 flash, 7 SSD, 12 GMM")
-    check(variants["flash_attention"]["wgmma_tma"] == 1
-          and variants["moe_gmm"]["tma"] == 12
-          and variants["moe_gmm"]["ragged"] == 0
-          and variants["ssd_scan"]["tensor_core"] == 7,
-          f"prefill variants {variants} != 1 wgmma_tma flash, 12 tma GMM, "
-          "7 tensor_core SSD")
+    for k, n in counts.items():
+        check(n == sum(want.get(k, {}).values()), f"{label} prefill: {k} "
+              f"launched {n} times, expected {want.get(k, {})}")
+        for v, m in want.get(k, {}).items():
+            check(variants[k][v] == m, f"{label} prefill: {k} variants "
+                  f"{variants[k]}, expected {want[k]}")
     del model, logits, again
-    return cfg, params, {"wall": wall, "warm": warm, "counts": counts,
-                         "variants": variants}
+    return {"wall": wall, "warm": warm, "counts": counts,
+            "variants": variants, "seq": seq}
 
 
-def full_width_server(device, cfg, params, requests=8, prompt=16,
-                      max_new=16, slots=4, max_seq=64):
+def server_path(device, cfg, params, per_tick, label, requests=8, prompt=16,
+                max_new=16, slots=4, max_seq=64):
     """The continuous-batching ``Server`` at full width on the prefill's
-    weights: every request completes, every tick's 12 expert FFN products
-    go through the GMM kernel."""
+    weights, the launch counts set to 0 just before and read just after:
+    every request completes, and each tick launches exactly ``per_tick``
+    {kernel: {variant: launches}} (every other kernel and variant 0)."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import Request, Server
@@ -791,22 +884,23 @@ def full_width_server(device, cfg, params, requests=8, prompt=16,
     variants = read_variants()
     done = sorted(server.completed, key=lambda r: r.rid)
     toks = sum(len(r.out) for r in done)
-    print(f"[server] {requests} requests x {prompt} prompt tokens, max_new "
-          f"{max_new}, {slots} slots, max_seq {max_seq}: {len(done)} "
-          f"completed, {toks} tokens in {ticks} ticks, wall {wall:.3f} s "
-          f"({toks / wall:.1f} generated tokens/s, "
-          f"{wall / ticks * 1e3:.1f} ms per tick); launches {counts} "
-          f"by variant {variants} (GMM per tick "
-          f"{counts['moe_gmm'] / ticks:g})")
+    print(f"[server] {label}: {requests} requests x {prompt} prompt tokens, "
+          f"max_new {max_new}, {slots} slots, max_seq {max_seq}: "
+          f"{len(done)} completed, {toks} tokens in {ticks} ticks, wall "
+          f"{wall:.3f} s ({toks / wall:.1f} generated tokens/s, "
+          f"{wall / ticks * 1e3:.1f} ms per tick); launches {counts} by "
+          f"variant {variants}")
     check(len(done) == requests and all(len(r.out) == max_new for r in done),
-          "not every request completed")
+          f"{label}: not every request completed")
     check(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
-          "a token outside the vocabulary")
-    check(counts["moe_gmm"] == 12 * ticks,
-          f"GMM launches {counts['moe_gmm']} != 12 per tick x {ticks}")
-    check(variants["moe_gmm"]["decode"] == 12 * ticks
-          and variants["moe_gmm"]["ragged"] == 0,
-          f"server GMM variants {variants['moe_gmm']} != 12 decode per tick")
+          f"{label}: a token outside the vocabulary")
+    for k, n in counts.items():
+        check(n == ticks * sum(per_tick.get(k, {}).values()),
+              f"{label} server: {k} launched {n} times in {ticks} ticks, "
+              f"expected {per_tick.get(k, {})} per tick")
+        for v, m in per_tick.get(k, {}).items():
+            check(variants[k][v] == m * ticks, f"{label} server: {k} "
+                  f"variants {variants[k]}, expected {per_tick[k]} per tick")
     return {"ticks": ticks, "wall": wall, "counts": counts,
             "variants": variants, "tokens": toks}
 
@@ -840,11 +934,13 @@ def _device_breakdown(prof, wall_s):
     return cats, busy, 1.0 - busy / wall_s
 
 
-def model_profile(device, cfg, params, ticks=10):
+def model_profile(device, cfg, params, label, seq=PREFILL_TOKENS,
+                  ticks=10, positions=False):
     """Where the time goes: ``torch.profiler`` over one warm full-width
-    prefill and over ``ticks`` steady server ticks (4 slots generating),
-    device time by kernel category and the device's idle share of the
-    host wall time (the profiler's own cost is in the wall time)."""
+    prefill of 1 x ``seq`` tokens and over ``ticks`` steady server ticks
+    (4 slots generating), device time by kernel category and the device's
+    idle share of the host wall time (the profiler's own cost is in the
+    wall time)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -853,9 +949,11 @@ def model_profile(device, cfg, params, ticks=10):
     from repro_torch.models import get_model
     card = card_line()
     model = get_model(cfg)(cfg, device, params=params)
-    tokens = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (1, PREFILL_TOKENS))).to(device)
-    prefill_step(model, {"tokens": tokens})
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, seq))).to(device)}
+    if positions:
+        batch["positions"] = torch.arange(seq, device=device).expand(3, 1, seq)
+    prefill_step(model, batch)
     torch.cuda.synchronize()
     server = Server(cfg, slots=4, max_seq=64, device=device, params=params)
     rng = np.random.default_rng(3)
@@ -866,8 +964,8 @@ def model_profile(device, cfg, params, ticks=10):
         server.tick()
     torch.cuda.synchronize()
     out = {}
-    for what, fn, n in (("prefill 1 x 4096", lambda: prefill_step(
-            model, {"tokens": tokens}), 1),
+    for what, fn, n in ((f"prefill 1 x {seq}", lambda: prefill_step(
+            model, batch), 1),
             (f"server, {ticks} ticks of 4 slots", server.tick, ticks)):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -880,12 +978,13 @@ def model_profile(device, cfg, params, ticks=10):
         parts = ", ".join(f"{k} {v / 1e3 / n:.2f} ms"
                           for k, v in sorted(cats.items(),
                                              key=lambda kv: -kv[1]))
-        print(f"[where the time goes] {card}: {what}: wall {wall / n * 1e3:.1f}"
-              f" ms per {'step' if n == 1 else 'tick'} under the profiler, "
-              f"device busy {busy / n * 1e3:.1f} ms (idle share {idle:.3f}); "
-              f"{parts}")
+        print(f"[where the time goes] {card}: {label}: {what}: wall "
+              f"{wall / n * 1e3:.1f} ms per {'step' if n == 1 else 'tick'} "
+              f"under the profiler, device busy {busy / n * 1e3:.1f} ms "
+              f"(idle share {idle:.3f}); {parts}")
         out[what] = dict(wall=wall / n, busy=busy / n, idle=idle,
                          cats={k: v / 1e3 / n for k, v in cats.items()})
+    del model, server
     return out
 
 
@@ -905,82 +1004,130 @@ def _event_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def model_timings(device):
-    """Kernel, plain version and library call at the main path's shapes
-    (bf16), with CUDA events, beside each kernel's bound.  Returns
-    {entry: record}: ``moe_gmm`` is the prefill gate/up shape,
-    ``moe_gmm_down`` the prefill down shape (both the ``tma`` variant),
-    ``moe_gmm_decode`` and ``moe_gmm_decode_down`` the decode shapes."""
+def kernel_timings(device):
+    """Kernel, plain version, library call and bound at every main path's
+    shapes (bf16, CUDA events): flash beside SDPA (causal; with a window,
+    the band as an explicit mask, and the kernel at the same shape without
+    the window), naming the kernel SDPA ran; the GMM beside ``torch.bmm``;
+    the SSD with no library call, beside the models' own chunked PyTorch
+    (``models/mamba2.py::ssd_chunked``, a yardstick), its three passes'
+    device time from the profiler and its fp32 (``cuda_core``) time.
+    Returns {case: record}."""
     import torch
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.models.mamba2 import ssd_chunked
     card = card_line()
-    flash, ssd, gmm, chunk = _model_inputs(device, torch.bfloat16, seed=1)
     out = {}
-    q, k, v = flash["q"], flash["k"], flash["v"]
-    nb, ops = fa.flash_bound(q, k, causal=True)
-    out["flash_attention"] = dict(
-        ms=_event_ms(lambda: fa.flash_attention(q, k, v, causal=True), 5),
-        plain_ms=_event_ms(lambda: ref.flash_attention_ref(q, k, v,
-                                                           causal=True), 2),
-        library_ms=_event_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 10),
-        bound=_bound(nb, ops, BF16_OPS_PER_S), nbytes=nb, ops=ops,
-        shape="q (1,32,4096,128), k/v (1,8,4096,128), causal")
-    nb, ops = ssd_mod.ssd_bound(ssd["x"], ssd["B"], chunk)
-    models_layout = [ssd[k].transpose(1, 2) for k in ("x", "dt", "B", "C")]
-    out["ssd_scan"] = dict(
-        ms=_event_ms(lambda: ssd_mod.ssd_scan(**ssd, chunk=chunk), 10),
-        plain_ms=_event_ms(lambda: ref.ssd_scan_ref(**ssd), 1),
-        library_ms=None, bound=_bound(nb, ops, BF16_OPS_PER_S), nbytes=nb,
-        ops=ops, shape=f"x (1,128,4096,64), N=16, chunk {chunk}",
-        yardstick_ms=_event_ms(lambda: ssd_chunked(
-            *models_layout, ssd["A"], chunk=chunk), 3))
-    for name, key in (("prefill gate/up", "moe_gmm"),
-                      ("prefill down", "moe_gmm_down"),
-                      ("decode gate/up", "moe_gmm_decode"),
-                      ("decode down", "moe_gmm_decode_down")):
-        lhs, rhs = gmm[name]
-        nb, ops = gmm_mod.gmm_bound(lhs, rhs)
-        out[key] = dict(
-            ms=_event_ms(lambda: gmm_mod.grouped_matmul(lhs, rhs), 5),
-            plain_ms=_event_ms(lambda: ref.grouped_matmul_ref(lhs, rhs), 3),
-            library_ms=_event_ms(lambda: torch.bmm(lhs, rhs), 5),
+    for name, arch, S in FLASH_CASES:
+        q, k, v, window = _flash_inputs(device, torch.bfloat16, arch, S, 1)
+        nb, ops = fa.flash_bound(q, k, causal=True, window=window)
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+            libname = "scaled_dot_product_attention(is_causal, enable_gqa)"
+        else:
+            i = torch.arange(S, device=device)
+            band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=band, enable_gqa=True)
+            libname = "scaled_dot_product_attention(band attn_mask, " \
+                "enable_gqa)"
+        r = dict(ms=_event_ms(lambda: fa.flash_attention(
+            q, k, v, causal=True, window=window), 5),
+            plain_ms=_event_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=True, window=window), 1),
+            library_ms=_event_ms(lib, 5), library=libname,
+            library_kernel=_sdpa_backend(lib),
             bound=_bound(nb, ops, BF16_OPS_PER_S), nbytes=nb, ops=ops,
-            shape=f"{name} {tuple(lhs.shape)}@{tuple(rhs.shape)}")
-    # the SSD's three passes, each kernel's device time (profiler, 5 calls)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            ssd_mod.ssd_scan(**ssd, chunk=chunk)
-        torch.cuda.synchronize()
-    passes = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0)
-        name = next((k for k in ("ssd_state_", "ssd_pass_", "ssd_out_")
-                     if k in ev.key), None)
-        if name and us:
-            passes[name.strip("_")] = us / 5
-    print(f"[times] {card}: ssd_scan device time per call by pass: "
-          + ", ".join(f"{k} {v:.1f} us" for k, v in passes.items()))
+            shape=f"{name}: q {tuple(q.shape)}, k/v {tuple(k.shape)}, "
+                  f"causal, window {window}")
+        if window is not None:
+            r["no_window_ms"] = _event_ms(lambda: fa.flash_attention(
+                q, k, v, causal=True), 5)
+            r["no_window_bound"] = _bound(*fa.flash_bound(q, k, causal=True),
+                                          BF16_OPS_PER_S)
+        out["flash " + name] = r
+        del q, k, v, lib
+        torch.cuda.empty_cache()
+    for name, arch, tokens in GMM_CASES:
+        for part, (lhs, rhs) in _gmm_inputs(device, torch.bfloat16, arch,
+                                            tokens, 1).items():
+            nb, ops = gmm_mod.gmm_bound(lhs, rhs)
+            out[f"gmm {name} {part}"] = dict(
+                ms=_event_ms(lambda: gmm_mod.grouped_matmul(lhs, rhs), 5),
+                plain_ms=_event_ms(lambda: ref.grouped_matmul_ref(lhs, rhs),
+                                   2),
+                library_ms=_event_ms(lambda: torch.bmm(lhs, rhs), 5),
+                library="torch.bmm", bound=_bound(nb, ops, BF16_OPS_PER_S),
+                nbytes=nb, ops=ops,
+                shape=f"{name} {part} {tuple(lhs.shape)}@{tuple(rhs.shape)}")
+            del lhs, rhs
+    for name, arch, S in SSD_CASES:
+        ssd, chunk = _ssd_inputs(device, torch.bfloat16, arch, S, 1)
+        nb, ops = ssd_mod.ssd_bound(ssd["x"], ssd["B"], chunk)
+        models_layout = [ssd[k].transpose(1, 2) for k in ("x", "dt", "B",
+                                                          "C")]
+        out["ssd " + name] = dict(
+            ms=_event_ms(lambda: ssd_mod.ssd_scan(**ssd, chunk=chunk), 10),
+            plain_ms=_event_ms(lambda: ref.ssd_scan_ref(**ssd), 1),
+            library_ms=None, library=None,
+            bound=_bound(nb, ops, BF16_OPS_PER_S), nbytes=nb, ops=ops,
+            shape=f"{name} x {tuple(ssd['x'].shape)}, N="
+                  f"{ssd['B'].shape[-1]}, chunk {chunk}",
+            yardstick_ms=_event_ms(lambda: ssd_chunked(
+                *models_layout, ssd["A"], chunk=chunk), 3))
+        # the fp32 inputs take ``cuda_core``, at its own chunk
+        ssd32 = {k: v.float() for k, v in ssd.items()}
+        out["ssd " + name].update(
+            fp32_ms=_event_ms(lambda: ssd_mod.ssd_scan(**ssd32, chunk=chunk),
+                              3),
+            fp32_chunk=ssd_mod.cuda_core_chunk(chunk, ssd["x"].shape[-1],
+                                               ssd["B"].shape[-1]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                ssd_mod.ssd_scan(**ssd, chunk=chunk)
+            torch.cuda.synchronize()
+        passes = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0)
+            kind = next((k for k in ("ssd_state_", "ssd_pass_", "ssd_out_")
+                         if k in ev.key), None)
+            if kind and us:
+                passes[kind.strip("_")] = us / 5
+        print(f"[times] {card}: ssd_scan {name} device time per call by "
+              f"pass: " + ", ".join(f"{k} {v:.1f} us"
+                                    for k, v in passes.items()))
+        del ssd, ssd32, models_layout
     for key, r in out.items():
         lib = "none" if r["library_ms"] is None else \
-            f"{r['library_ms']:.4f} ms"
-        yard = "" if "yardstick_ms" not in r else \
-            (f"; yardstick (not a library call): the models' plain chunked "
-             f"PyTorch (models/mamba2.py::ssd_chunked, cuBLAS) "
-             f"{r['yardstick_ms']:.4f} ms")
-        print(f"[times] {card}: {key} {r['shape']} bf16: kernel "
+            f"{r['library']} {r['library_ms']:.4f} ms"
+        extra = ""
+        if "library_kernel" in r:
+            extra += f" (its longest kernel: {r['library_kernel']})"
+        if "no_window_ms" in r:
+            extra += (f"; the kernel without the window "
+                      f"{r['no_window_ms']:.4f} ms, bound "
+                      f"{r['no_window_bound'][0]:.4f} ms")
+        if "yardstick_ms" in r:
+            extra += (f"; yardstick (not a library call): the models' plain "
+                      f"chunked PyTorch (models/mamba2.py::ssd_chunked, "
+                      f"cuBLAS) {r['yardstick_ms']:.4f} ms")
+        if "fp32_ms" in r:
+            extra += (f"; fp32 (cuda_core, chunk {r['fp32_chunk']}) "
+                      f"{r['fp32_ms']:.4f} ms")
+        print(f"[times] {card}: {key}, {r['shape']}, bf16: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{lib}, bound {r['bound'][0]:.4f} ms by {r['bound'][1]} "
-              f"({r['nbytes']} B, {r['ops']} FLOP){yard}")
+              f"({r['nbytes']} B, {r['ops']} FLOP){extra}")
     return out
 
 
@@ -1018,6 +1165,70 @@ def gmm_cutover(device, rows=(8, 16, 32, 64)):
             del lhs, want, out
         del rhs
         torch.cuda.empty_cache()
+
+
+def _sdpa_backend(fn, reps=3):
+    """The attention kernel a PyTorch call ran, by the profiler's name of
+    its longest device kernel over ``reps`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    longest = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            longest[ev.name] = longest.get(ev.name, 0) + \
+                ev.time_range.elapsed_us()
+    return max(longest, key=longest.get)[:80] if longest else "not measured"
+
+
+def family_paths(device):
+    """The model stack's main paths at full width, one model at a time
+    (each freed before the next): Jamba v0.1's widths (one period, 8 of 32
+    layers), Mixtral-8x7B's (8 of 32), Qwen2-VL-72B's (4 of 80) and
+    Mamba-2 370M whole; for each, the weights drawn on the card, a prefill
+    (1 x 4096 tokens; Mixtral 1 x 8192, twice its window; Qwen2-VL with
+    (3, 1, S) positions), the ``Server``, each with its kernels' launches
+    by variant asserted, and the profile.  Returns {arch: (prefill
+    record, server record)}."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    paths = {}
+    for arch, layers, seq, want, per_tick, srv_kw, positions in (
+            (JAMBA, 8, PREFILL_TOKENS,
+             {"flash_attention": {"wgmma_tma": 1},
+              "ssd_scan": {"tensor_core": 7}, "moe_gmm": {"tma": 12}},
+             {"moe_gmm": {"decode": 12}}, {}, False),
+            (MIXTRAL, 8, MIXTRAL_TOKENS,
+             {"flash_attention": {"wgmma_tma": 8}, "moe_gmm": {"tma": 24}},
+             {"moe_gmm": {"decode": 24}}, {}, False),
+            (QWEN2_VL, 4, PREFILL_TOKENS,
+             {"flash_attention": {"wgmma_tma": 4}}, {},
+             dict(requests=4, prompt=8, max_new=8), True),
+            (MAMBA2, None, PREFILL_TOKENS,
+             {"ssd_scan": {"tensor_core": 48}}, {}, {}, False)):
+        full = get_config(arch)
+        cfg = full if layers is None else \
+            dataclasses.replace(full, num_layers=layers)
+        label = (f"{arch} widths, {cfg.num_layers} of {full.num_layers} "
+                 f"layers")
+        params, nbytes, init_s = draw_params(device, cfg)
+        print(f"[params] {label}: {cfg.param_count() / 1e9:.2f} B "
+              f"parameters, {nbytes / 2**30:.2f} GiB bf16, drawn on the card "
+              f"in {init_s:.1f} s")
+        pre = prefill_path(device, cfg, params, seq, want, label, positions)
+        srv = server_path(device, cfg, params, per_tick, label, **srv_kw)
+        model_profile(device, cfg, params, label, seq=seq,
+                      positions=positions)
+        paths[arch] = (pre, srv)
+        del params
+        torch.cuda.empty_cache()
+    return paths
 
 
 def main() -> int:
@@ -1070,57 +1281,71 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
-    errs = model_kernels_vs_plain("cuda")
-    reduced_end_to_end("cuda")
-    cfg, params, pre = full_width_prefill("cuda")
-    srv = full_width_server("cuda", cfg, params)
-    model_profile("cuda", cfg, params)
-    del params
-    torch.cuda.empty_cache()
-    times = model_timings("cuda")
+    errs = kernels_vs_plain("cuda")
+    for arch, seq, pos in ((JAMBA, 40, False), (MIXTRAL, 50, False),
+                           (QWEN2_VL, 50, True), (MAMBA2, 50, False)):
+        reduced_end_to_end("cuda", arch, seq=seq, positions=pos)
+    paths = family_paths("cuda")
+    times = kernel_timings("cuda")
     gmm_cutover("cuda")
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:86",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
                 "moe_gmm": "src/repro/kernels/moe_gmm.py:44"}
-    # (entry, kernel, variant): one entry per kernel variant on the main
-    # path, its launches those of that variant in the prefill and server
-    entries = (("flash_attention", "flash_attention", "wgmma_tma"),
-               ("ssd_scan", "ssd_scan", "tensor_core"),
-               ("moe_gmm", "moe_gmm", "tma"),
-               ("moe_gmm_decode", "moe_gmm", "decode"))
-    for key, name, variant in entries:
-        t = times[key]
-        if variant is None:
-            lp, ls = pre["counts"][name], srv["counts"][name]
-        else:
-            lp = pre["variants"][name][variant]
-            ls = srv["variants"][name][variant]
-        check(lp + ls > 0, f"{key} was never launched on the main path")
+    # one entry per kernel variant and shape on the main paths: (entry,
+    # kernel, variant, case of its times and errors, path); its launches
+    # are that variant's in the path's prefill and server
+    for key, name, variant, case, arch in (
+            ("flash_attention", "flash_attention", "wgmma_tma",
+             "flash Jamba prefill", JAMBA),
+            ("ssd_scan", "ssd_scan", "tensor_core", "ssd Jamba", JAMBA),
+            ("moe_gmm", "moe_gmm", "tma", "gmm Jamba prefill", JAMBA),
+            ("moe_gmm_decode", "moe_gmm", "decode", "gmm Jamba decode",
+             JAMBA),
+            ("flash_attention_mixtral_window", "flash_attention",
+             "wgmma_tma", "flash Mixtral prefill", MIXTRAL),
+            ("flash_attention_qwen2_vl", "flash_attention", "wgmma_tma",
+             "flash Qwen2-VL prefill", QWEN2_VL),
+            ("ssd_scan_mamba2_n128", "ssd_scan", "tensor_core",
+             "ssd Mamba-2", MAMBA2),
+            ("moe_gmm_mixtral", "moe_gmm", "tma", "gmm Mixtral prefill",
+             MIXTRAL),
+            ("moe_gmm_decode_mixtral", "moe_gmm", "decode",
+             "gmm Mixtral decode", MIXTRAL)):
+        pre, srv = paths[arch]
+        lp = pre["variants"][name][variant]
+        ls = srv["variants"][name][variant]
+        check(lp + ls > 0, f"{key} was never launched on the {arch} path")
+        head = case + " gate/up" if name == "moe_gmm" else case
+        t = times[head]
         entry = {
             "name": key, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name], "launches": lp + ls,
-            "max_abs_err": errs[key], "ms": t["ms"],
+            "max_abs_err": errs[head], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-            "checked_against_plain": True, "launches_prefill": lp,
+            "library": t["library"], "checked_against_plain": True,
+            "variant": variant, "path": arch, "launches_prefill": lp,
             "launches_server": ls, "shape": t["shape"]}
-        if variant is not None:
-            entry["variant"] = variant
-        if "yardstick_ms" in t:
-            entry["yardstick_ms"] = t["yardstick_ms"]
-        if key.startswith("moe_gmm"):
-            d = times[key + "_down"]
+        for extra in ("library_kernel", "no_window_ms", "yardstick_ms"):
+            if extra in t:
+                entry[extra] = t[extra]
+        if name == "moe_gmm":
+            d = times[case + " down"]
             entry["down"] = {"shape": d["shape"], "ms": d["ms"],
                              "plain_ms": d["plain_ms"],
                              "library_ms": d["library_ms"],
                              "bound_ms": d["bound"][0],
-                             "bound_by": d["bound"][1]}
+                             "bound_by": d["bound"][1],
+                             "max_abs_err": errs[case + " down"]}
         kernels.append(entry)
-    print(f"[summary] {card_line()}: prefill 1 x {PREFILL_TOKENS} tokens "
-          f"{pre['wall']:.3f} s (again {pre['warm']:.3f} s); server "
-          f"{srv['ticks']} ticks {srv['wall']:.3f} s, "
-          f"{srv['tokens'] / srv['wall']:.1f} generated tokens/s")
+    for arch, (pre, srv) in paths.items():
+        print(f"[summary] {card_line()}: {arch} prefill 1 x {pre['seq']} "
+              f"tokens {pre['wall']:.3f} s (again {pre['warm']:.3f} s, "
+              f"{pre['seq'] / pre['warm']:.0f} tokens/s); server "
+              f"{srv['ticks']} ticks {srv['wall']:.3f} s, "
+              f"{srv['tokens'] / srv['wall']:.1f} generated tokens/s, "
+              f"{srv['wall'] / srv['ticks'] * 1e3:.1f} ms per tick")
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s; card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,8 @@
 //
 // Bound on an H100.  At Jamba's widths (128 heads of P = 64, N = 16, 4096
 // tokens, bf16) a call reads x, dt, B, C and writes y, ~135 MB, against
-// ~13 GFLOP of chunked work: bound by bytes, ~40 us.  On the CUDA cores
-// alone the work takes >= 0.19 ms at 67 TFLOP/s, so the bf16 path runs
+// ~11 GFLOP of chunked work: bound by bytes, ~40 us.  On the CUDA cores
+// alone the work takes >= 0.16 ms at 67 TFLOP/s, so the bf16 path runs
 // its products on the tensor cores.
 //
 // Design.  The Pallas grid walked a head's chunks in order, carrying the
@@ -34,9 +34,11 @@
 //
 // Two variants, chosen by the wrapper from the shapes.
 //  * tensor_core (bf16, Q a multiple of 64 up to 256, N a multiple of 16
-//    up to 64, P a multiple of 8 up to 64).  Pass 3 is flash attention's
+//    up to 128, P a multiple of 8 up to 64).  Pass 3 is flash attention's
 //    shape: S = C B^T (64 x 64 tiles, K = N) is a wgmma from shared memory
-//    with C and B K-major in the 128-byte swizzle; W = S o exp(cum_i -
+//    with C and B K-major in the 128-byte swizzle, a row of N > 64 values
+//    in two 128-byte column blocks (Mamba-2 370M's N = 128: a K = 128
+//    chain of eight k-slices); W = S o exp(cum_i -
 //    cum_j) o dt_j is formed on the accumulator fragment in fp32 (dt is
 //    folded into W, so x stays exact); y += W x is a wgmma with W from
 //    registers as bf16 hi + lo (bf16 alone misses the tolerance, as P
@@ -48,11 +50,15 @@
 //    fp32 state as bf16 hi + lo, scaled by exp(cum_i) before the intra
 //    products accumulate on it.  Two warpgroups share a chunk's row
 //    blocks, heaviest and lightest together.  Pass 1 is S_c^T = x^T (B o
-//    w), M = P = 64, K = Q, one warpgroup: x^T is the transposed A operand
-//    from the same TMA tile, B o w the K-major B operand as hi + lo.
+//    w), M = P = 64, N up to 128, K = Q, one warpgroup: x^T is the
+//    transposed A operand from the same TMA tile, B o w the K-major B
+//    operand as hi + lo.
 //  * cuda_core (fp32, and bf16 shapes the tensor-core tiles do not
 //    take): the same three passes in fp32 on the CUDA cores; in pass 3
-//    thread i computes row i.
+//    thread i computes row i.  Its pass 3 holds the whole chunk's x, B
+//    and C in shared memory, so the wrapper runs it at the largest of
+//    Q, Q/2, Q/4, ... whose out_simt_floats fit (Q/2 at N = 128, P = 64);
+//    the chunked algorithm is exact at any chunk.
 // What bounds the bf16 call now (PERF.md, measured on an H100): pass 3,
 // about four fifths of it, on forming W on the CUDA cores and on the
 // hi + lo products, which double the tensor work; x is read twice (passes
@@ -72,7 +78,7 @@ using bf16 = __nv_bfloat16;
 constexpr int THREADS = 256;          // cuda_core: one thread per step
 constexpr int MAX_CHUNK = 256;
 constexpr int MAX_P = 64;             // one 128-byte row of bf16
-constexpr int MAX_N = 64;
+constexpr int MAX_N = 128;            // tensor_core: two 128-byte rows of bf16
 constexpr int TC_ROWS = 64;           // wgmma rows; chunks are a multiple
 constexpr int OUT_THREADS = 256;      // tensor_core pass 3: 2 warpgroups
 constexpr int STATE_THREADS = 128;    // tensor_core pass 1: 1 warpgroup
@@ -81,10 +87,11 @@ constexpr int PASS_GROUP = 8;         // pass 2: chunks loaded per round trip
 constexpr unsigned FULL = 0xffffffffu;
 
 // tensor_core shared memory (bytes) of pass 3 at chunk q and state size
-// n: a 128-byte row per step for each of x, C and B, per state row for the
-// state as hi and lo, cum, the column factors and dt, the scan's 32
-// partials, the mbarrier and the 1024-byte alignment slack
-constexpr int out_tc_smem(int q, int n) { return 3 * q * 128 + 2 * n * 128 + 3 * q * 4 + 128 + 8 + 1024; }
+// n: a 128-byte row per step for x, and one per 64 state values for each of
+// C and B, per state row for the state as hi and lo, cum, the column
+// factors and dt, the scan's 32 partials, the mbarrier and the 1024-byte
+// alignment slack
+constexpr int out_tc_smem(int q, int n) { return q * 128 + 2 * q * 128 * ((n + 63) / 64) + 2 * n * 128 + 3 * q * 4 + 128 + 8 + 1024; }
 // pass 1 at chunk q and wgmma width nw: x, B o w as hi and lo (nw rows of
 // q columns), cum, partials, mbarrier, slack
 constexpr int state_tc_smem(int q, int nw) { return q * 128 + 2 * nw * q * 2 + q * 4 + 128 + 8 + 1024; }
@@ -306,9 +313,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo_half, float hi_half) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Rows c0 .. c0 + Q of a (S, N) bf16 matrix into a swizzled tile of
-// 128-byte rows, zeros past S: 16-byte chunks (N is a multiple of 16 and
-// the matrix 16-byte aligned), all of a thread's loads issued together.
+// Rows c0 .. c0 + Q of a (S, N) bf16 matrix into swizzled tiles of
+// 128-byte rows, one tile of Q rows per 64 columns, zeros past S: 16-byte
+// chunks (N is a multiple of 16 and the matrix 16-byte aligned), all of a
+// thread's loads issued together.
 __device__ __forceinline__ void load_bc(uint8_t* dst, const bf16* src, int c0,
                                         int S, int N, int Q) {
   const int per_row = N / 8;
@@ -316,13 +324,21 @@ __device__ __forceinline__ void load_bc(uint8_t* dst, const bf16* src, int c0,
     const int i = e / per_row, c = e % per_row;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (c0 + i < S) v = *reinterpret_cast<const uint4*>(src + (size_t)(c0 + i) * N + 8 * c);
-    *reinterpret_cast<uint4*>(dst + i * 128 + ((c ^ (i % 8)) * 16)) = v;
+    *reinterpret_cast<uint4*>(dst + (c / 8) * Q * 128 + i * 128 +
+                              (((c % 8) ^ (i % 8)) * 16)) = v;
   }
 }
 
+// Descriptor address of k-slice kk (16 values) of row r0 of a tile that
+// load_bc wrote: column block kk / 4, 32 bytes per slice within it.
+__device__ __forceinline__ const uint8_t* bc_slice(const uint8_t* tile, int r0,
+                                                   int kk, int Q) {
+  return tile + (kk / 4) * Q * 128 + r0 * 128 + 32 * (kk % 4);
+}
+
 // ---- tensor_core pass 1: S_c^T = x^T (B o w), one warpgroup ------------------
-// NW: the wgmma width that holds N (16, 32 or 64; rows of B o w past N are
-// zeros).
+// NW: the wgmma width that holds N (16, 32, 64 or 128; rows of B o w past
+// N are zeros).
 template <int NW>
 __global__ void __launch_bounds__(STATE_THREADS)
 ssd_state_tc_kernel(const __grid_constant__ CUtensorMap map_x,
@@ -414,7 +430,7 @@ ssd_state_tc_kernel(const __grid_constant__ CUtensorMap map_x,
 }
 
 // ---- tensor_core pass 3: y = diag(exp(cum)) C h + (C B^T o L o dt) x -------
-// NK = N / 16: the k-slices of C B^T and of C h.
+// NK = N / 16: the k-slices of C B^T and of C h (4 to a 64-column block).
 template <int NK>
 __global__ void __launch_bounds__(OUT_THREADS, 2)
 ssd_out_tc_kernel(const __grid_constant__ CUtensorMap map_x,
@@ -423,10 +439,11 @@ ssd_out_tc_kernel(const __grid_constant__ CUtensorMap map_x,
                   const float* __restrict__ states, bf16* __restrict__ y,
                   int H, int G, int S, int P, int N, int Q) {
   extern __shared__ uint8_t smem_raw[];
+  constexpr int NB = (NK + 3) / 4;                       // 64-column blocks of C, B
   uint8_t* Xs = hopper::align1024(smem_raw);             // Q rows x 128 B each
-  uint8_t* Cs = Xs + Q * 128;
-  uint8_t* Bs = Cs + Q * 128;
-  uint8_t* Hhi = Bs + Q * 128;                           // N rows x 128 B each
+  uint8_t* Cs = Xs + Q * 128;                            // NB x Q rows x 128 B
+  uint8_t* Bs = Cs + NB * Q * 128;
+  uint8_t* Hhi = Bs + NB * Q * 128;                      // N rows x 128 B each
   uint8_t* Hlo = Hhi + N * 128;
   float* cum = reinterpret_cast<float*>(Hlo + N * 128);  // Q
   float* qcol = cum + Q;                                 // Q
@@ -480,7 +497,6 @@ ssd_out_tc_kernel(const __grid_constant__ CUtensorMap map_x,
     const int rb = nb - 1 - k;
     const int row0 = rb * TC_ROWS + 16 * w4 + g, row1 = row0 + 8;
     const float cr0 = cum[row0], cr1 = cum[row1];
-    const uint8_t* crows = Cs + rb * TC_ROWS * 128;
 
     // inter-chunk term first: acc = diag(exp(cum_i)) C h, C h by wgmma
     // with h as hi + lo
@@ -491,7 +507,7 @@ ssd_out_tc_kernel(const __grid_constant__ CUtensorMap map_x,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk) {
-      const uint64_t dc = hopper::desc_sw128(crows + 32 * kk, 16, 1024);
+      const uint64_t dc = hopper::desc_sw128(bc_slice(Cs, rb * TC_ROWS, kk, Q), 16, 1024);
       hopper::WgmmaSS<64, 0, 1>::run(
           acc, dc, hopper::desc_sw128(Hhi + 2048 * kk, N * 128, 1024), 1);
       hopper::WgmmaSS<64, 0, 1>::run(
@@ -513,8 +529,8 @@ ssd_out_tc_kernel(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
       for (int kk = 0; kk < NK; ++kk)
         hopper::WgmmaSS<64, 0, 0>::run(
-            sc, hopper::desc_sw128(crows + 32 * kk, 16, 1024),
-            hopper::desc_sw128(Bs + jt * TC_ROWS * 128 + 32 * kk, 16, 1024), 1);
+            sc, hopper::desc_sw128(bc_slice(Cs, rb * TC_ROWS, kk, Q), 16, 1024),
+            hopper::desc_sw128(bc_slice(Bs, jt * TC_ROWS, kk, Q), 16, 1024), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs<32>(sc);
@@ -660,7 +676,8 @@ int launch_tc(const bf16* x, const bf16* dt, const bf16* B, const bf16* C,
   const int nc = (S + Q - 1) / Q;
   int err = N <= 16 ? launch_state_tc<16>(mx, dt, B, A, states, decay, b, H, G, S, P, N, Q, s)
           : N <= 32 ? launch_state_tc<32>(mx, dt, B, A, states, decay, b, H, G, S, P, N, Q, s)
-                    : launch_state_tc<64>(mx, dt, B, A, states, decay, b, H, G, S, P, N, Q, s);
+          : N <= 64 ? launch_state_tc<64>(mx, dt, B, A, states, decay, b, H, G, S, P, N, Q, s)
+                    : launch_state_tc<128>(mx, dt, B, A, states, decay, b, H, G, S, P, N, Q, s);
   if (err != 0) return err;
   ssd_pass_kernel<<<dim3(H, b), PASS_THREADS, 0, s>>>(states, decay, H, nc, N * P);
   cudaError_t e = cudaGetLastError();
@@ -669,7 +686,11 @@ int launch_tc(const bf16* x, const bf16* dt, const bf16* B, const bf16* C,
     case 1: return launch_out_tc<1>(mx, dt, B, C, A, states, y, b, H, G, S, P, N, Q, s);
     case 2: return launch_out_tc<2>(mx, dt, B, C, A, states, y, b, H, G, S, P, N, Q, s);
     case 3: return launch_out_tc<3>(mx, dt, B, C, A, states, y, b, H, G, S, P, N, Q, s);
-    default: return launch_out_tc<4>(mx, dt, B, C, A, states, y, b, H, G, S, P, N, Q, s);
+    case 4: return launch_out_tc<4>(mx, dt, B, C, A, states, y, b, H, G, S, P, N, Q, s);
+    case 5: return launch_out_tc<5>(mx, dt, B, C, A, states, y, b, H, G, S, P, N, Q, s);
+    case 6: return launch_out_tc<6>(mx, dt, B, C, A, states, y, b, H, G, S, P, N, Q, s);
+    case 7: return launch_out_tc<7>(mx, dt, B, C, A, states, y, b, H, G, S, P, N, Q, s);
+    default: return launch_out_tc<8>(mx, dt, B, C, A, states, y, b, H, G, S, P, N, Q, s);
   }
 }
 
@@ -680,7 +701,7 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (x, dt, B, C and y alike; A is fp32).
 // variant: 0 = cuda_core (P <= 64, Q <= 256, shared memory of
 // out_simt_floats(Q, P, N) floats <= 227 KB), 1 = tensor_core (bf16, Q a
-// multiple of 64 up to 256, N a multiple of 16 up to 64, P a multiple of
+// multiple of 64 up to 256, N a multiple of 16 up to 128, P a multiple of
 // 8 up to 64, x, B and C 16-byte aligned).  states (b, h, nc, N, P) and decay (b,
 // h, nc) fp32 are the wrapper's scratch, nc = ceil(S / Q).  The caller
 // chooses the variant; nothing here falls back.  Three launches on

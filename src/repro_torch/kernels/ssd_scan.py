@@ -12,16 +12,20 @@ Same layout as the Pallas kernel: x (b, h, S, P), dt (b, h, S), B/C
 the end are dt = 0 inside the kernel (exact), so nothing is padded.
 
 What bounds it on an H100.  At Jamba's widths a call reads and writes
-~135 MB against ~13 GFLOP (:func:`ssd_bound`): bound by bytes, ~40 us,
+~135 MB against ~11 GFLOP (:func:`ssd_bound`): bound by bytes, ~40 us,
 as long as the products run on the tensor cores (on the CUDA cores alone
-the work takes >= 0.19 ms).  What the design does about it (the source
+the work takes >= 0.16 ms).  What the design does about it (the source
 note of ``csrc/ssd_scan.cu`` has the detail): the chunks run in parallel
 in three launches (each chunk's own state, a short pass carrying the
 state across chunks, each chunk's output), and for bf16 the chunk's
 products are ``wgmma``s, with the decay-weighted ``C B^T`` and ``B o w``
 as bf16 hi + lo and x, exact, loaded by TMA.  :func:`ssd_variant` chooses
 the ``tensor_core`` or the ``cuda_core`` variant from the dtype and the
-shapes alone.
+shapes alone, and :func:`cuda_core_chunk` the chunk ``cuda_core`` runs
+at: the configured one, halved until its shared memory fits a block (at
+Mamba-2 370M's N = 128 and P = 64, 128 in place of 256).  The chunked
+algorithm is exact at any chunk, so this changes the order of fp32 sums,
+not what is computed.
 
 :func:`ssd_scan` takes the plain version
 (:func:`repro_torch.kernels.ref.ssd_scan_ref`, the token-by-token
@@ -41,15 +45,16 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.backend import require_hopper
 from repro_torch.kernels.ref import ssd_scan_ref
 
-__all__ = ["ssd_scan", "ssd_bound", "ssd_variant", "VARIANTS", "MAX_CHUNK",
-           "MAX_HEAD_DIM", "SMEM_BYTES", "TC_ROWS", "TC_MAX_N"]
+__all__ = ["ssd_scan", "ssd_bound", "ssd_variant", "cuda_core_chunk",
+           "VARIANTS", "MAX_CHUNK", "MAX_HEAD_DIM", "SMEM_BYTES", "TC_ROWS",
+           "TC_MAX_N"]
 
 VARIANTS = ("tensor_core", "cuda_core")
 _VARIANT_CODE = {"cuda_core": 0, "tensor_core": 1}   # csrc/ssd_scan.cu
 MAX_CHUNK = 256          # cuda_core: one thread per step of a chunk
 MAX_HEAD_DIM = 64        # P: one 128-byte row of bf16; cuda_core registers
 TC_ROWS = 64             # tensor_core: wgmma's rows; chunks are a multiple
-TC_MAX_N = 64            # tensor_core: C and B rows fit one 128-byte row
+TC_MAX_N = 128           # tensor_core: C and B rows in two 128-byte blocks
 SMEM_BYTES = 232448      # shared memory a Hopper block may use
 
 
@@ -64,10 +69,19 @@ def _smem_bytes(chunk: int, p: int, n: int) -> int:
     return 4 * (chunk * p + chunk * n + chunk * (n + 1) + chunk + n * p + 32)
 
 
+def cuda_core_chunk(chunk: int, p: int, n: int) -> int:
+    """The chunk the ``cuda_core`` variant runs at: ``chunk``, halved
+    (rounding down) until :func:`_smem_bytes` fits ``SMEM_BYTES``.  A pure
+    function of the shape, chosen before the launch."""
+    while chunk > 1 and _smem_bytes(chunk, p, n) > SMEM_BYTES:
+        chunk //= 2
+    return chunk
+
+
 def ssd_variant(dtype: torch.dtype, chunk: int, n: int, p: int,
                 aligned: bool = True) -> str:
     """``tensor_core`` for bf16 when the chunk is a multiple of 64 (up to
-    256), N a multiple of 16 (up to 64), P a multiple of 8 (up to 64) and
+    256), N a multiple of 16 (up to 128), P a multiple of 8 (up to 64) and
     x, B and C are 16-byte ``aligned`` (TMA and the 16-byte loads need
     it); ``cuda_core`` for everything else.  A pure function of these."""
     if dtype == torch.bfloat16 and aligned and chunk % TC_ROWS == 0 \
@@ -80,17 +94,21 @@ def ssd_variant(dtype: torch.dtype, chunk: int, n: int, p: int,
 def ssd_bound(x: torch.Tensor, B: torch.Tensor, chunk: int
               ) -> Tuple[int, int]:
     """(bytes, FLOPs) one call needs: x, dt, B, C and A read once and y
-    written once; the chunked algorithm's operations (per head and chunk:
-    C B^T and its product with dt x over the lower triangle, the
-    inter-chunk product and the state update)."""
+    written once; the chunked algorithm's operations.  ``C B^T`` over a
+    chunk's lower triangle is shared by the heads of a group (they differ
+    only in the decay mask and dt), so it counts once per group and chunk;
+    its product with dt x, the inter-chunk product and the state update
+    count per head and chunk."""
     b, h, s, p = x.shape
     g, n = B.shape[1], B.shape[3]
     es = x.element_size()
     nbytes = es * (2 * b * h * s * p + b * h * s + 2 * b * g * s * n) + 4 * h
     q = min(chunk, s)
+    chunks = -(-s // q)
     tri = q * (q + 1) // 2
-    per_chunk = 2 * tri * (n + p) + 2 * q * n * p * 2
-    return nbytes, b * h * (-(-s // q)) * per_chunk
+    per_group = 2 * tri * n
+    per_head = 2 * tri * p + 2 * q * n * p * 2
+    return nbytes, b * chunks * (g * per_group + h * per_head)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -102,7 +120,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     CPU tensors: the plain recurrence; CUDA tensors (contiguous, x/dt/B/C
     fp32 or bf16 in one dtype, A fp32, P <= 64, chunk <= 256): the
     kernel, its variant chosen by :func:`ssd_variant` (x, B or C not
-    16-byte aligned take ``cuda_core``).
+    16-byte aligned take ``cuda_core``), ``cuda_core`` at
+    :func:`cuda_core_chunk`.
     """
     dev = x.device
     if dev.type == "cpu":
@@ -119,14 +138,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     chunk = int(chunk)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, B, C))
     variant = ssd_variant(x.dtype, chunk, n, p, aligned)
-    if g == 0 or h % g or p > MAX_HEAD_DIM or not 1 <= chunk <= MAX_CHUNK \
-            or (variant == "cuda_core"
-                and _smem_bytes(chunk, p, n) > SMEM_BYTES):
+    if g == 0 or h % g or p > MAX_HEAD_DIM or not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(
-            f"ssd_scan: needs g | h, P <= {MAX_HEAD_DIM}, 1 <= chunk <= "
-            f"{MAX_CHUNK} and {_smem_bytes(chunk, p, n)} <= {SMEM_BYTES} "
-            f"bytes of shared memory; got h={h}, g={g}, P={p}, N={n}, "
-            f"chunk={chunk}")
+            f"ssd_scan: needs g | h, P <= {MAX_HEAD_DIM} and 1 <= chunk <= "
+            f"{MAX_CHUNK}; got h={h}, g={g}, P={p}, N={n}, chunk={chunk}")
+    if variant == "cuda_core":
+        chunk = cuda_core_chunk(chunk, p, n)
     dtypes = tuple(_cuda.DTYPE_CODE)
     _cuda.check_operand("ssd_scan", "x", x, dev, dtypes, (b, h, s, p))
     _cuda.check_operand("ssd_scan", "dt", dt, dev, (x.dtype,), (b, h, s))

@@ -7,10 +7,12 @@ request spends its first ticks feeding prompt tokens through the same
 decode step (outputs discarded), so no slot stalls another.  A finished
 sequence frees its slot.  Tick for tick the reference's loop.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
       --reduced --requests 8 --slots 4 --max-new 16
 
 runs on the card; ``--device cpu`` runs the plain versions on the CPU.
+Any decoder-only arch serves (the dense, MoE and VLM transformers, the
+Mamba-2 LM, the Jamba hybrid); Whisper is a later slice.
 """
 from __future__ import annotations
 
@@ -89,18 +91,8 @@ class Server:
             if self.active[s] is None and self.queue:
                 req = self.queue.popleft()
                 self.active[s] = _Slot(req=req, fed=1)
-                self._reset_slot(s)
+                self.model.reset_slot(self.cache, s)
                 self.feed[s] = int(req.prompt[0])
-
-    def _reset_slot(self, s: int):
-        """Zero slot ``s``'s length and, for the hybrid, its SSM state and
-        convolution tail (dimension 2 of ``state`` and ``conv``).  Stale
-        KV needs no wipe: attention masks by length, and new appends
-        overwrite."""
-        self.cache["len"][s] = 0
-        if "state" in self.cache:
-            self.cache["state"][:, :, s] = 0
-            self.cache["conv"][:, :, s] = 0
 
     # ------------------------------------------------------------------
     def tick(self):

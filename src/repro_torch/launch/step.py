@@ -10,7 +10,9 @@ The reference's ``make_prefill_step(cfg, rules)`` and
 sharding rules; on one card there is nothing to close over, so these are
 plain functions of the model (an ``nn.Module`` from
 ``repro_torch.models.get_model``, which names the ROADMAP item of a family
-not ported yet).  The training step is a later slice.
+not ported yet).  ``batch["positions"]`` is passed through as the
+reference passes it: (B, S), or (3, B, S) for Qwen2-VL's M-RoPE.  The
+training step is a later slice.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ __all__ = ["prefill_step", "serve_step"]
 
 def prefill_step(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """(B, V) next-token logits of ``batch["tokens"]`` (B, S) (optional
-    ``batch["positions"]``)."""
+    ``batch["positions"]``, (B, S) or (3, B, S))."""
     logits, _aux = model(batch["tokens"], positions=batch.get("positions"),
                          last_only=True)
     return logits[:, 0]

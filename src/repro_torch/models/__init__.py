@@ -1,4 +1,5 @@
-"""The model stack of the port: layers, attention, Mamba-2 mixers, MoE and
-the Jamba hybrid (the hybrid serving path; the other families are later
-slices, see :func:`get_model`)."""
+"""The model stack of the port: layers, attention, Mamba-2 mixers, MoE,
+and the decoder-only LMs built of them (the dense / MoE / VLM
+``Transformer``, the ``Mamba2LM`` and the ``Jamba`` hybrid; Whisper is a
+later slice, see :func:`get_model`)."""
 from .api import get_model  # noqa: F401

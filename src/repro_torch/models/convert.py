@@ -1,9 +1,10 @@
 """Parameters for the port's models: conversion from the JAX package's
 parameter dictionaries, and random initialisation on the card.
 
-Both return a ``state_dict`` keyed by the reference's names, for
-``Jamba.load_state_dict``; the arrays come in as numpy, so nothing here
-imports JAX.
+Both return a ``state_dict`` keyed by the reference's names, for the
+model class of the config's family (``get_model(cfg)``, whose
+``param_table``, ``param_dtype`` and ``init_rule`` they follow); the
+arrays come in as numpy, so nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
-from .jamba import param_dtype, param_table
+from .api import get_model
 from .layers import init_dense
 
 __all__ = ["params_from_jax", "init_params"]
@@ -22,12 +23,13 @@ __all__ = ["params_from_jax", "init_params"]
 
 def params_from_jax(cfg: ModelConfig, params: Mapping[str, np.ndarray],
                     device=None) -> Dict[str, torch.Tensor]:
-    """``{name: array}`` of the reference (``repro.models.jamba``: names,
-    shapes, dtypes as its ``init_params`` makes them) -> a state dict.
+    """``{name: array}`` of the reference (names, shapes, dtypes as the
+    ``init_params`` of the config's family makes them) -> a state dict.
     Arrays of any float dtype (bf16 arrays included, which numpy holds as
     an extension dtype) are read through float32, which holds bf16 and
     fp32 values exactly, and cast to the port's dtype for that name."""
-    table = param_table(cfg)
+    model = get_model(cfg)
+    table = model.param_table(cfg)
     if set(params) != set(table):
         raise KeyError(f"parameter names differ: missing "
                        f"{sorted(set(table) - set(params))}, unexpected "
@@ -39,31 +41,33 @@ def params_from_jax(cfg: ModelConfig, params: Mapping[str, np.ndarray],
         if a.shape != shape:
             raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
         out[name] = torch.tensor(np.asarray(a, np.float32)).to(
-            device=device, dtype=param_dtype(cfg, name))
+            device=device, dtype=model.param_dtype(cfg, name))
     return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Dict[str, torch.Tensor]:
-    """Random parameters as the reference initialises them
-    (``repro.models.jamba.init_params``): norms and ``D_skip`` ones,
-    ``A_log`` the log of ``linspace(1, 16)`` over the heads, ``dt_bias`` and
-    ``conv_b`` zeros, the router in fp32, everything else truncated-normal
-    fan-in in the parameter dtype.  Drawn from ``generator`` (which must
-    live on ``device``) in sorted name order; the reference's JAX keys give
+    """Random parameters by the reference's rules for the config's family
+    (``init_rule``: ``ones``, ``zeros``, ``A_log`` the log of
+    ``linspace(1, 16)`` over the heads, ``dense`` truncated-normal fan-in),
+    in the dtypes of ``param_dtype`` (the router and the SSM's ``A_log``
+    and ``dt_bias`` in fp32).  Drawn from ``generator`` (which must live
+    on ``device``) in sorted name order; the reference's JAX keys give
     other numbers."""
+    model = get_model(cfg)
     device = resolve_device(device)
     out = {}
-    for name, shape in sorted(param_table(cfg).items()):
-        dtype = param_dtype(cfg, name)
-        if "norm" in name or name.endswith("D_skip"):
+    for name, shape in sorted(model.param_table(cfg).items()):
+        dtype = model.param_dtype(cfg, name)
+        rule = model.init_rule(name)
+        if rule == "ones":
             out[name] = torch.ones(shape, dtype=dtype, device=device)
-        elif name.endswith("A_log"):
+        elif rule == "zeros":
+            out[name] = torch.zeros(shape, dtype=dtype, device=device)
+        elif rule == "A_log":
             a = torch.log(torch.linspace(1.0, 16.0, shape[-1],
                                          dtype=torch.float32, device=device))
             out[name] = a.expand(shape).to(dtype).contiguous()
-        elif name.endswith(("dt_bias", "conv_b")):
-            out[name] = torch.zeros(shape, dtype=dtype, device=device)
         else:
             out[name] = init_dense(shape, dtype, generator, device)
     return out

@@ -20,12 +20,11 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.backend import resolve_device
 from . import mamba2, moe as moe_mod
 from .attention import decode_attention
+from .base import TableModule
 from .layers import embed_lookup, rms_norm, rope, swiglu
 from .transformer import attn_block, scatter_kv
 
@@ -88,45 +87,21 @@ def param_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
     return cfg.param_dtype
 
 
-class Jamba(nn.Module):
-    """The Jamba hybrid LM.  Parameters are registered under the
-    reference's names (``state_dict()`` keys equal ``param_table``'s).
-    With ``params`` (a state dict on ``device``, e.g. from
-    ``repro_torch.models.convert``) the module holds those tensors
-    themselves, without a copy, so several modules can share one set of
-    weights; without, it allocates them uninitialised, for
-    ``load_state_dict``."""
+class Jamba(TableModule):
+    """The Jamba hybrid LM, its parameters under the reference's names
+    (``state_dict()`` keys equal ``param_table``'s); see
+    :class:`~repro_torch.models.base.TableModule` for ``params``."""
 
-    def __init__(self, cfg: ModelConfig, device=None,
-                 params: Optional[Dict[str, torch.Tensor]] = None):
-        super().__init__()
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        table = param_table(cfg)
-        if params is not None and set(params) != set(table):
-            raise KeyError(f"parameter names differ from the table: "
-                           f"{sorted(set(params) ^ set(table))}")
-        for name, shape in table.items():
-            dtype = param_dtype(cfg, name)
-            if params is None:
-                data = torch.empty(shape, dtype=dtype, device=self.device)
-            else:
-                data = params[name]
-                if tuple(data.shape) != shape or data.dtype != dtype \
-                        or data.device != self.device:
-                    raise ValueError(
-                        f"{name}: expected {dtype} {shape} on {self.device}, "
-                        f"got {data.dtype} {tuple(data.shape)} on "
-                        f"{data.device}")
-            self.register_parameter(name, nn.Parameter(data,
-                                                       requires_grad=False))
+    RECURRENT_LEAVES = ("state", "conv")   # (NP, 7, B, ...)
+    CACHE_BATCH_DIM = 2
 
-    def _p(self, name: str) -> torch.Tensor:
-        return getattr(self, name)
+    param_table = staticmethod(param_table)
+    param_dtype = staticmethod(param_dtype)
+    init_rule = staticmethod(mamba2.init_rule)
 
     def _mamba(self, per: int, i: int) -> Dict[str, torch.Tensor]:
-        return {k: self._p(f"periods/mamba_{k}")[per, i]
-                for k in mamba2.mixer_table(self.cfg, 1)}
+        return self._stack("periods/mamba_", mamba2.mixer_table(self.cfg, 1),
+                           per, i)
 
     def _mlp(self, x, per: int, i: int, counters):
         """Layer ``i``'s MLP with its residual; ``counters`` index the

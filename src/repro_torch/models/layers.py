@@ -1,17 +1,19 @@
 """Shared model layers (the port's counterpart of ``repro.models.layers``):
-norms, RoPE, embeddings, the SwiGLU MLP and the dense initialiser.
+norms, RoPE and M-RoPE, embeddings, the SwiGLU MLP and the dense
+initialiser.
 
 Functions on tensors, with the reference's numerics: RMSNorm and the
 rotary embedding in fp32, SiLU in fp32 cast back to the activation dtype.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["init_dense", "rms_norm", "rope", "swiglu", "embed_lookup"]
+__all__ = ["init_dense", "rms_norm", "rope", "mrope", "swiglu",
+           "embed_lookup"]
 
 F32 = torch.float32
 
@@ -51,6 +53,30 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = theta ** (-torch.arange(0, half, dtype=F32, device=x.device)
                       / half)
     ang = positions.to(F32)[..., None] * freqs          # (B, S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(F32).split(half, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def mrope(x: torch.Tensor, positions: torch.Tensor,
+          sections: Tuple[int, int, int],
+          theta: float = 1e6) -> torch.Tensor:
+    """Multi-dimensional RoPE (Qwen2-VL).  x: (B, S, H, hd); positions
+    (3, B, S), the temporal, height and width streams; ``sections``
+    splits the hd/2 frequency bands among them, in that order."""
+    hd = x.shape[-1]
+    half = hd // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope: sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {half}")
+    freqs = theta ** (-torch.arange(0, half, dtype=F32, device=x.device)
+                      / half)
+    stream = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))        # band -> stream
+    pos = positions.to(F32)[stream]                     # (hd/2, B, S)
+    ang = pos.permute(1, 2, 0) * freqs                  # (B, S, hd/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x.to(F32).split(half, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],

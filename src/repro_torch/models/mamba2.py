@@ -1,26 +1,32 @@
-"""Mamba-2 (SSD) mixer blocks (the port's counterpart of the mixer part of
-``repro.models.mamba2``).
+"""Mamba-2 (SSD): the mixer blocks and the attention-free LM built of them
+(the port's counterpart of ``repro.models.mamba2``, for serving on one
+card).
 
 :func:`mixer_apply` runs a whole sequence through the SSD kernel
 (``ssd_scan_op``: the Hopper kernel on a CUDA tensor, the token-by-token
 recurrence on the CPU), as the reference does with ``ssd_impl="kernel"``.
 :func:`ssd_chunked` is the reference's chunked algorithm in plain PyTorch,
 kept as a second oracle for the kernel.  :func:`mixer_decode` carries the
-(N, P) state and the convolution tail one token at a time.  The
-attention-free LM (``mamba2-370m``) is a later slice.
+(N, P) state and the convolution tail one token at a time.
+:class:`Mamba2LM` (``mamba2-370m``) stacks the mixers, pre-norm and
+residual, between the embedding and the LM head; its forward runs every
+mixer through the SSD kernel, its decode step every mixer's recurrence in
+plain tensor code.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import ssd_scan_op
-from .layers import rms_norm
+from .base import TableModule
+from .layers import embed_lookup, rms_norm
 
-__all__ = ["mixer_table", "mixer_apply", "mixer_decode", "ssd_chunked"]
+__all__ = ["mixer_table", "mixer_apply", "mixer_decode", "ssd_chunked",
+           "init_rule", "param_table", "param_dtype", "Mamba2LM"]
 
 F32 = torch.float32
 
@@ -156,3 +162,112 @@ def mixer_decode(lp, x, state, conv_tail, cfg: ModelConfig):
     y = rms_norm(y * F.silu(z.to(F32)).to(x.dtype), lp["gate_norm"],
                  cfg.norm_eps)
     return y @ lp["out_proj"], state, new_tail
+
+
+# ---------------------------------------------------------------------------
+# the attention-free LM (mamba2-370m)
+# ---------------------------------------------------------------------------
+
+def init_rule(name: str) -> str:
+    """How the reference initialises a parameter of the Mamba-2 layers:
+    norms and ``D_skip`` ones, ``A_log`` the log of ``linspace(1, 16)``
+    over the heads, ``dt_bias`` and ``conv_b`` zeros, the rest dense."""
+    if "norm" in name or name.endswith("D_skip"):
+        return "ones"
+    if name.endswith("A_log"):
+        return "A_log"
+    if name.endswith(("dt_bias", "conv_b")):
+        return "zeros"
+    return "dense"
+
+
+def param_table(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """Name -> shape of every parameter of the LM (the reference's
+    names: the mixers stacked over layers as ``layers/<name>``)."""
+    t = {
+        "embed": (cfg.vocab_size, cfg.d_model),
+        "final_norm": (cfg.d_model,),
+        "lm_head": (cfg.d_model, cfg.vocab_size),
+    }
+    for k, shape in mixer_table(cfg, cfg.num_layers).items():
+        t[f"layers/{k}"] = shape
+    return t
+
+
+def param_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """fp32 for ``A_log`` and ``dt_bias``; else the parameter dtype."""
+    if name.endswith(("A_log", "dt_bias")):
+        return F32
+    return cfg.param_dtype
+
+
+class Mamba2LM(TableModule):
+    """The Mamba-2 LM, its parameters under the reference's names; see
+    :class:`~repro_torch.models.base.TableModule` for ``params``."""
+
+    RECURRENT_LEAVES = ("state", "conv")   # (L, B, ...)
+    CACHE_BATCH_DIM = 1
+
+    param_table = staticmethod(param_table)
+    param_dtype = staticmethod(param_dtype)
+    init_rule = staticmethod(init_rule)
+
+    def _layer(self, i: int) -> Dict[str, torch.Tensor]:
+        return self._stack("layers/", mixer_table(self.cfg, 1), i)
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                last_only: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, S) -> (logits (B, S or 1, V), 0).  ``positions``
+        is accepted and unused, as in the reference; ``last_only``
+        computes the last position's logits only."""
+        cfg = self.cfg
+        x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
+        for i in range(cfg.num_layers):
+            lp = self._layer(i)
+            x = x + mixer_apply(lp, rms_norm(x, lp["norm"], cfg.norm_eps),
+                                cfg)
+        if last_only:
+            x = x[:, -1:]
+        x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)
+        return x @ self._p("lm_head"), torch.zeros((), dtype=F32,
+                                                   device=x.device)
+
+    def init_cache(self, batch: int, max_seq: int = 0
+                   ) -> Dict[str, torch.Tensor]:
+        """Decode cache on the model's device: each layer's fp32 SSM state
+        (L, B, H, N, P), convolution tail (L, B, W-1, conv_dim) and the
+        filled length (B,).  Its size does not depend on ``max_seq``."""
+        cfg, dev = self.cfg, self.device
+        s, _di, nh, conv_dim, _ = _dims(cfg)
+        L = cfg.num_layers
+        return {
+            "state": torch.zeros((L, batch, nh, s.state_dim, s.head_dim),
+                                 dtype=F32, device=dev),
+            "conv": torch.zeros((L, batch, s.conv_width - 1, conv_dim),
+                                dtype=cfg.param_dtype, device=dev),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        }
+
+    @torch.no_grad()
+    def decode_step(self, cache: Dict[str, torch.Tensor],
+                    tokens: torch.Tensor,
+                    positions: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Append ``tokens`` (B,) and return (logits (B, V), cache).  The
+        state and convolution tensors of ``cache`` are updated in place;
+        ``len`` is a new tensor."""
+        cfg = self.cfg
+        x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
+        for i in range(cfg.num_layers):
+            lp = self._layer(i)
+            out, st, ct = mixer_decode(
+                lp, rms_norm(x, lp["norm"], cfg.norm_eps),
+                cache["state"][i], cache["conv"][i], cfg)
+            cache["state"][i] = st
+            cache["conv"][i] = ct
+            x = x + out
+        x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)
+        return x @ self._p("lm_head"), {**cache, "len": cache["len"] + 1}

@@ -150,10 +150,18 @@ def test_init_params_follows_the_reference_rules():
 
 
 def test_get_model_names_the_roadmap_item_of_other_families():
-    for arch in ("qwen2-72b", "mixtral-8x7b", "mamba2-370m",
-                 "whisper-large-v3", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A-6"):
-            get_model(get_config(arch))
+    """Every decoder-only arch has its class; only Whisper (the audio
+    family) raises, naming ROADMAP A-6c."""
+    from repro_torch.models.transformer import Transformer
+    want = {"hybrid": jamba.Jamba, "ssm": mamba2.Mamba2LM,
+            "dense": Transformer, "moe": Transformer, "vlm": Transformer}
+    for arch in sorted(list_archs()):
+        cfg = get_config(arch)
+        if arch == "whisper-large-v3":
+            with pytest.raises(NotImplementedError, match="ROADMAP A-6c"):
+                get_model(cfg)
+        else:
+            assert get_model(cfg) is want[cfg.family], arch
     assert get_model(get_config(ARCH)) is jamba.Jamba
 
 

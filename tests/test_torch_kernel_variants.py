@@ -402,7 +402,9 @@ def test_flash_emulation_matches_pallas_interpret(shape, causal, window):
     (torch.bfloat16, 16, 16, 64, True, "cuda_core"),      # chunk below 64
     (torch.bfloat16, 96, 16, 64, True, "cuda_core"),
     (torch.bfloat16, 256, 24, 64, True, "cuda_core"),     # N not a multiple of 16
-    (torch.bfloat16, 64, 128, 64, True, "cuda_core"),     # N beyond one 128-byte row
+    (torch.bfloat16, 64, 128, 64, True, "tensor_core"),   # N in two 128-byte rows
+    (torch.bfloat16, 256, 128, 64, True, "tensor_core"),  # Mamba-2 370M's prefill
+    (torch.bfloat16, 256, 144, 64, True, "cuda_core"),    # N beyond two rows
     (torch.bfloat16, 256, 16, 12, True, "cuda_core"),     # P not a multiple of 8
     (torch.bfloat16, 256, 16, 64, False, "cuda_core"),    # x, B or C misaligned
 ])
@@ -425,13 +427,43 @@ def test_ssd_main_path_takes_the_tensor_core_variant():
                                r.state_dim, r.head_dim) == "cuda_core"
 
 
+def test_mamba2_prefill_takes_the_tensor_core_variant():
+    """Mamba-2 370M's prefill SSD (1 x 4096, bf16, N = 128, chunk 256)
+    selects ``tensor_core`` at its own chunk; fp32 at that shape, which
+    raised before the variant took N = 128, runs ``cuda_core`` on the
+    largest halving of the chunk whose shared memory fits (128)."""
+    from repro_torch.kernels import ops
+    s = get_config("mamba2-370m").ssm
+    chunk = ops.ssd_chunk(s.chunk, 4096)
+    assert (chunk, s.state_dim, s.head_dim) == (256, 128, 64)
+    assert ssd_mod.ssd_variant(torch.bfloat16, chunk, s.state_dim,
+                               s.head_dim) == "tensor_core"
+    assert ssd_mod.ssd_variant(torch.float32, chunk, s.state_dim,
+                               s.head_dim) == "cuda_core"
+    assert ssd_mod._smem_bytes(256, 64, 128) > ssd_mod.SMEM_BYTES
+    assert ssd_mod.cuda_core_chunk(256, 64, 128) == 128
+    assert ssd_mod._smem_bytes(128, 64, 128) <= ssd_mod.SMEM_BYTES
+
+
+@pytest.mark.parametrize("chunk,p,n,want", [
+    (256, 64, 16, 256), (16, 64, 16, 16), (256, 64, 128, 128),
+    (200, 64, 128, 100), (256, 64, 256, 64), (64, 64, 128, 64)])
+def test_cuda_core_chunk_halves_until_it_fits(chunk, p, n, want):
+    got = ssd_mod.cuda_core_chunk(chunk, p, n)
+    assert got == want
+    assert ssd_mod._smem_bytes(got, p, n) <= ssd_mod.SMEM_BYTES
+    assert got == chunk or ssd_mod._smem_bytes(chunk, p, n) > \
+        ssd_mod.SMEM_BYTES
+
+
 def _two_arg_functions(name):
     """The one-line ``constexpr int f(int a, int b) { return ...; }``
-    functions of ``csrc/<name>``, as Python functions over its constants."""
+    functions of ``csrc/<name>``, as Python functions over its constants
+    (C's integer division of non-negative ints as ``//``)."""
     text = (CSRC / name).read_text()
     consts = _constants(name)
     return {f: (lambda expr, a1, a2: lambda u, v: int(eval(
-        expr, {}, {**consts, a1: u, a2: v})))(expr, a1, a2)
+        expr.replace("/", "//"), {}, {**consts, a1: u, a2: v})))(expr, a1, a2)
         for f, a1, a2, expr in re.findall(
             r"constexpr int (\w+)\(int (\w+), int (\w+)\) "
             r"\{\s*return ([^;]+);", text)}
@@ -441,18 +473,22 @@ def _two_arg_functions(name):
 def test_ssd_kernel_constants_fit_the_card(chunk):
     """The tensor-core passes' shared memory, evaluated from
     csrc/ssd_scan.cu's own functions and constants at every chunk it takes
-    and the largest state (N = P = 64): within a block's 227 KB; two
+    and the largest state (N = 128, P = 64): within a block's 227 KB; two
     blocks of pass 3 fit an SM at Jamba's widths (N 16, P 64, chunk 256);
-    x, C and B rows are one 128-byte swizzle span; pass 3 is two
-    warpgroups, pass 1 one."""
+    x rows are one 128-byte swizzle span, C and B rows up to two; pass 3
+    is two warpgroups, pass 1 one."""
     c = _constants("ssd_scan.cu")
     f = _two_arg_functions("ssd_scan.cu")
-    assert c["MAX_P"] * 2 == 128 and c["MAX_N"] * 2 == 128
+    assert c["MAX_P"] * 2 == 128 and c["MAX_N"] * 2 == 2 * 128
+    assert c["MAX_N"] == ssd_mod.TC_MAX_N
     assert c["TC_ROWS"] == ssd_mod.TC_ROWS == 64
     assert c["MAX_CHUNK"] == ssd_mod.MAX_CHUNK and chunk % c["TC_ROWS"] == 0
     assert c["OUT_THREADS"] == 2 * 128 and c["STATE_THREADS"] == 128
     assert f["out_tc_smem"](chunk, c["MAX_N"]) <= SMEM_PER_BLOCK
-    assert f["state_tc_smem"](chunk, 64) <= SMEM_PER_BLOCK
+    assert f["state_tc_smem"](chunk, c["MAX_N"]) <= SMEM_PER_BLOCK
+    # C and B take a second 128-byte column block only past N = 64
+    assert f["out_tc_smem"](chunk, 80) - f["out_tc_smem"](chunk, 64) == \
+        2 * chunk * 128 + 2 * 16 * 128
     jamba = f["out_tc_smem"](256, JAMBA.ssm.state_dim)
     assert 2 * (jamba + 1024) <= SMEM_PER_SM
     # the cuda_core variant at the shapes it takes on the main path and in
@@ -544,6 +580,7 @@ SSD_EMULATION_CASES = [
     (2, 2, 1, 200, 16, 32, 64),
     (1, 4, 1, 300, 64, 16, 128),
     (1, 2, 2, 97, 64, 48, 64),
+    (1, 2, 1, 300, 64, 128, 256),       # Mamba-2 370M's N and chunk
 ]
 
 

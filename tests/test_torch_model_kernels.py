@@ -116,6 +116,7 @@ SSD_SHAPES = [
     (2, 96, 4, 16, 2, 24, 32),    # padded seq, grouped B/C
     (1, 128, 2, 64, 1, 128, 64),  # mamba2-370m-like head
     (1, 33, 2, 8, 1, 8, 16),      # ragged seq
+    (1, 300, 2, 64, 1, 128, 256),  # mamba2-370m's N and chunk, ragged seq
 ]
 
 
@@ -254,7 +255,28 @@ def test_bounds_count_bytes_and_operations():
     x = torch.empty(1, 2, 32, 4)
     nbytes, flops = ssd_mod.ssd_bound(x, torch.empty(1, 1, 32, 3), chunk=16)
     assert nbytes == 4 * (2 * 2 * 32 * 4 + 2 * 32 + 2 * 32 * 3) + 4 * 2
-    assert flops == 2 * 2 * (2 * 136 * 7 + 4 * 16 * 3 * 4)
+    # 2 chunks of 16 (136 pairs): C B^T once for the one group, the rest
+    # for each of the 2 heads
+    assert flops == 2 * (2 * 136 * 3 + 2 * (2 * 136 * 4 + 4 * 16 * 3 * 4))
+
+
+@pytest.mark.parametrize("h,g,s,p,n,chunk,flops", [
+    # Mamba-2 370M's prefill: 16 chunks of 256 (32,896 pairs), one group
+    (32, 1, 4096, 64, 128, 256,
+     16 * (2 * 32896 * 128 + 32 * (2 * 32896 * 64 + 4 * 256 * 128 * 64))),
+    # two groups of two heads, a last chunk cut short (3 chunks of 8)
+    (4, 2, 20, 8, 16, 8, 3 * (2 * 2 * 36 * 16
+                              + 4 * (2 * 36 * 8 + 4 * 8 * 16 * 8))),
+])
+def test_ssd_bound_counts_cb_once_per_group(h, g, s, p, n, chunk, flops):
+    """The heads of a group share C and B, so C B^T counts once per group
+    and chunk; the bound of Mamba-2's shape is then the bytes (35.9 MB at
+    3.35 TB/s ~ 10.7 us against ~6.6 GFLOP at 989 TFLOP/s ~ 6.7 us)."""
+    x = torch.empty(1, h, s, p, dtype=torch.bfloat16, device="meta")
+    B = torch.empty(1, g, s, n, dtype=torch.bfloat16, device="meta")
+    nbytes, got = ssd_mod.ssd_bound(x, B, chunk)
+    assert got == flops
+    assert nbytes == 2 * (2 * h * s * p + h * s + 2 * g * s * n) + 4 * h
 
 
 # ---------------------------------------------------------------------------
@@ -345,8 +367,9 @@ def test_flash_tensor_core_variants_on_card():
 def test_ssd_kernel_matches_plain_on_card(dtype):
     """Both variants against the plain version: bf16 shapes with the chunk
     a multiple of 64, N of 16 and P of 8 run ``tensor_core`` (S ragged
-    against the chunk, G < H, N 16 to 64, P 8 to 64), the rest, x one
-    element off 16-byte alignment, and all of fp32 ``cuda_core``."""
+    against the chunk, G < H, N 16 to 128, P 8 to 64), the rest, x one
+    element off 16-byte alignment, and all of fp32 ``cuda_core`` (at
+    N = 128, P = 64 on a chunk of 128 in place of 256)."""
     _need_card()
     g = torch.Generator("cuda").manual_seed(1)
     for b, s, h, p, gr, n, chunk, off in ((1, 64, 2, 16, 1, 16, 16, 0),
@@ -358,6 +381,8 @@ def test_ssd_kernel_matches_plain_on_card(dtype):
                                           (1, 131, 6, 8, 3, 64, 128, 0),
                                           (1, 700, 2, 64, 1, 48, 192, 0),
                                           (1, 4096, 8, 64, 1, 16, 256, 0),
+                                          (1, 300, 4, 64, 1, 128, 256, 0),
+                                          (1, 1000, 4, 64, 1, 96, 256, 0),
                                           (1, 300, 4, 64, 1, 16, 256, 1)):
         x = (torch.randn(b, h, s, p, generator=g, device="cuda") * 0.5)
         dt = torch.nn.functional.softplus(
@@ -377,7 +402,7 @@ def test_ssd_kernel_matches_plain_on_card(dtype):
         assert ssd_mod.ssd_scan.launches == before + 1
         assert ran == [ssd_mod.ssd_variant(dtype, chunk, n, p, aligned)]
         assert ran == ["tensor_core" if dtype == torch.bfloat16 and aligned
-                       and chunk % 64 == 0 and n % 16 == 0 and n <= 64
+                       and chunk % 64 == 0 and n % 16 == 0 and n <= 128
                        and p % 8 == 0 else "cuda_core"]
         torch.testing.assert_close(y.float(),
                                    ref.ssd_scan_ref(x, dt, Bm, Cm, A).float(),
@@ -508,3 +533,132 @@ def test_reduced_jamba_on_card_matches_cpu():
         outs.append([r.out for r in sorted(server.completed,
                                            key=lambda r: r.rid)])
     assert outs[0] == outs[1] and all(len(o) == 5 for o in outs[0])
+
+
+@pytest.mark.gpu
+def test_flash_window_and_head_dims_of_this_slice_on_card():
+    """bf16 flash with a sliding window at a query length that is not a
+    multiple of the 128-row block or the 64-key tile (the window's left
+    edge skips whole KV tiles and masks inside others), and at StableLM's
+    hd = 80 (two 64-column blocks, zero-filled past hd): ``wgmma_tma``
+    against the plain version."""
+    _need_card()
+    g = torch.Generator("cuda").manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").bfloat16()
+
+    for (H, K, S, hd), window in (((8, 2, 1000, 128), 300),
+                                  ((4, 1, 777, 128), 64),
+                                  ((4, 4, 513, 80), None),
+                                  ((4, 2, 700, 80), 129)):
+        q, k, v = rnd(1, H, S, hd), rnd(1, K, S, hd), rnd(1, K, S, hd)
+        ran, out = _launched(fa_mod.flash_attention, lambda: fa_mod
+                             .flash_attention(q, k, v, causal=True,
+                                              window=window))
+        assert ran == ["wgmma_tma"]
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        torch.testing.assert_close(out.float(), want.float(),
+                                   **_card_tol(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_at_mamba2_widths_on_card(dtype):
+    """Mamba-2 370M's SSD call at full width (x (1, 32, 4096, 64), N =
+    128, chunk 256): ``tensor_core`` in bf16, ``cuda_core`` in fp32."""
+    _need_card()
+    g = torch.Generator("cuda").manual_seed(6)
+    h, s, p, n = 32, 4096, 64, 128
+    x = (torch.randn(1, h, s, p, generator=g, device="cuda") * 0.5).to(dtype)
+    dt = (torch.nn.functional.softplus(torch.randn(
+        1, h, s, generator=g, device="cuda")) * 0.1).to(dtype)
+    Bm = (torch.randn(1, 1, s, n, generator=g, device="cuda") * 0.5).to(dtype)
+    Cm = (torch.randn(1, 1, s, n, generator=g, device="cuda") * 0.5).to(dtype)
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    ran, y = _launched(ssd_mod.ssd_scan, lambda: ssd_mod.ssd_scan(
+        x, dt, Bm, Cm, A, chunk=256))
+    assert ran == ["tensor_core" if dtype == torch.bfloat16 else "cuda_core"]
+    torch.testing.assert_close(y.float(),
+                               ref.ssd_scan_ref(x, dt, Bm, Cm, A).float(),
+                               **_card_tol(dtype))
+
+
+@pytest.mark.gpu
+def test_gmm_at_mixtral_and_moonshot_shapes_on_card():
+    """bf16 GMM at Mixtral's E = 8 (a 1 x 8192 prefill's 2568 capacity
+    rows, the last 128-row tile ragged, through ``tma``; a decode tick's
+    8 rows through ``decode``) and Moonshot's E = 64 with N = 1408, whose
+    last 256-wide tile is partial."""
+    _need_card()
+    g = torch.Generator("cuda").manual_seed(7)
+
+    def pair(e, m, k, n):
+        return (torch.randn(e, m, k, generator=g, device="cuda").bfloat16(),
+                (torch.randn(e, k, n, generator=g, device="cuda")
+                 * k ** -0.5).bfloat16())
+
+    for shape, variant in (((8, 2568, 4096, 14336), "tma"),
+                           ((8, 2568, 14336, 4096), "tma"),
+                           ((8, 8, 4096, 14336), "decode"),
+                           ((64, 200, 2048, 1408), "tma"),
+                           ((64, 200, 1408, 2048), "tma"),
+                           ((64, 8, 2048, 1408), "decode")):
+        lhs, rhs = pair(*shape)
+        ran, out = _launched(gmm_mod.grouped_matmul,
+                             lambda: gmm_mod.grouped_matmul(lhs, rhs))
+        assert ran == [variant]
+        torch.testing.assert_close(out.float(),
+                                   ref.grouped_matmul_ref(lhs, rhs).float(),
+                                   **_card_tol(torch.bfloat16))
+        del lhs, rhs, out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen2-vl-72b",
+                                  "mamba2-370m"])
+def test_reduced_models_on_card_match_cpu(arch):
+    """The reduced Mixtral (window 16, 50 tokens: teacher-forced decode
+    wraps its cache three times), Qwen2-VL (distinct (3, B, S) positions) and
+    Mamba-2 LM, fp32, through the kernels on the card against the plain
+    versions on the CPU: forward logits within 2e-4, every kernel of the
+    model launched; decode on the card against its forward."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import init_params
+    cfg = reduced_config(get_config(arch))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    Model = get_model(cfg)
+    card = Model(cfg, "cuda", params={k: v.cuda()
+                                      for k, v in cpu_params.items()})
+    S = 50
+    tokens = torch.randint(0, cfg.vocab_size, (2, S),
+                           generator=torch.Generator().manual_seed(1))
+    pos = None
+    if cfg.mrope_sections is not None:
+        pos = torch.stack([torch.arange(S) // 4, torch.arange(S) // 2,
+                           torch.arange(S)])[:, None].expand(3, 2, S)
+    wrappers = {"flash": fa_mod.flash_attention, "ssd": ssd_mod.ssd_scan,
+                "gmm": gmm_mod.grouped_matmul}
+    want = {"flash": cfg.family != "ssm", "ssd": cfg.family == "ssm",
+            "gmm": cfg.moe is not None}
+    before = {k: w.launches for k, w in wrappers.items()}
+    on_card, _ = card(tokens.cuda(), positions=None if pos is None
+                      else pos.cuda())
+    torch.cuda.synchronize()
+    assert {k: w.launches > before[k] for k, w in wrappers.items()} == want
+    on_cpu, _ = Model(cfg, "cpu", params=cpu_params)(tokens, positions=pos)
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=2e-4, atol=2e-4)
+    if pos is None:
+        cache = card.init_cache(2, S)
+        steps = []
+        for i in range(S):
+            lg, cache = card.decode_step(cache, tokens[:, i].cuda())
+            steps.append(lg)
+        torch.testing.assert_close(torch.stack(steps, 1), on_card,
+                                   rtol=2e-4, atol=2e-4)
