@@ -25,7 +25,14 @@ Phases (any failure raises and exits nonzero):
 4. the reference's recorded knees: 16x16 uniform, 300/500/500 phases,
    seed 0 — saturation at 0.25 on the mesh and 0.40 on the torus;
 5. the facade: 16x32 tornado, 512 entries per tile, run until drained
-   (one call a cycle);
+   (one call a cycle); then the paper's reactive endpoints on 16x32
+   through the facade on the card (the trace-to-program bridge: the numpy
+   oracle calls the endpoints, the card replays the traced program): 8
+   ``DmaEndpoint``s streaming 256 words each (window 8), 8
+   ``MemoryControllerEndpoint``s chasing 64 pointers each through rings
+   seeded with ``set_mem``, background uniform loads elsewhere; drain
+   cycle, Telemetry, memory and every chaser's replies identical to the
+   same scenario on the numpy backend, router launches during the replay;
 6. times: the kernel per mesh cycle at 12 lanes x 16x32 with CUDA events,
    in calls of 400 cycles (as the sweep's measure and drain phases) and
    of 1 cycle (as a drain with ``check_every=1``); the cut-over between
@@ -37,7 +44,10 @@ Phases (any failure raises and exits nonzero):
 7. the model kernels against their plain versions, in fp32 and in bf16,
    at every main path's shapes (``FLASH_CASES``, ``GMM_CASES``,
    ``SSD_CASES``): flash at Jamba's, Mixtral's (1 x 8192 with its 4096
-   window), Qwen2-VL's (GQA 64/8) and StableLM's (hd 80) prefill; the GMM
+   window), Qwen2-VL's (GQA 64/8) and StableLM's (hd 80) prefill and at
+   Whisper's three (4 clips, hd 64: the encoder's 1500 x 1500 and the
+   decoder's cross-attention, 448 queries against 1500 keys, non-causal;
+   the decoder's causal 448 x 448); the GMM
    at Jamba's and Mixtral's prefill and decode and Moonshot's prefill (E
    64, N 1408); the SSD at Jamba's (N 16) and Mamba-2 370M's (N 128)
    prefill.  Each bf16 call must go through its tensor-core variant
@@ -45,10 +55,11 @@ Phases (any failure raises and exits nonzero):
    ``decode`` in decode), fp32 through ``f32`` / ``cuda_core``; and the
    GMM's ``ragged`` variant on an lhs TMA cannot describe;
 8. the reduced Jamba, Mixtral (window 16, 50 tokens: decode wraps its
-   cache three times), Qwen2-VL (distinct (3, B, S) positions) and
-   Mamba-2 LM (fp32) on the card through the kernels against the CPU
-   through the plain versions, and teacher-forced ``decode_step`` against
-   ``forward`` on the card;
+   cache three times), Qwen2-VL (distinct (3, B, S) positions), Mamba-2
+   LM and Whisper (encoder_seq 20) (fp32) on the card through the kernels
+   against the CPU through the plain versions, and teacher-forced
+   ``decode_step`` against ``forward`` on the card (Whisper's cross KV
+   filled from the card's encoder output);
 9. the model stack's main paths at full width, one model at a time, each
    freed before the next, bf16 weights drawn on the card; for each a
    prefill through ``prefill_step``, then the continuous-batching
@@ -69,6 +80,10 @@ Phases (any failure raises and exits nonzero):
      requests (no kernel in decode);
    - Mamba-2 370M whole (48 layers): 1 x 4096 tokens, 48 ``tensor_core``
      SSD; the ``Server`` of 8 requests (its decode is plain recurrence);
+   - whisper-large-v3 whole (32 encoder + 32 decoder layers, 2.02 B): 4
+     clips of 1500 frames and 4 x 448 decoder tokens, 96 ``wgmma_tma``
+     flash (32 encoder, 32 decoder self, 32 cross); the ``Server`` of 8
+     requests (no kernel in decode);
 10. times of the model kernels at the shapes of phase 7 (kernel, plain
    version, library call, bound): flash beside SDPA (with a window, the
    band as an explicit mask, naming the kernel SDPA ran, and the kernel
@@ -515,17 +530,28 @@ def timings(device, facade_wall, nx=16, ny=32, plain_cycles=20):
 JAMBA, MIXTRAL = "jamba-v0.1-52b", "mixtral-8x7b"
 QWEN2_VL, MAMBA2 = "qwen2-vl-72b", "mamba2-370m"
 MOONSHOT, STABLELM = "moonshot-v1-16b-a3b", "stablelm-3b"
+WHISPER = "whisper-large-v3"
 PREFILL_TOKENS = 4096          # batch 1 x 4096 tokens
 MIXTRAL_TOKENS = 8192          # twice Mixtral's 4096-token window
+WHISPER_CLIPS = 4              # 4 clips of 1500 frames each
+WHISPER_TOKENS = 448           # Whisper's published decoder context
+WHISPER_FRAMES = 1500          # its encoder_seq: 30 s of audio
 BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core rate, SXM data sheet
-# The model kernels' shapes on the main paths: (name, arch, tokens) of each
-# flash call of a prefill, of each expert FFN's GMM pair (gate/up and down
-# at the capacity of ``tokens``: a prefill, or a decode tick of 4 slots)
-# and of each SSD call of a prefill.
-FLASH_CASES = (("Jamba prefill", JAMBA, PREFILL_TOKENS),
-               ("Mixtral prefill", MIXTRAL, MIXTRAL_TOKENS),
-               ("Qwen2-VL prefill", QWEN2_VL, PREFILL_TOKENS),
-               ("StableLM hd 80", STABLELM, PREFILL_TOKENS))
+# The model kernels' shapes on the main paths: (name, arch, batch, Sq, Sk,
+# causal) of each flash call of a prefill, (name, arch, tokens) of each
+# expert FFN's GMM pair (gate/up and down at the capacity of ``tokens``: a
+# prefill, or a decode tick of 4 slots) and of each SSD call of a prefill.
+FLASH_CASES = (
+    ("Jamba prefill", JAMBA, 1, PREFILL_TOKENS, PREFILL_TOKENS, True),
+    ("Mixtral prefill", MIXTRAL, 1, MIXTRAL_TOKENS, MIXTRAL_TOKENS, True),
+    ("Qwen2-VL prefill", QWEN2_VL, 1, PREFILL_TOKENS, PREFILL_TOKENS, True),
+    ("StableLM hd 80", STABLELM, 1, PREFILL_TOKENS, PREFILL_TOKENS, True),
+    ("Whisper encoder", WHISPER, WHISPER_CLIPS, WHISPER_FRAMES,
+     WHISPER_FRAMES, False),
+    ("Whisper cross", WHISPER, WHISPER_CLIPS, WHISPER_TOKENS, WHISPER_FRAMES,
+     False),
+    ("Whisper decoder self", WHISPER, WHISPER_CLIPS, WHISPER_TOKENS,
+     WHISPER_TOKENS, True))
 GMM_CASES = (("Jamba prefill", JAMBA, PREFILL_TOKENS),
              ("Jamba decode", JAMBA, 4),
              ("Mixtral prefill", MIXTRAL, MIXTRAL_TOKENS),
@@ -611,14 +637,14 @@ def _rnd(device, dtype, seed):
     return rnd, g
 
 
-def _flash_inputs(device, dtype, arch, S, seed):
-    """q (1, H, S, hd), k, v (1, K, S, hd) at ``arch``'s widths, and its
+def _flash_inputs(device, dtype, arch, B, Sq, Sk, seed):
+    """q (B, H, Sq, hd), k, v (B, K, Sk, hd) at ``arch``'s widths, and its
     window."""
     from repro_torch.configs import get_config
     c = get_config(arch)
     rnd, _ = _rnd(device, dtype, seed)
     H, K, hd = c.num_heads, c.num_kv_heads, c.head_dim
-    return (rnd(1, H, S, hd), rnd(1, K, S, hd), rnd(1, K, S, hd),
+    return (rnd(B, H, Sq, hd), rnd(B, K, Sk, hd), rnd(B, K, Sk, hd),
             c.sliding_window)
 
 
@@ -668,17 +694,19 @@ def kernels_vs_plain(device):
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
-        for name, arch, S in FLASH_CASES:
-            q, k, v, window = _flash_inputs(device, dtype, arch, S, 0)
+        for name, arch, B, Sq, Sk, causal in FLASH_CASES:
+            q, k, v, window = _flash_inputs(device, dtype, arch, B, Sq, Sk, 0)
             out, var = _variant_of(fa.flash_attention, lambda: fa
-                                   .flash_attention(q, k, v, causal=True,
+                                   .flash_attention(q, k, v, causal=causal,
                                                     window=window))
             check(var == ("wgmma_tma" if bf16 else "f32"),
                   f"flash_attention {name} ran the {var} variant")
             errs["flash " + name] = _compare(
                 "flash_attention", f"{name} q {tuple(q.shape)} k/v "
-                f"{tuple(k.shape)} causal window {window} [{var}]", out,
-                ref.flash_attention_ref(q, k, v, causal=True, window=window))
+                f"{tuple(k.shape)} {'causal' if causal else 'non-causal'} "
+                f"window {window} [{var}]", out,
+                ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window))
             del q, k, v, out
             torch.cuda.empty_cache()
         for name, arch, tokens in GMM_CASES:
@@ -734,8 +762,11 @@ def reduced_end_to_end(device, arch=JAMBA, seq=40, positions=False):
     tests/test_models.py), every kernel of the model launched; then
     teacher-forced ``decode_step`` on the card against ``forward`` on the
     card (for the reduced Mixtral, window 16, at ``seq`` 50: the cache
-    wraps three times).  ``positions``: distinct (3, B, S) M-RoPE positions, forward
-    only.  Returns the largest logit difference."""
+    wraps three times).  ``positions``: distinct (3, B, S) M-RoPE
+    positions, forward only.  Whisper (encoder_seq 20, so its cross KV is
+    padded to 32) runs on frames from a seed, and decodes against a cache
+    whose cross KV is filled from the card's encoder output.  Returns the
+    largest logit difference."""
     import dataclasses
     import numpy as np
     import torch
@@ -743,6 +774,9 @@ def reduced_end_to_end(device, arch=JAMBA, seq=40, positions=False):
     from repro_torch.models import get_model
     from repro_torch.models.convert import init_params
     cfg = reduced_config(get_config(arch))
+    if cfg.encdec is not None:
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+            cfg.encdec, encoder_seq=20))
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=8.0))
@@ -753,17 +787,22 @@ def reduced_end_to_end(device, arch=JAMBA, seq=40, positions=False):
     cpu = Model(cfg, "cpu", params=cpu_params)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, seq)))
-    pos = None
+    pos, frames = None, {}
     if positions:
         i = torch.arange(seq)
         pos = torch.stack([i // 4, i // 2, i])[:, None].expand(3, 2, seq) \
             + torch.tensor([0, 1])[None, :, None]
+    if cfg.encdec is not None:
+        frames = {"frames": torch.from_numpy(np.random.default_rng(1)
+                                             .standard_normal(
+            (2, cfg.encdec.encoder_seq, cfg.d_model)).astype(np.float32))}
     zero_counts()
     on_card, _ = card(tokens.to(device),
-                      positions=None if pos is None else pos.to(device))
+                      positions=None if pos is None else pos.to(device),
+                      **{k: v.to(device) for k, v in frames.items()})
     torch.cuda.synchronize()
     counts = read_counts()
-    on_cpu, _ = cpu(tokens, positions=pos)
+    on_cpu, _ = cpu(tokens, positions=pos, **frames)
     err = float((on_card.cpu() - on_cpu).abs().max())
     print(f"[reduced] {cfg.name}: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, window {cfg.sliding_window}, fp32, 2 x {seq} "
@@ -778,7 +817,11 @@ def reduced_end_to_end(device, arch=JAMBA, seq=40, positions=False):
     check(err <= 2e-4, f"reduced {arch}: card and CPU logits differ by {err}")
     if positions:
         return err
-    cache = card.init_cache(2, seq)
+    if frames:
+        cache = card.init_cache(2, seq, enc_out=card.encode(
+            frames["frames"].to(device)))
+    else:
+        cache = card.init_cache(2, seq)
     steps = []
     for i in range(seq):
         lg, cache = card.decode_step(cache, tokens[:, i].to(device))
@@ -805,23 +848,38 @@ def draw_params(device, cfg):
     return params, nbytes, time.perf_counter() - t0
 
 
-def prefill_path(device, cfg, params, seq, want, label, positions=False):
-    """The main path's prefill at full width: batch 1 x ``seq`` tokens
-    through ``prefill_step`` (with (3, 1, S) text positions when
-    ``positions``), the launch counts set to 0 just before and read just
-    after; ``want`` {kernel: {variant: launches}} must be exactly what ran
-    (every other kernel and variant 0).  Two prefills of the same tokens
-    must be equal.  Returns its record."""
+def _prefill_batch(device, cfg, B, seq, seed, positions=False):
+    """The batch of a full-width prefill: B x ``seq`` tokens from a seed,
+    with (3, B, S) text positions when ``positions``, and for the audio
+    family B clips of ``encoder_seq`` bf16 frames (the stubbed frontend's
+    embeddings) from the same seed."""
     import numpy as np
+    import torch
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, seq))).to(device)}
+    if positions:
+        batch["positions"] = torch.arange(seq, device=device).expand(3, B, seq)
+    if cfg.encdec is not None:
+        g = torch.Generator(device).manual_seed(seed)
+        batch["frames"] = torch.randn(
+            B, cfg.encdec.encoder_seq, cfg.d_model, generator=g,
+            device=device).to(cfg.param_dtype)
+    return batch
+
+
+def prefill_path(device, cfg, params, seq, want, label, positions=False,
+                 B=1):
+    """The main path's prefill at full width: batch B x ``seq`` tokens
+    through ``prefill_step`` (:func:`_prefill_batch`), the launch counts
+    set to 0 just before and read just after; ``want`` {kernel: {variant:
+    launches}} must be exactly what ran (every other kernel and variant
+    0).  Two prefills of the same batch must be equal.  Returns its
+    record."""
     import torch
     from repro_torch.launch.step import prefill_step
     from repro_torch.models import get_model
     model = get_model(cfg)(cfg, device, params=params)
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (1, seq))).to(device)
-    batch = {"tokens": tokens}
-    if positions:
-        batch["positions"] = torch.arange(seq, device=device).expand(3, 1, seq)
+    batch = _prefill_batch(device, cfg, B, seq, 0, positions)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -831,10 +889,10 @@ def prefill_path(device, cfg, params, seq, want, label, positions=False):
     wall = time.perf_counter() - t0
     counts = read_counts()
     variants = read_variants()
-    check(tuple(logits.shape) == (1, cfg.vocab_size)
+    check(tuple(logits.shape) == (B, cfg.vocab_size)
           and bool(torch.isfinite(logits.float()).all()),
           f"{label} prefill logits {tuple(logits.shape)} not finite of "
-          f"(1, V)")
+          f"({B}, V)")
     t0 = time.perf_counter()
     again = prefill_step(model, batch)
     torch.cuda.synchronize()
@@ -842,10 +900,13 @@ def prefill_path(device, cfg, params, seq, want, label, positions=False):
     check(torch.equal(again, logits), f"{label}: two prefills of the same "
           "tokens differ")
     nbytes = sum(p.numel() * p.element_size() for p in params.values())
-    print(f"[prefill] {label} ({cfg.param_count() / 1e9:.2f} B parameters, "
-          f"{nbytes / 2**30:.2f} GiB bf16): 1 x {seq} tokens, wall "
-          f"{wall:.3f} s ({seq / wall:.0f} tokens/s); again {warm:.3f} s "
-          f"({seq / warm:.0f} tokens/s); launches {counts} by variant "
+    nparams = sum(p.numel() for p in params.values())
+    clips = f" and {B} x {cfg.encdec.encoder_seq} frames" \
+        if cfg.encdec is not None else ""
+    print(f"[prefill] {label} ({nparams / 1e9:.2f} B parameters, "
+          f"{nbytes / 2**30:.2f} GiB bf16): {B} x {seq} tokens{clips}, wall "
+          f"{wall:.3f} s ({B * seq / wall:.0f} tokens/s); again {warm:.3f} s "
+          f"({B * seq / warm:.0f} tokens/s); launches {counts} by variant "
           f"{variants}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     for k, n in counts.items():
@@ -856,7 +917,7 @@ def prefill_path(device, cfg, params, seq, want, label, positions=False):
                   f"{variants[k]}, expected {want[k]}")
     del model, logits, again
     return {"wall": wall, "warm": warm, "counts": counts,
-            "variants": variants, "seq": seq}
+            "variants": variants, "seq": seq, "batch": B}
 
 
 def server_path(device, cfg, params, per_tick, label, requests=8, prompt=16,
@@ -935,9 +996,9 @@ def _device_breakdown(prof, wall_s):
 
 
 def model_profile(device, cfg, params, label, seq=PREFILL_TOKENS,
-                  ticks=10, positions=False):
+                  ticks=10, positions=False, B=1):
     """Where the time goes: ``torch.profiler`` over one warm full-width
-    prefill of 1 x ``seq`` tokens and over ``ticks`` steady server ticks
+    prefill of B x ``seq`` tokens and over ``ticks`` steady server ticks
     (4 slots generating), device time by kernel category and the device's
     idle share of the host wall time (the profiler's own cost is in the
     wall time)."""
@@ -949,10 +1010,7 @@ def model_profile(device, cfg, params, label, seq=PREFILL_TOKENS,
     from repro_torch.models import get_model
     card = card_line()
     model = get_model(cfg)(cfg, device, params=params)
-    batch = {"tokens": torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (1, seq))).to(device)}
-    if positions:
-        batch["positions"] = torch.arange(seq, device=device).expand(3, 1, seq)
+    batch = _prefill_batch(device, cfg, B, seq, 2, positions)
     prefill_step(model, batch)
     torch.cuda.synchronize()
     server = Server(cfg, slots=4, max_seq=64, device=device, params=params)
@@ -964,7 +1022,7 @@ def model_profile(device, cfg, params, label, seq=PREFILL_TOKENS,
         server.tick()
     torch.cuda.synchronize()
     out = {}
-    for what, fn, n in ((f"prefill 1 x {seq}", lambda: prefill_step(
+    for what, fn, n in ((f"prefill {B} x {seq}", lambda: prefill_step(
             model, batch), 1),
             (f"server, {ticks} ticks of 4 slots", server.tick, ticks)):
         with profile(activities=[ProfilerActivity.CPU,
@@ -1023,15 +1081,17 @@ def kernel_timings(device):
     from repro_torch.models.mamba2 import ssd_chunked
     card = card_line()
     out = {}
-    for name, arch, S in FLASH_CASES:
-        q, k, v, window = _flash_inputs(device, torch.bfloat16, arch, S, 1)
-        nb, ops = fa.flash_bound(q, k, causal=True, window=window)
+    for name, arch, B, Sq, Sk, causal in FLASH_CASES:
+        q, k, v, window = _flash_inputs(device, torch.bfloat16, arch, B, Sq,
+                                        Sk, 1)
+        nb, ops = fa.flash_bound(q, k, causal=causal, window=window)
         if window is None:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, is_causal=True, enable_gqa=True)
-            libname = "scaled_dot_product_attention(is_causal, enable_gqa)"
+                q, k, v, is_causal=causal, enable_gqa=True)
+            libname = (f"scaled_dot_product_attention("
+                       f"{'is_causal, ' if causal else ''}enable_gqa)")
         else:
-            i = torch.arange(S, device=device)
+            i = torch.arange(Sq, device=device)
             band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
                                                  - window)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -1039,14 +1099,14 @@ def kernel_timings(device):
             libname = "scaled_dot_product_attention(band attn_mask, " \
                 "enable_gqa)"
         r = dict(ms=_event_ms(lambda: fa.flash_attention(
-            q, k, v, causal=True, window=window), 5),
+            q, k, v, causal=causal, window=window), 5),
             plain_ms=_event_ms(lambda: ref.flash_attention_ref(
-                q, k, v, causal=True, window=window), 1),
+                q, k, v, causal=causal, window=window), 1),
             library_ms=_event_ms(lib, 5), library=libname,
             library_kernel=_sdpa_backend(lib),
             bound=_bound(nb, ops, BF16_OPS_PER_S), nbytes=nb, ops=ops,
             shape=f"{name}: q {tuple(q.shape)}, k/v {tuple(k.shape)}, "
-                  f"causal, window {window}")
+                  f"{'causal' if causal else 'non-causal'}, window {window}")
         if window is not None:
             r["no_window_ms"] = _event_ms(lambda: fa.flash_attention(
                 q, k, v, causal=True), 5)
@@ -1169,7 +1229,8 @@ def gmm_cutover(device, rows=(8, 16, 32, 64)):
 
 def _sdpa_backend(fn, reps=3):
     """The attention kernel a PyTorch call ran, by the profiler's name of
-    its longest device kernel over ``reps`` calls."""
+    its longest device kernel over ``reps`` calls; where the profiler
+    caught no device kernel, the backend op SDPA dispatched to."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1178,53 +1239,178 @@ def _sdpa_backend(fn, reps=3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    longest = {}
+    longest, ops = {}, set()
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             longest[ev.name] = longest.get(ev.name, 0) + \
                 ev.time_range.elapsed_us()
-    return max(longest, key=longest.get)[:80] if longest else "not measured"
+        elif ev.name.startswith("aten::_scaled_dot_product_"):
+            ops.add(ev.name)
+    if longest:
+        return max(longest, key=longest.get)[:80]
+    return (", ".join(sorted(ops)) or "not measured") + \
+        " (no device kernel in the profile)"
+
+
+def endpoint_scenario(device, nx=16, ny=32, words=256, seed=0):
+    """The paper's reactive endpoints on the 16x32 array through the
+    facade on the card, against the same scenario on the numpy backend.
+
+    From ``seed``: 16 distinct endpoint tiles and 16 distinct target
+    tiles; 8 ``DmaEndpoint``s each stream 256 random int32 words into a
+    target's memory, at most 8 stores outstanding; 8
+    ``MemoryControllerEndpoint``s each chase 64 pointers through a ring
+    (``mem[a] = (a + stride) % words``, odd strides) seeded with
+    ``set_mem`` before the attach; a background ``uniform`` program of
+    loads at rate 0.1, 64 entries a tile, runs on every tile without an
+    endpoint.  Both backends must drain at the same cycle with
+    bit-identical Telemetry and memory, every chaser see the same
+    addresses and latencies (and follow its ring), every DMA buffer land;
+    the router's launches are set to 0 just before the card's run and
+    read just after, and must be more than 0.  Then the trace program
+    replayed alone, for the device's share of the time.  Returns the
+    record."""
+    import numpy as np
+    from repro_torch.core.netsim import OP_LOAD
+    from repro_torch.kernels.router_step import router_step_call
+    from repro_torch.mesh import (DmaEndpoint, MemoryControllerEndpoint,
+                                  MeshConfig, Simulator, make_traffic)
+    cfg = MeshConfig(nx=nx, ny=ny, mem_words=words)
+    rng = np.random.default_rng(seed)
+    tiles = [(int(t % nx), int(t // nx))
+             for t in rng.permutation(nx * ny)[:32]]
+    at, dst = tiles[:16], tiles[16:]
+    prog = make_traffic("uniform", nx, ny, 64, rate=0.1, op=OP_LOAD,
+                        mem_words=words, seed=seed)
+    for x, y in at:
+        for k in prog:
+            prog[k][y, x] = -1 if k == "op" else 0
+    mem = np.zeros((ny, nx, words), np.int64)
+    strides = [2 * i + 1 for i in range(8)]
+    for (x, y), stride in zip(dst[8:], strides):
+        mem[y, x] = (np.arange(words) + stride) % words
+    bufs = [rng.integers(0, 2 ** 31 - 1, 256) for _ in range(8)]
+    starts = [int(a) for a in rng.integers(0, words, 8)]
+
+    def build(**kw):
+        sim = Simulator(cfg, **kw)
+        sim.set_mem(mem)
+        sim.attach({k: v.copy() for k, v in prog.items()})
+        eps = [DmaEndpoint(dst_x=dx, dst_y=dy, data=buf, max_inflight=8)
+               for (dx, dy), buf in zip(dst[:8], bufs)]
+        eps += [MemoryControllerEndpoint(dst_x=dx, dst_y=dy, start_addr=a,
+                                         n_requests=64, mem_words=words)
+                for (dx, dy), a in zip(dst[8:], starts)]
+        for xy, ep in zip(at, eps):
+            sim.attach(ep, at=xy)
+        return sim, eps
+
+    host, host_eps = build(backend="numpy")
+    t0 = time.perf_counter()
+    n_host = host.run_until_drained()
+    host_s = time.perf_counter() - t0
+    card, card_eps = build(backend="torch", device=device)
+    router_step_call.launches = 0
+    router_step_call.launches_by_variant = dict.fromkeys(
+        router_step_call.launches_by_variant, 0)
+    t0 = time.perf_counter()
+    n_card = card.run_until_drained()
+    card_s = time.perf_counter() - t0
+    launches = router_step_call.launches
+    by_variant = dict(router_step_call.launches_by_variant)
+    check(n_card == n_host, f"endpoints: the card drained at {n_card}, the "
+          f"numpy backend at {n_host}")
+    tel = card.telemetry()
+    host.telemetry().assert_bit_identical(tel)
+    check(np.array_equal(card.mem, host.mem), "endpoints: memories differ")
+    for i, (a, b) in enumerate(zip(host_eps, card_eps)):
+        if isinstance(a, MemoryControllerEndpoint):
+            check(a.visited == b.visited and a.latencies == b.latencies,
+                  f"endpoints: chaser {i} saw other replies")
+            want = [(starts[i - 8] + strides[i - 8] * j) % words
+                    for j in range(64)]
+            check(b.visited == want, f"endpoints: chaser {i} left its ring")
+        else:
+            x, y = dst[i]
+            check(b.acked == 256 and np.array_equal(card.mem[y, x], bufs[i]),
+                  f"endpoints: DMA {i}'s buffer did not land")
+    check(launches > 0, "endpoints: the replay launched no router kernel")
+    # the device's share alone: the trace program replayed as the facade
+    # replays it (one fence block of the drain's length)
+    trace = card.injection_trace_program()
+    alone = Simulator(cfg, device=device, check_every=n_card)
+    alone.set_mem(mem)
+    alone.attach(trace)
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(alone.run_until_drained() == n_card, "endpoints: the trace "
+          "program alone drained elsewhere")
+    replay_s = time.perf_counter() - t0
+    alone.telemetry().assert_bit_identical(tel)
+    lat = [x for e in card_eps if hasattr(e, "latencies")
+           for x in e.latencies]
+    print(f"[endpoints] {card_line()}: {nx}x{ny}, 8 DMA x 256 words "
+          f"(window 8) + 8 chasers x 64 loads + background uniform loads "
+          f"(rate 0.1, 64 a tile): drained at cycle {n_card} on both "
+          f"backends, {int(tel.completed.sum())} completions, telemetry and "
+          f"memory bit-identical, chasers identical (mean chase latency "
+          f"{np.mean(lat):.2f} cycles); numpy backend {host_s:.3f} s; torch "
+          f"backend on the card {card_s:.3f} s (oracle trace + replay), "
+          f"router_step launches {launches} by variant {by_variant}; the "
+          f"trace program ({int((trace['op'] >= 0).sum())} entries) "
+          f"replayed alone {replay_s:.3f} s")
+    return {"cycles": n_card, "launches": launches, "by_variant": by_variant,
+            "host_s": host_s, "card_s": card_s, "replay_s": replay_s}
 
 
 def family_paths(device):
     """The model stack's main paths at full width, one model at a time
     (each freed before the next): Jamba v0.1's widths (one period, 8 of 32
-    layers), Mixtral-8x7B's (8 of 32), Qwen2-VL-72B's (4 of 80) and
-    Mamba-2 370M whole; for each, the weights drawn on the card, a prefill
-    (1 x 4096 tokens; Mixtral 1 x 8192, twice its window; Qwen2-VL with
-    (3, 1, S) positions), the ``Server``, each with its kernels' launches
-    by variant asserted, and the profile.  Returns {arch: (prefill
-    record, server record)}."""
+    layers), Mixtral-8x7B's (8 of 32), Qwen2-VL-72B's (4 of 80), Mamba-2
+    370M whole and whisper-large-v3 whole (32 + 32 layers); for each, the
+    weights drawn on the card, a prefill (1 x 4096 tokens; Mixtral 1 x
+    8192, twice its window; Qwen2-VL with (3, 1, S) positions; Whisper 4
+    clips of 1500 frames and 4 x 448 decoder tokens), the ``Server``, each
+    with its kernels' launches by variant asserted, and the profile.
+    Returns {arch: (prefill record, server record)}."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     paths = {}
-    for arch, layers, seq, want, per_tick, srv_kw, positions in (
-            (JAMBA, 8, PREFILL_TOKENS,
+    for arch, layers, B, seq, want, per_tick, srv_kw, positions in (
+            (JAMBA, 8, 1, PREFILL_TOKENS,
              {"flash_attention": {"wgmma_tma": 1},
               "ssd_scan": {"tensor_core": 7}, "moe_gmm": {"tma": 12}},
              {"moe_gmm": {"decode": 12}}, {}, False),
-            (MIXTRAL, 8, MIXTRAL_TOKENS,
+            (MIXTRAL, 8, 1, MIXTRAL_TOKENS,
              {"flash_attention": {"wgmma_tma": 8}, "moe_gmm": {"tma": 24}},
              {"moe_gmm": {"decode": 24}}, {}, False),
-            (QWEN2_VL, 4, PREFILL_TOKENS,
+            (QWEN2_VL, 4, 1, PREFILL_TOKENS,
              {"flash_attention": {"wgmma_tma": 4}}, {},
              dict(requests=4, prompt=8, max_new=8), True),
-            (MAMBA2, None, PREFILL_TOKENS,
-             {"ssd_scan": {"tensor_core": 48}}, {}, {}, False)):
+            (MAMBA2, None, 1, PREFILL_TOKENS,
+             {"ssd_scan": {"tensor_core": 48}}, {}, {}, False),
+            # 32 encoder, 32 decoder self- and 32 cross-attention calls
+            (WHISPER, None, WHISPER_CLIPS, WHISPER_TOKENS,
+             {"flash_attention": {"wgmma_tma": 96}}, {}, {}, False)):
         full = get_config(arch)
         cfg = full if layers is None else \
             dataclasses.replace(full, num_layers=layers)
         label = (f"{arch} widths, {cfg.num_layers} of {full.num_layers} "
                  f"layers")
+        if cfg.encdec is not None:
+            label += f" (+ {cfg.encdec.encoder_layers} encoder layers)"
         params, nbytes, init_s = draw_params(device, cfg)
-        print(f"[params] {label}: {cfg.param_count() / 1e9:.2f} B "
-              f"parameters, {nbytes / 2**30:.2f} GiB bf16, drawn on the card "
-              f"in {init_s:.1f} s")
-        pre = prefill_path(device, cfg, params, seq, want, label, positions)
+        nparams = sum(p.numel() for p in params.values())
+        print(f"[params] {label}: {nparams / 1e9:.3f} B parameters, "
+              f"{nbytes / 2**30:.2f} GiB bf16, drawn on the card in "
+              f"{init_s:.1f} s")
+        pre = prefill_path(device, cfg, params, seq, want, label, positions,
+                           B=B)
         srv = server_path(device, cfg, params, per_tick, label, **srv_kw)
         model_profile(device, cfg, params, label, seq=seq,
-                      positions=positions)
+                      positions=positions, B=B)
         paths[arch] = (pre, srv)
         del params
         torch.cuda.empty_cache()
@@ -1257,6 +1443,7 @@ def main() -> int:
     check(knees == {"mesh": 0.25, "torus": 0.40},
           f"16x16 knees {knees} != mesh 0.25, torus 0.40")
     _, facade_wall, facade_launches = facade("cuda")
+    endpoints = endpoint_scenario("cuda")
     router = timings("cuda", facade_wall)
     # the sweep's long calls run packed and its short ones direct, the
     # facade's drain direct (phases 3 and 5)
@@ -1272,9 +1459,11 @@ def main() -> int:
             ("router_step", "packed", sweep_by_variant["packed"],
              "12 lanes x 16x32, calls of 400 cycles (the sweep)"),
             ("router_step_direct", "direct",
-             sweep_by_variant["direct"] + facade_launches,
+             sweep_by_variant["direct"] + facade_launches
+             + endpoints["by_variant"]["direct"],
              "1 lane x 16x32, calls of 1 cycle (the facade's drain; "
-             "the sweep's 200-cycle warm-up also runs direct)"))]
+             "the sweep's 200-cycle warm-up and the endpoint scenario's "
+             "replay, one call of its drain's length, also run direct)"))]
     check(all(k["launches"] > 0 for k in kernels),
           f"a router variant was never launched on the main paths: "
           f"{[(k['name'], k['launches']) for k in kernels]}")
@@ -1283,7 +1472,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     errs = kernels_vs_plain("cuda")
     for arch, seq, pos in ((JAMBA, 40, False), (MIXTRAL, 50, False),
-                           (QWEN2_VL, 50, True), (MAMBA2, 50, False)):
+                           (QWEN2_VL, 50, True), (MAMBA2, 50, False),
+                           (WHISPER, 40, False)):
         reduced_end_to_end("cuda", arch, seq=seq, positions=pos)
     paths = family_paths("cuda")
     times = kernel_timings("cuda")
@@ -1310,7 +1500,11 @@ def main() -> int:
             ("moe_gmm_mixtral", "moe_gmm", "tma", "gmm Mixtral prefill",
              MIXTRAL),
             ("moe_gmm_decode_mixtral", "moe_gmm", "decode",
-             "gmm Mixtral decode", MIXTRAL)):
+             "gmm Mixtral decode", MIXTRAL),
+            ("flash_attention_whisper_encoder", "flash_attention",
+             "wgmma_tma", "flash Whisper encoder", WHISPER),
+            ("flash_attention_whisper_cross", "flash_attention",
+             "wgmma_tma", "flash Whisper cross", WHISPER)):
         pre, srv = paths[arch]
         lp = pre["variants"][name][variant]
         ls = srv["variants"][name][variant]
@@ -1340,9 +1534,11 @@ def main() -> int:
                              "max_abs_err": errs[case + " down"]}
         kernels.append(entry)
     for arch, (pre, srv) in paths.items():
-        print(f"[summary] {card_line()}: {arch} prefill 1 x {pre['seq']} "
-              f"tokens {pre['wall']:.3f} s (again {pre['warm']:.3f} s, "
-              f"{pre['seq'] / pre['warm']:.0f} tokens/s); server "
+        toks = pre["batch"] * pre["seq"]
+        print(f"[summary] {card_line()}: {arch} prefill {pre['batch']} x "
+              f"{pre['seq']} tokens {pre['wall']:.3f} s (again "
+              f"{pre['warm']:.3f} s, {toks / pre['warm']:.0f} tokens/s); "
+              f"server "
               f"{srv['ticks']} ticks {srv['wall']:.3f} s, "
               f"{srv['tokens'] / srv['wall']:.1f} generated tokens/s, "
               f"{srv['wall'] / srv['ticks'] * 1e3:.1f} ms per tick")

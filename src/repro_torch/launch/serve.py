@@ -11,8 +11,11 @@ sequence frees its slot.  Tick for tick the reference's loop.
       --reduced --requests 8 --slots 4 --max-new 16
 
 runs on the card; ``--device cpu`` runs the plain versions on the CPU.
-Any decoder-only arch serves (the dense, MoE and VLM transformers, the
-Mamba-2 LM, the Jamba hybrid); Whisper is a later slice.
+Every arch serves: the dense, MoE and VLM transformers, the Mamba-2 LM,
+the Jamba hybrid and Whisper (``--arch whisper-large-v3``).  Whisper's
+cache is built without an encoder output, as the reference's ``Server``
+builds it, so its cross-attention reads a zero cross KV and the tokens
+compare with the reference's (``ROADMAP.md`` C-7).
 """
 from __future__ import annotations
 

@@ -9,10 +9,10 @@ The reference's ``make_prefill_step(cfg, rules)`` and
 ``make_serve_step(cfg, rules)`` build closures over the config and the
 sharding rules; on one card there is nothing to close over, so these are
 plain functions of the model (an ``nn.Module`` from
-``repro_torch.models.get_model``, which names the ROADMAP item of a family
-not ported yet).  ``batch["positions"]`` is passed through as the
-reference passes it: (B, S), or (3, B, S) for Qwen2-VL's M-RoPE.  The
-training step is a later slice.
+``repro_torch.models.get_model``).  ``batch["positions"]`` is passed
+through as the reference passes it: (B, S), or (3, B, S) for Qwen2-VL's
+M-RoPE; for the ``audio`` family (Whisper) ``batch["frames"]`` (B,
+encoder_seq, D) too.  The training step is a later slice.
 """
 from __future__ import annotations
 
@@ -25,9 +25,13 @@ __all__ = ["prefill_step", "serve_step"]
 
 def prefill_step(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """(B, V) next-token logits of ``batch["tokens"]`` (B, S) (optional
-    ``batch["positions"]``, (B, S) or (3, B, S))."""
+    ``batch["positions"]``, (B, S) or (3, B, S); ``batch["frames"]`` for
+    the audio family)."""
+    kwargs = {}
+    if model.cfg.family == "audio":
+        kwargs["frames"] = batch["frames"]
     logits, _aux = model(batch["tokens"], positions=batch.get("positions"),
-                         last_only=True)
+                         last_only=True, **kwargs)
     return logits[:, 0]
 
 

@@ -1,7 +1,7 @@
 """Model API: the model class of a config's family (the port's counterpart
-of ``repro.models.api``).  Every decoder-only family is ported; the
-encoder-decoder ``audio`` family (Whisper) raises, naming the ROADMAP item
-that ports it."""
+of ``repro.models.api``).  Every family of the JAX package is ported: the
+hybrid, the dense/MoE/VLM transformer, the SSM and the encoder-decoder
+``audio`` family (Whisper)."""
 from __future__ import annotations
 
 from torch import nn
@@ -25,7 +25,6 @@ def get_model(cfg: ModelConfig) -> type[nn.Module]:
         from .mamba2 import Mamba2LM
         return Mamba2LM
     if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the 'audio' family is not ported yet; see ROADMAP "
-            f"A-6c (Whisper)")
+        from .whisper import Whisper
+        return Whisper
     raise KeyError(f"unknown model family {cfg.family!r}")

@@ -9,7 +9,6 @@ import jax
 import numpy as np
 import pytest
 
-from repro.mesh import DmaEndpoint
 from repro.mesh import MeshConfig as JMeshConfig
 from repro.mesh import Simulator as JSimulator
 from repro.mesh import Topology as JTopology
@@ -18,7 +17,8 @@ from repro.netsim_jax import init_state as j_init_state
 from repro.netsim_jax import load_program as j_load_program
 from repro.netsim_jax import simulate as j_simulate
 from repro_torch.core.netsim import OP_CAS, OP_LOAD
-from repro_torch.mesh import MeshConfig, Simulator, Topology, make_traffic
+from repro_torch.mesh import (DmaEndpoint, MeshConfig, Simulator, Topology,
+                               make_traffic)
 from repro_torch.netsim import (program_from_jax, simulate, state_from_jax,
                                 state_to_numpy)
 from repro_torch.netsim.sim import STATE_LEAVES
@@ -89,9 +89,22 @@ def test_carry_across_a_jax_run_stopped_mid_flight():
 
 
 def test_facade_rejects_endpoints_and_bad_input():
+    """Endpoints attach by the reference's rules (a tile, inside the mesh,
+    one master, not after a run on the torch backend), and bad input
+    raises."""
     sim = Simulator(MeshConfig(nx=4, ny=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.attach(DmaEndpoint(dst_x=1, dst_y=0, data=range(4)), at=(0, 0))
+    ep = DmaEndpoint(dst_x=1, dst_y=0, data=range(4))
+    with pytest.raises(ValueError, match="needs its tile"):
+        sim.attach(ep)
+    with pytest.raises(ValueError, match="outside the"):
+        sim.attach(ep, at=(4, 0))
+    sim.attach(ep, at=(0, 0))
+    with pytest.raises(ValueError, match="one master"):
+        sim.attach(DmaEndpoint(dst_x=1, dst_y=0, data=[1]), at=(0, 0))
+    ran = Simulator(MeshConfig(nx=4, ny=4), device="cpu")
+    ran.run(3)
+    with pytest.raises(ValueError, match="already run"):
+        ran.attach(DmaEndpoint(dst_x=1, dst_y=0, data=[1]), at=(0, 0))
     with pytest.raises(TypeError):
         sim.attach([1, 2])
     with pytest.raises(ValueError, match="dst_x"):

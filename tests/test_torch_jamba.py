@@ -150,18 +150,19 @@ def test_init_params_follows_the_reference_rules():
 
 
 def test_get_model_names_the_roadmap_item_of_other_families():
-    """Every decoder-only arch has its class; only Whisper (the audio
-    family) raises, naming ROADMAP A-6c."""
+    """Every family has its class (Whisper, the audio family, included);
+    an unknown family raises ``KeyError``."""
+    import dataclasses
     from repro_torch.models.transformer import Transformer
+    from repro_torch.models.whisper import Whisper
     want = {"hybrid": jamba.Jamba, "ssm": mamba2.Mamba2LM,
-            "dense": Transformer, "moe": Transformer, "vlm": Transformer}
+            "dense": Transformer, "moe": Transformer, "vlm": Transformer,
+            "audio": Whisper}
     for arch in sorted(list_archs()):
         cfg = get_config(arch)
-        if arch == "whisper-large-v3":
-            with pytest.raises(NotImplementedError, match="ROADMAP A-6c"):
-                get_model(cfg)
-        else:
-            assert get_model(cfg) is want[cfg.family], arch
+        assert get_model(cfg) is want[cfg.family], arch
+    with pytest.raises(KeyError, match="unknown model family"):
+        get_model(dataclasses.replace(get_config(ARCH), family="speech"))
     assert get_model(get_config(ARCH)) is jamba.Jamba
 
 

@@ -90,6 +90,30 @@ def test_flash_plain_matches_pallas_and_ref(shape, dtype, causal, window):
     np.testing.assert_allclose(_np(out), _np(want), **_tol(dtype))
 
 
+@pytest.mark.parametrize("shape", [
+    # (B, Sq, Sk, H, K, hd): cross-attention, decoder tokens against
+    # encoder frames (Whisper's hd 64), Sk ragged against the blocks
+    (2, 7, 45, 4, 4, 64), (1, 24, 100, 2, 2, 64), (2, 33, 20, 4, 2, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_pallas_at_cross_attention_shapes(shape, dtype):
+    """Non-causal with Sq != Sk, as Whisper's cross-attention calls it."""
+    from repro.kernels import flash_attention_op as j_flash
+    from repro.kernels import ref as jref
+    B, Sq, Sk, H, K, hd = shape
+    rng = np.random.default_rng(sum(shape))
+    jq, q = _pair(rng.standard_normal((B, Sq, H, hd)), dtype)
+    jk, k = _pair(rng.standard_normal((B, Sk, K, hd)), dtype)
+    jv, v = _pair(rng.standard_normal((B, Sk, K, hd)), dtype)
+    out = ops.flash_attention_op(q, k, v, causal=False)
+    assert out.shape == (B, Sq, H, hd) and out.dtype == q.dtype
+    pallas = j_flash(jq, jk, jv, False, None, 64, 64)
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    want = jref.flash_attention_ref(
+        jq.transpose(0, 2, 1, 3), jk.transpose(0, 2, 1, 3),
+        jv.transpose(0, 2, 1, 3), causal=False).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(out), _np(want), **_tol(dtype))
+
+
 def test_flash_plain_kv_len_masks_the_tail():
     """``kv_len`` (the padded-tail mask of the kernel layout) equals
     attention over the first ``kv_len`` keys only."""
@@ -304,22 +328,30 @@ def _card_tol(dtype):
 def test_flash_kernel_matches_plain_on_card(dtype):
     _need_card()
     g = torch.Generator("cuda").manual_seed(0)
-    for (B, S, H, K, hd), causal, window in (
-            ((2, 96, 4, 2, 48), True, None), ((1, 300, 4, 4, 80), False, None),
-            ((1, 200, 8, 2, 128), True, 37), ((2, 33, 2, 1, 32), True, None)):
+    # (B, Sq, Sk, H, K, hd): the last four Sq != Sk (cross-attention) at
+    # hd 64, Sk ragged against the 64-key tiles (1500 = 23 x 64 + 28)
+    for (B, S, Sk, H, K, hd), causal, window in (
+            ((2, 96, 96, 4, 2, 48), True, None),
+            ((1, 300, 300, 4, 4, 80), False, None),
+            ((1, 200, 200, 8, 2, 128), True, 37),
+            ((2, 33, 33, 2, 1, 32), True, None),
+            ((2, 448, 1500, 4, 4, 64), False, None),
+            ((3, 100, 37, 2, 2, 64), False, None),
+            ((1, 130, 70, 4, 2, 64), True, None),
+            ((2, 64, 64, 4, 4, 64), False, None)):
         q = torch.randn(B, H, S, hd, generator=g, device="cuda").to(dtype)
-        k = torch.randn(B, K, S, hd, generator=g, device="cuda").to(dtype)
-        v = torch.randn(B, K, S, hd, generator=g, device="cuda").to(dtype)
+        k = torch.randn(B, K, Sk, hd, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, K, Sk, hd, generator=g, device="cuda").to(dtype)
         before = fa_mod.flash_attention.launches
         variant = "f32" if dtype == torch.float32 else "wgmma_tma"
         by = fa_mod.flash_attention.launches_by_variant[variant]
         out = fa_mod.flash_attention(q, k, v, causal=causal, window=window,
-                                     kv_len=S - 3)
+                                     kv_len=Sk - 3)
         torch.cuda.synchronize()
         assert fa_mod.flash_attention.launches == before + 1
         assert fa_mod.flash_attention.launches_by_variant[variant] == by + 1
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       kv_len=S - 3)
+                                       kv_len=Sk - 3)
         torch.testing.assert_close(out.float(), want.float(),
                                    **_card_tol(dtype))
 

@@ -1,7 +1,7 @@
 """The port's continuous-batching ``Server`` against the JAX package's.
 
 The JAX ``Server`` runs the reduced Jamba (and, for the other families,
-the reduced Mixtral and Mamba-2 LM) on a 1x1 mesh; its own parameters are
+the reduced Mixtral, Mamba-2 LM and Whisper) on a 1x1 mesh; its own parameters are
 converted with ``params_from_jax`` and served by the port's ``Server`` on
 the CPU.  Greedy tokens must be identical: both sides compute in fp32 and
 differ by ~1e-6 in the logits (the tolerance of
@@ -152,12 +152,14 @@ def _margin_spy(server):
     return margins
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-370m",
+                                  "whisper-large-v3"])
 def test_server_tokens_equal_the_reference_for_other_families(arch):
-    """The MoE transformer (sliding-window cache) and the Mamba-2 LM: 3
-    requests on 2 slots, the port's tokens and ticks equal the JAX
-    ``Server``'s, with the greedy margin far above the packages'
-    difference."""
+    """The MoE transformer (sliding-window cache), the Mamba-2 LM and
+    Whisper (its cross KV zero in both, as both ``Server``s build the
+    cache without an encoder output): 3 requests on 2 slots, the port's
+    tokens and ticks equal the JAX ``Server``'s, with the greedy margin far
+    above the packages' difference."""
     jcfg = j_reduced_config(j_get_config(arch))
     jserver = JServer(jcfg, make_test_mesh((1, 1), ("data", "model")),
                       slots=2, max_seq=32)
