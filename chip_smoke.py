@@ -33,6 +33,35 @@ Phases (any failure raises and exits nonzero):
    seeded with ``set_mem``, background uniform loads elsewhere; drain
    cycle, Telemetry, memory and every chaser's replies identical to the
    same scenario on the numpy backend, router launches during the replay;
+   then the design-space exploration and the workload library, each path
+   with the router's counts set to 0 just before it and read just after:
+   - ``[dse]``: the canonical 16x16 fleet sweep exactly as
+     ``benchmarks/bench_dse.py`` defines it (576 points, 2 topologies x 4
+     depths x 3 credits x (uniform and tornado x 12 loads), seed 0,
+     300/500/500) through ``run_sweep`` with a temporary result cache:
+     576 points in 2 buckets of 288 lanes, 2 compiles, one ``packed``
+     router call per phase and bucket; a resubmission simulates 0 (576
+     cache hits, 0 compiles); the baseline point (fifo 16, credits 128,
+     uniform) gives the knees mesh 0.25 and torus 0.40; both frontiers
+     non-empty and monotone; every bucket whole (288 lanes, calls of
+     300/500/500, each ``packed``) through the kernel and the plain
+     version side by side: every state leaf, ``done`` / ``drained``
+     column and ``PhaseStats`` field identical, and the plain version's
+     records equal to the sweep's; the same sweep at ``chunk=16`` and at
+     ``devices=2`` (one card: it warns and falls back) with identical
+     records; the wall time split into host program building and kernel
+     time (CUDA events), the lane-cycles per second, and the router per
+     cycle at each bucket's shape against its bound and the plain
+     version;
+   - ``[dse 16x32]``: the paper's 16x32 array with the four workload
+     families (48 points, 10 buckets by program length); every record
+     equal to its point run alone through ``batched_phased_stats``;
+   - ``[workloads]``: the reference benchmark's 8x8 battery (ring
+     all-reduce, MoE uniform and hot, pipeline, PGAS) with
+     ``backend="both"`` (the card against the port's numpy oracle,
+     bit-identical), ``calibrate(8, 8)`` on the card equal to the
+     oracle's, and the DSE's four workload instances at 16x32 on the card
+     (MoE and a PGAS scatter also against the oracle);
 6. times: the kernel per mesh cycle at 12 lanes x 16x32 with CUDA events,
    in calls of 400 cycles (as the sweep's measure and drain phases) and
    of 1 cycle (as a drain with ``check_every=1``); the cut-over between
@@ -91,7 +120,9 @@ Phases (any failure raises and exits nonzero):
    models' own chunked PyTorch (``models/mamba2.py::ssd_chunked``, a
    yardstick, not a library call) with its passes' device time and its
    fp32 (``cuda_core``) time; the decode/tma cut-over; then the ``kernels`` JSON line (one entry per
-   kernel variant and shape on the main paths) and the ``ok`` line.
+   kernel variant and shape on the main paths, the router's with its
+   launches by path and one at the DSE bucket's shape) and the ``ok``
+   line.
 
 It needs a card: without one it prints the reason to stderr and exits 1.
 """
@@ -260,30 +291,25 @@ def main_path(device, nx=16, ny=32):
     return out, wall, launches, want, by_variant
 
 
-def sweep_against_plain(device, out, nx=16, ny=32):
-    """The main path's own inputs through the kernel and the plain
-    version: the sweep's programs and phase windows, one call per phase as
-    the sweep makes them.  Every state leaf and per-cycle ``done`` /
-    ``drained`` column must be identical after each phase, and the plain
-    version's statistics must equal the sweep's ``out``.  Returns the
-    largest absolute difference seen (0 when identical)."""
-    import numpy as np
+def phases_against_plain(cfg, prog, fresh, phases, what):
+    """The phases ``(warmup, measure, drain)``, one call each as
+    ``phased_stats`` makes them, through the kernel's wrapper and through
+    the plain version side by side, each from its own ``fresh()`` state
+    with the measure window set.  Every state leaf and every per-cycle
+    ``done`` / ``drained`` column must be identical after each phase, and
+    so must every ``PhaseStats`` field.  Returns (the plain version's
+    ``PhaseStats``, the largest absolute difference seen (0 when
+    identical), the variant of each kernel call)."""
+    import torch
     from repro_torch.kernels.router_step import (router_step_call,
-                                                 router_step_plain)
-    from repro_torch.netsim.measure import (DEFAULT_SWEEP_RATES,
-                                            reduce_window_stats, sweep_config,
-                                            stack_rate_programs)
-    from repro_torch.netsim.sim import (STATE_LEAVES, flatten_state,
-                                        init_state)
-    cfg = sweep_config(nx, ny).to_sim()
-    warmup, measure, drain = SWEEP_PHASES
-    rates = sorted(DEFAULT_SWEEP_RATES)
-    prog = stack_rate_programs("uniform", nx, ny, rates, sum(SWEEP_PHASES),
-                               topology=cfg.topology, device=device)
-    B = len(rates)
+                                                 router_step_plain,
+                                                 router_variant)
+    from repro_torch.netsim.measure import reduce_window_stats
+    from repro_torch.netsim.sim import STATE_LEAVES, flatten_state
+    warmup, measure, drain = phases
 
-    def fresh():
-        st = init_state(cfg, lanes=B, device=device)
+    def windowed():
+        st = fresh()
         return st._replace(measure_start=st.cycle + warmup,
                            measure_stop=st.cycle + (warmup + measure))
 
@@ -291,10 +317,13 @@ def sweep_against_plain(device, out, nx=16, ny=32):
         return (s.prog_ptr.sum((1, 2)).int(), s.completed.sum((1, 2)).int(),
                 s.link_util.clone())
 
-    ks, ps = fresh(), fresh()
+    ks, ps = windowed(), windowed()
+    B = ks.cycle.shape[0]
     worst = 0
-    snaps = []
-    for phase, n in zip(("warmup", "measure", "drain"), SWEEP_PHASES):
+    snaps = {"kernel": [], "plain": []}
+    variants = []
+    for phase, n in zip(("warmup", "measure", "drain"), phases):
+        variants.append(router_variant(cfg, B, n))
         ks, kd, kr = router_step_call(cfg, prog, ks, n)
         ps, pd, pr = router_step_plain(cfg, prog, ps, n)
         worst = max(worst, int((kd - pd).abs().max()),
@@ -307,11 +336,41 @@ def sweep_against_plain(device, out, nx=16, ny=32):
             if d:
                 bad.append(name)
         check(not bad and worst == 0,
-              f"16x32 sweep, {phase}: kernel differs from plain on {bad}")
-        snaps.append(snapshot(ps))
-    (inj0, comp0, util0), (inj1, comp1, util1) = snaps[0], snaps[1]
-    stats = reduce_window_stats(nx * ny, measure, ps.lat_hist.clone(),
-                                inj1 - inj0, comp1 - comp0, util1 - util0)
+              f"{what}, {phase}: kernel differs from plain on {bad}")
+        snaps["kernel"].append(snapshot(ks))
+        snaps["plain"].append(snapshot(ps))
+    stats = {}
+    for side, st in (("kernel", ks), ("plain", ps)):
+        (i0, c0, u0), (i1, c1, u1) = snaps[side][0], snaps[side][1]
+        stats[side] = reduce_window_stats(cfg.nx * cfg.ny, measure,
+                                          st.lat_hist.clone(), i1 - i0,
+                                          c1 - c0, u1 - u0)
+    for f in stats["plain"]._fields:
+        a, b = getattr(stats["kernel"], f), getattr(stats["plain"], f)
+        worst = max(worst, float((a.double() - b.double()).abs().max()))
+        check(torch.equal(a, b), f"{what}: kernel {f} differs from plain")
+    return stats["plain"], worst, variants
+
+
+def sweep_against_plain(device, out, nx=16, ny=32):
+    """The main path's own inputs through the kernel and the plain
+    version: the sweep's programs and phase windows, one call per phase as
+    the sweep makes them (:func:`phases_against_plain`); the plain
+    version's statistics must equal the sweep's ``out``.  Returns the
+    largest absolute difference seen (0 when identical)."""
+    import numpy as np
+    from repro_torch.netsim.measure import (DEFAULT_SWEEP_RATES,
+                                            sweep_config,
+                                            stack_rate_programs)
+    from repro_torch.netsim.sim import init_state
+    cfg = sweep_config(nx, ny).to_sim()
+    rates = sorted(DEFAULT_SWEEP_RATES)
+    prog = stack_rate_programs("uniform", nx, ny, rates, sum(SWEEP_PHASES),
+                               topology=cfg.topology, device=device)
+    B = len(rates)
+    stats, worst, _ = phases_against_plain(
+        cfg, prog, lambda: init_state(cfg, lanes=B, device=device),
+        SWEEP_PHASES, "16x32 sweep")
     for k, v in stats._asdict().items():
         check(np.array_equal(v.cpu().numpy(), out[k]),
               f"16x32 sweep: plain {k} differs from the sweep's")
@@ -522,6 +581,410 @@ def timings(device, facade_wall, nx=16, ny=32, plain_cycles=20):
     return {variant: dict(ms=ms_kernel, plain_ms=ms_plain, bound=bounds[B]),
             "direct": dict(ms=cut[1, (nx, ny), 1]["direct"][0],
                            plain_ms=ms_plain1, bound=bounds[1])}
+
+
+# ----------------------------------------------------------------------
+# design-space exploration and the workload library, through the router
+# ----------------------------------------------------------------------
+def router_counts():
+    """(launches, launches by variant) of the router kernel since the
+    last :func:`zero_router`."""
+    from repro_torch.kernels.router_step import router_step_call
+    return (router_step_call.launches,
+            dict(router_step_call.launches_by_variant))
+
+
+def zero_router():
+    from repro_torch.kernels.router_step import router_step_call
+    router_step_call.launches = 0
+    router_step_call.launches_by_variant = dict.fromkeys(
+        router_step_call.launches_by_variant, 0)
+
+
+# the baseline point's knees (router_fifo 16, credits 128, uniform), as
+# benchmarks/bench_dse.py expects them
+DSE_KNEES = {"mesh": 0.25, "torus": 0.40}
+
+
+def dse_spec():
+    """The repo's canonical 16x16 fleet sweep, exactly as
+    ``benchmarks/bench_dse.py::dse_spec`` defines it: 2 topologies x 4
+    depths x 3 credits x (2 patterns x 12 loads) = 576 points, seed 0,
+    300/500/500 phases."""
+    from repro_torch.dse import SweepSpec
+    from repro_torch.netsim.measure import DEFAULT_SWEEP_RATES
+    return SweepSpec(nx=16, ny=16, fifo_depths=(2, 4, 8, 16),
+                     credits=(8, 32, 128), patterns=("uniform", "tornado"),
+                     loads=DEFAULT_SWEEP_RATES,
+                     topologies=("mesh", "torus"), warmup=300, measure=500,
+                     drain=500, seed=0, name="16x16_fleet")
+
+
+def _lanes(device, pts, length):
+    """The bucket's programs for ``pts``, as run_sweep builds them, one
+    lane each, with their depths and credits."""
+    from repro_torch.dse import runner
+    from repro_torch.netsim.sim import Program
+    progs, rows = runner.bucket_programs(pts, length, device)
+    return (Program(progs.buf[rows], progs.length[rows]),
+            [p.fifo_depth for p in pts], [p.credits for p in pts])
+
+
+def dse_canonical(device):
+    """``[dse]``: the canonical 576-point sweep through ``run_sweep`` on the
+    card, with the router's counts set to 0 just before it and read just
+    after; then its checks (see the module docstring) and the router per
+    cycle at each bucket's shape."""
+    import tempfile
+    import warnings
+    import torch
+    from repro_torch.dse import frontier_artifact, run_sweep
+    from repro_torch.dse import runner
+    from repro_torch.kernels import router_step as rs
+    card = card_line()
+    spec = dse_spec()
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_router()
+        first = run_sweep(spec, cache_dir=tmp, device=device)
+        launches, by_variant = router_counts()
+        again = run_sweep(spec, cache_dir=tmp, device=device)
+    horizon = spec.horizon
+    print(f"[dse] {card}: {spec.describe()}")
+    print(f"[dse] {card}: {first.n_points} points in {first.buckets} "
+          f"buckets, {first.compiles} compiles, wall {first.wall_s:.2f} s: "
+          f"building and copying programs {first.program_s:.3f} s (host), "
+          f"simulation {first.simulate_s:.4f} s (CUDA events); "
+          f"{first.n_points * horizon / first.wall_s:.4g} lane-cycles/s of "
+          f"wall ({first.n_points * horizon / first.simulate_s:.4g} of "
+          f"kernel time); router_step launches {launches} by variant "
+          f"{by_variant}")
+    print(f"[dse] resubmission: simulated {again.simulated}, cache hits "
+          f"{again.cache_hits}, compiles {again.compiles}, wall "
+          f"{again.wall_s:.2f} s")
+    check(first.n_points == 576 and first.buckets == 2,
+          f"canonical sweep: {first.n_points} points in {first.buckets} "
+          f"buckets, not 576 in 2")
+    check(first.compiles == 2, f"canonical sweep: {first.compiles} compiles")
+    want = {v: sum(rs.router_variant(key.cfg, len(pts), c) == v
+                   for (key, _), pts in runner.buckets(spec).items()
+                   for c in (spec.warmup, spec.measure, spec.drain))
+            for v in rs.VARIANTS}
+    check(by_variant == want, f"canonical sweep: launches {by_variant}, "
+          f"not one call per phase and bucket of the variants "
+          f"router_variant chooses ({want})")
+    check(again.simulated == 0 and again.cache_hits == 576
+          and again.compiles == 0 and again.records == first.records,
+          "canonical sweep: the resubmission was not a pure cache replay")
+    art = frontier_artifact(first)
+    knees = {}
+    for topo in ("mesh", "torus"):
+        f = art["frontiers"][topo]
+        knees[topo] = next(p["saturation_rate"] for p in f["points"]
+                           if (p["fifo_depth"], p["credits"]) == (16, 128))
+        check(bool(f["frontier"]) and f["monotone"],
+              f"canonical sweep: the {topo} frontier is empty or not "
+              f"monotone")
+        print(f"[dse] {topo}: baseline knee {knees[topo]}, frontier "
+              f"{len(f['frontier'])}/{len(f['points'])} configurations, "
+              f"monotone {f['monotone']}")
+    check(knees == DSE_KNEES,
+          f"canonical sweep: baseline knees {knees} != mesh 0.25, torus 0.40")
+    chunked = run_sweep(spec, chunk=16, device=device)
+    check(chunked.records == first.records,
+          "canonical sweep: chunk=16 changed the records")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fanned = run_sweep(spec, devices=2, device=device)
+    check(any("falling back" in str(w.message) for w in caught)
+          and fanned.devices == 1 and fanned.records == first.records,
+          "canonical sweep: devices=2 on one card did not warn and match")
+    print(f"[dse] chunk=16: identical records, wall {chunked.wall_s:.2f} s "
+          f"(simulation {chunked.simulate_s:.4f} s); devices=2 on "
+          f"{torch.cuda.device_count()} card(s): warned, identical records, "
+          f"wall {fanned.wall_s:.2f} s")
+
+    # every bucket whole, at the sweep's shape and calls (each ``packed``),
+    # through the kernel and the plain version side by side; the plain
+    # version's records must be the sweep's
+    from repro_torch.netsim.sim import init_state
+    by_point = dict(zip(spec.points(), first.records))
+    worst = 0.0
+    timing = {}
+    for (key, length), pts in runner.buckets(spec).items():
+        topo = key.cfg.topology.spec
+        progs, depths, credits = _lanes(device, pts, length)
+        before = router_counts()[1]["packed"]
+        t0 = time.perf_counter()
+        plain, err, variants = phases_against_plain(
+            key.cfg, progs,
+            lambda: init_state(key.cfg, depths, credits, device=device),
+            (key.warmup, key.measure, key.drain), f"[dse] {topo} bucket")
+        wall = time.perf_counter() - t0
+        check(variants == ["packed"] * 3
+              and router_counts()[1]["packed"] - before == 3,
+              f"[dse] {topo}: the bucket's calls ran {variants}, not "
+              f"packed")
+        worst = max(worst, err)
+        for i, p in enumerate(pts):
+            stats = {f: float(getattr(plain, f)[i]) for f in
+                     runner.STAT_FIELDS}
+            check(runner.point_record(p, stats) == by_point[p],
+                  f"[dse] {p.label()}: the sweep's record differs from the "
+                  f"plain version's")
+        print(f"[dse] {topo}: the whole bucket ({len(pts)} lanes x "
+              f"{key.cfg.nx}x{key.cfg.ny}, calls of {key.warmup}/"
+              f"{key.measure}/{key.drain}, variants {variants}) through "
+              f"kernel and plain side by side in {wall:.1f} s: every leaf, "
+              f"column and PhaseStats field identical (max_abs_err {err}), "
+              f"the plain version's {len(pts)} records equal the sweep's")
+        timing[topo] = dse_bucket_timing(device, key, length, pts)
+    stream_and_compile(device, spec, by_point)
+    return {"launches": launches, "by_variant": by_variant,
+            "max_abs_err": worst, "timing": timing, "wall": first.wall_s,
+            "program_s": first.program_s, "simulate_s": first.simulate_s}
+
+
+def stream_and_compile(device, spec, by_point, check_every=100):
+    """The baseline point of the mesh streamed one fence block at a time
+    on the card: its chunks sum to its window, and its final stats give
+    the sweep's record; then ``compile_sweep`` for the mesh's 12-rate
+    baseline curve, whose ``load_latency_sweep`` knee is 0.25."""
+    import numpy as np
+    from repro_torch.dse import runner
+    from repro_torch.mesh.traffic import make_traffic
+    from repro_torch.netsim.measure import (DEFAULT_SWEEP_RATES,
+                                            compile_sweep,
+                                            load_latency_sweep,
+                                            stack_rate_programs,
+                                            stream_phased_stats)
+    p = next(q for q in by_point if q.topology.spec == "mesh"
+             and (q.fifo_depth, q.credits, q.traffic, q.load)
+             == (16, 128, "uniform", DSE_KNEES["mesh"]))
+    cfg = spec.bucket_config(p.topology)
+    gen = stream_phased_stats(
+        cfg, make_traffic("uniform", 16, 16, spec.traffic_length(),
+                          rate=p.load, seed=p.seed, topology=p.topology),
+        warmup=spec.warmup, measure=spec.measure, drain=spec.drain,
+        check_every=check_every, fifo_depth=p.fifo_depth,
+        max_credits=p.credits, device=device)
+    t0 = time.perf_counter()
+    chunks = []
+    while True:
+        try:
+            chunks.append(next(gen))
+        except StopIteration as stop:
+            final = stop.value
+            break
+    wall = time.perf_counter() - t0
+    stats = {f: float(getattr(final, f)[0]) for f in runner.STAT_FIELDS}
+    check(runner.point_record(p, stats) == by_point[p],
+          "[dse] the streamed baseline differs from the sweep's record")
+    check(sum(c.delivered for c in chunks) == int(final.hist.sum())
+          and np.array_equal(sum(c.hist for c in chunks),
+                             final.hist[0].cpu().numpy()),
+          "[dse] the streamed chunks do not sum to the window")
+    progs = stack_rate_programs("uniform", 16, 16, DEFAULT_SWEEP_RATES,
+                                spec.horizon, topology=p.topology,
+                                device=device)
+    compiled, secs = compile_sweep(cfg, progs, warmup=spec.warmup,
+                                   measure=spec.measure, drain=spec.drain)
+    out = load_latency_sweep("uniform", 16, 16, DEFAULT_SWEEP_RATES,
+                             warmup=spec.warmup, measure=spec.measure,
+                             drain=spec.drain, cfg=cfg, compiled=compiled,
+                             device=device)
+    check(out["saturation_rate"] == DSE_KNEES["mesh"],
+          f"[dse] the compiled sweep's knee {out['saturation_rate']}")
+    print(f"[dse] {card_line()}: the baseline {p.label()} streamed in "
+          f"{len(chunks)} fence blocks of {check_every} cycles in "
+          f"{wall:.3f} s, its stats equal to the sweep's record; "
+          f"compile_sweep {secs:.4f} s (the router library loaded), its "
+          f"12-rate curve's knee {out['saturation_rate']}")
+
+
+def dse_bucket_timing(device, key, length, pts, plain_cycles=5):
+    """The router per mesh cycle at the DSE bucket's shape (all its lanes,
+    16x16, calls of 300/500/500 from a fresh state, as run_sweep makes
+    them; CUDA events), the whole bucket's ``batched_phased_stats`` (state
+    set-up, the three calls and the statistics, as ``run_sweep`` times a
+    bucket), the plain version's per cycle at the same shape, and the
+    byte and operation bounds."""
+    import torch
+    from repro_torch.kernels import router_step as rs
+    from repro_torch.netsim.measure import batched_phased_stats
+    from repro_torch.netsim.sim import init_state
+    cfg, B = key.cfg, len(pts)
+    progs, depths, credits = _lanes(device, pts, length)
+    calls = (key.warmup, key.measure, key.drain)
+
+    def run(fn, sizes):
+        st = init_state(cfg, depths, credits, device=device)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for c in sizes:
+            st, _, _ = fn(cfg, progs, st, c)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / sum(sizes)
+
+    def bucket():
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0.record()
+        batched_phased_stats(key, progs, depths, credits)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1)
+
+    run(rs.router_step_call, (8,))                      # warm up
+    runs = [run(rs.router_step_call, calls) for _ in range(3)]
+    whole = [bucket() for _ in range(3)]
+    variants = [rs.router_variant(cfg, B, c) for c in calls]
+    plain = run(rs.router_step_plain, (plain_cycles,))
+    nbytes = rs.cycle_bytes(cfg, B)
+    bound = _bound(nbytes, INT_OPS_PER_TILE_CYCLE * B * cfg.nx * cfg.ny,
+                   H100_OPS_PER_S)
+    print(f"[dse] {card_line()}: router_step at the {cfg.topology.spec} "
+          f"bucket's shape ({B} "
+          f"lanes x {cfg.nx}x{cfg.ny} = {B * cfg.nx * cfg.ny} lanes x "
+          f"tiles, calls of {calls}, variants {variants}): "
+          + " / ".join(f"{ms * 1e3:.3f}" for ms in runs)
+          + f" us per mesh cycle; plain version {plain * 1e3:.1f} us; bound "
+          f"{bound[0] * 1e3:.3f} us by {bound[1]} ({nbytes} B a cycle at "
+          f"3.35 TB/s); the whole bucket's batched_phased_stats "
+          + " / ".join(f"{ms:.2f}" for ms in whole)
+          + f" ms ({min(whole) / sum(calls) * 1e3:.3f} us a cycle)")
+    return {"ms": min(runs), "plain_ms": plain, "bound": bound,
+            "variants": variants, "bucket_ms": min(whole),
+            "shape": f"{B} lanes x {cfg.nx}x{cfg.ny}, calls of "
+                     f"{'/'.join(map(str, calls))} cycles (the DSE's bucket)"}
+
+
+def dse_16x32(device):
+    """``[dse 16x32]``: the paper's 16x32 array with the workload families
+    through ``run_sweep`` on the card (the router's counts set to 0 just
+    before and read just after); every record must equal its point run
+    alone through ``batched_phased_stats`` on the card."""
+    from repro_torch.dse import WORKLOAD_FAMILIES, SweepSpec, run_sweep
+    from repro_torch.dse import runner
+    from repro_torch.dse.spec import workload_entries
+    from repro_torch.mesh.traffic import make_traffic
+    from repro_torch.netsim.measure import batched_phased_stats
+    from repro_torch.netsim.sim import load_program
+    spec = SweepSpec(nx=16, ny=32, fifo_depths=(4, 16), credits=(32, 128),
+                     patterns=("uniform",), loads=(0.1, 0.25),
+                     topologies=("mesh", "torus"),
+                     workloads=WORKLOAD_FAMILIES, warmup=300, measure=500,
+                     drain=500)
+    zero_router()
+    res = run_sweep(spec, device=device)
+    launches, by_variant = router_counts()
+    entries = {}
+    for p, rec in zip(spec.points(), res.records):
+        if p.is_workload:
+            if p.family not in entries:
+                entries[p.family] = workload_entries(p.family, p.nx, p.ny,
+                                                     p.seed)
+            ent = entries[p.family]
+        else:
+            ent = make_traffic(p.traffic, p.nx, p.ny, spec.traffic_length(),
+                               rate=p.load, seed=p.seed, topology=p.topology)
+        alone = batched_phased_stats(spec.sweep_key(p.topology),
+                                     load_program(ent, device),
+                                     [p.fifo_depth], [p.credits])
+        stats = {f: float(getattr(alone, f)[0]) for f in runner.STAT_FIELDS}
+        check(runner.point_record(p, stats) == rec,
+              f"[dse 16x32] {p.label()}: differs from the point run alone")
+    wl = [r for r in res.records if r["point"]["traffic"].startswith("wl:")]
+    print(f"[dse 16x32] {card_line()}: {spec.describe()}")
+    print(f"[dse 16x32] {res.n_points} points in {res.buckets} buckets "
+          f"(by program length), wall {res.wall_s:.2f} s: programs "
+          f"{res.program_s:.3f} s (host), simulation {res.simulate_s:.4f} s "
+          f"(CUDA events); router_step launches {launches} by variant "
+          f"{by_variant}; every record equal to its point run alone; "
+          f"workload points' accepted rate "
+          f"{min(r['stats']['accepted'] for r in wl):.4f}-"
+          f"{max(r['stats']['accepted'] for r in wl):.4f}")
+    check(res.n_points == 48 and res.buckets == 10,
+          f"[dse 16x32] {res.n_points} points in {res.buckets} buckets")
+    return {"launches": launches, "by_variant": by_variant}
+
+
+def workloads_phase(device):
+    """``[workloads]``: the reference benchmark's 8x8 battery with
+    ``backend="both"`` (the card against the port's numpy oracle,
+    bit-identical), ``calibrate(8, 8)`` on the card against the oracle, and
+    the DSE's four workload instances at 16x32 on the card (MoE and a PGAS
+    scatter also against the oracle).  The router's counts are set to 0
+    just before and read just after."""
+    from repro_torch.dse import WORKLOAD_FAMILIES, workload_instance
+    from repro_torch.workloads import (calibrate, moe_all_to_all,
+                                       pgas_scatter, pipeline_p2p,
+                                       ring_all_reduce, run_workload)
+    card = card_line()
+    zero_router()
+    t0 = time.perf_counter()
+    ar = ring_all_reduce(8, 8, 64)
+    battery = {name: run_workload(w, backend="both", device=device)
+               for name, w in (
+                   ("allreduce", ar),
+                   ("moe_uniform", moe_all_to_all(8, 8, 8, imbalance=0.0,
+                                                  seed=0)),
+                   ("moe_hot", moe_all_to_all(8, 8, 8, imbalance=0.5,
+                                              seed=0)),
+                   ("pipeline", pipeline_p2p(8, 8, n_micro=8, act_words=8,
+                                             backward=True)),
+                   ("pgas", pgas_scatter(8, 8, 8)))}
+    for name, r in battery.items():
+        print(f"[workloads] 8x8 {name} (card == numpy oracle, bit-identical): "
+              f"{r.summary()}")
+    chunk, r = ar.meta["chunk"], battery["allreduce"]
+    check(r.delivered == r.injected and chunk <= r.cycles_per_step
+          <= 16 * chunk + 16, "[workloads] the 8x8 all-reduce's steps")
+    uni, hot = battery["moe_uniform"], battery["moe_hot"]
+    check(hot.cycles >= uni.cycles and hot.peak_link_util >=
+          uni.peak_link_util, "[workloads] the hot expert is not hotter")
+    check(battery["pipeline"].cycles >= battery["pipeline"].n_steps,
+          "[workloads] the pipeline ran faster than its ticks")
+    t1 = time.perf_counter()
+    card_fit = calibrate(8, 8, backend="torch", device=device)
+    t2 = time.perf_counter()
+    host_fit = calibrate(8, 8, backend="numpy")
+    t3 = time.perf_counter()
+    check(card_fit.to_json() == host_fit.to_json(),
+          "[workloads] calibrate on the card differs from the oracle's")
+    print(f"[workloads] calibrate(8, 8): card {t2 - t1:.2f} s, numpy "
+          f"{t3 - t2:.2f} s, coefficients equal: "
+          + ", ".join(f"{k} ({a:.3f}, {b:.2f})"
+                      for k, (a, b) in card_fit.coeffs.items()))
+    big = {}
+    for fam in WORKLOAD_FAMILIES + ("pgas",):
+        t = time.perf_counter()
+        w = pgas_scatter(16, 32, 8) if fam == "pgas" else \
+            workload_instance(fam, 16, 32)
+        built = time.perf_counter() - t
+        t = time.perf_counter()
+        r = run_workload(w, device=device)
+        wall = time.perf_counter() - t
+        big[fam] = r
+        line = (f"[workloads] {card}: 16x32 {w.name}: {w.n_packets} "
+                f"packets, {w.n_steps} steps; drain cycle {r.cycles}, "
+                f"{r.cycles_per_step} cycles per step; built in "
+                f"{built:.2f} s (host), run on the card {wall:.3f} s")
+        if fam in ("moe", "pgas"):
+            t = time.perf_counter()
+            both = run_workload(w, backend="both", device=device)
+            check(both.cycles == r.cycles, f"[workloads] 16x32 {fam}")
+            line += (f"; against the numpy oracle bit-identical "
+                     f"({time.perf_counter() - t:.2f} s)")
+        print(line)
+    launches, by_variant = router_counts()
+    print(f"[workloads] wall {time.perf_counter() - t0:.1f} s; router_step "
+          f"launches {launches} by variant {by_variant}")
+    return {"launches": launches, "by_variant": by_variant,
+            "cycles": {k: r.cycles for k, r in big.items()}}
 
 
 # ----------------------------------------------------------------------
@@ -1444,26 +1907,58 @@ def main() -> int:
           f"16x16 knees {knees} != mesh 0.25, torus 0.40")
     _, facade_wall, facade_launches = facade("cuda")
     endpoints = endpoint_scenario("cuda")
+    dse = dse_canonical("cuda")
+    dse_wide = dse_16x32("cuda")
+    loads = workloads_phase("cuda")
+    check(dse["launches"] > 0 and dse_wide["launches"] > 0
+          and loads["launches"] > 0,
+          "a DSE or workload path launched no router kernel")
     router = timings("cuda", facade_wall)
+    router["dse"] = dse["timing"]["mesh"]
     # the sweep's long calls run packed and its short ones direct, the
-    # facade's drain direct (phases 3 and 5)
+    # facade's drain direct (phases 3 and 5); the DSE's buckets packed
+    # (16x32 buckets of 4 lanes direct), the workloads' 256-cycle fence
+    # blocks on one lane direct
+    paths = (dse, dse_wide, loads)
     kernels = [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/router_step.cu",
         "replaces": "src/repro/kernels/router_step.py:114",
-        "launches": n, "max_abs_err": worst, "ms": router[v]["ms"],
+        "launches": n, "max_abs_err": err, "ms": router[v]["ms"],
         "plain_ms": router[v]["plain_ms"], "bound_ms": router[v]["bound"][0],
         "bound_by": router[v]["bound"][1], "library_ms": None,
-        "checked_against_plain": True, "variant": v, "shape": shape}
-        for name, v, n, shape in (
-            ("router_step", "packed", sweep_by_variant["packed"],
-             "12 lanes x 16x32, calls of 400 cycles (the sweep)"),
-            ("router_step_direct", "direct",
+        "checked_against_plain": True, "variant": variant,
+        "shape": router[v].get("shape", shape), "launches_by_path": by_path}
+        for name, v, variant, n, err, shape, by_path in (
+            ("router_step", "packed", "packed",
+             sweep_by_variant["packed"]
+             + sum(p["by_variant"]["packed"] for p in paths), worst,
+             "12 lanes x 16x32, calls of 400 cycles (the sweep)",
+             {"sweep": sweep_by_variant["packed"],
+              "dse": dse["by_variant"]["packed"],
+              "dse_16x32": dse_wide["by_variant"]["packed"],
+              "workloads": loads["by_variant"]["packed"]}),
+            ("router_step_direct", "direct", "direct",
              sweep_by_variant["direct"] + facade_launches
-             + endpoints["by_variant"]["direct"],
+             + endpoints["by_variant"]["direct"]
+             + sum(p["by_variant"]["direct"] for p in paths), worst,
              "1 lane x 16x32, calls of 1 cycle (the facade's drain; "
-             "the sweep's 200-cycle warm-up and the endpoint scenario's "
-             "replay, one call of its drain's length, also run direct)"))]
+             "the sweep's 200-cycle warm-up, the endpoint scenario's "
+             "replay, the 16x32 DSE's small buckets and the workloads' "
+             "256-cycle fence blocks also run direct)",
+             {"sweep": sweep_by_variant["direct"],
+              "facade": facade_launches,
+              "endpoints": endpoints["by_variant"]["direct"],
+              "dse": dse["by_variant"]["direct"],
+              "dse_16x32": dse_wide["by_variant"]["direct"],
+              "workloads": loads["by_variant"]["direct"]}),
+            ("router_step_dse_bucket", "dse", "packed", dse["launches"],
+             dse["max_abs_err"], None, {"dse": dse["launches"]}))]
+    # the DSE entry's times are the mesh bucket's; both buckets' beside them
+    kernels[-1]["ms_by_bucket"] = {t: d["ms"]
+                                   for t, d in dse["timing"].items()}
+    kernels[-1]["bucket_ms_by_bucket"] = {t: d["bucket_ms"]
+                                          for t, d in dse["timing"].items()}
     check(all(k["launches"] > 0 for k in kernels),
           f"a router variant was never launched on the main paths: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -7,8 +7,18 @@ A package of its own beside the JAX reference ``repro``; it imports
   topologies, the traffic library, telemetry and the ``Simulator`` facade
   (counterpart of ``repro.mesh``);
 * :mod:`repro_torch.netsim` — the cycle-level simulator with an explicit
-  lane axis, its drivers, phased load–latency measurement and the state
-  conversions from the JAX package (counterpart of ``repro.netsim_jax``);
+  lane axis, its drivers, phased load–latency measurement (batched, and
+  streamed fence block by fence block) and the state conversions from the
+  JAX package (counterpart of ``repro.netsim_jax``);
+* :mod:`repro_torch.workloads` — the model stack's traffic (ring
+  all-reduce, broadcast, MoE all-to-all, pipeline, PGAS) compiled to
+  injection programs, run to the drain fence through the facade, and the
+  congestion model fit from the reports (counterpart of
+  ``repro.workloads``);
+* :mod:`repro_torch.dse` — design-space exploration: sweep specs, the
+  bucketed runner whose buckets run as the lanes of one batched
+  measurement through the router kernel, the result cache and the
+  area/throughput Pareto frontiers (counterpart of ``repro.dse``);
 * :mod:`repro_torch.kernels` — the device policy, the ``nvcc`` build and
   the Hopper kernels: the router step, flash attention, the SSD scan and
   the grouped matmul (counterpart of ``repro.kernels``);
@@ -21,5 +31,5 @@ A package of its own beside the JAX reference ``repro``; it imports
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
-__all__ = ["configs", "core", "kernels", "launch", "mesh", "models",
-           "netsim"]
+__all__ = ["configs", "core", "dse", "kernels", "launch", "mesh", "models",
+           "netsim", "workloads"]

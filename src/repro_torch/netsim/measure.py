@@ -15,14 +15,15 @@ The port of ``repro/netsim_jax/measure.py`` (Dally & Towles §23.1):
 Every function takes and returns a leading lane axis: where the reference
 ``vmap``\\ s :func:`phased_stats` over offered loads, the port runs the
 loads as lanes of one state, and on a card every cycle of every lane is
-one pass of the router kernel.  The saturation point is the first offered
-load whose mean latency reaches ``3x`` the zero-load latency (the latency
-at the lowest swept rate).
+one pass of the router kernel.  :func:`stream_phased_stats` runs one lane
+fence block by fence block, yielding each block's telemetry delta.  The
+saturation point is the first offered load whose mean latency reaches
+``3x`` the zero-load latency (the latency at the lowest swept rate).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,9 +38,12 @@ from repro_torch.netsim.sim import (FWD, Program, SimConfig, SimState,
 
 __all__ = ["SATURATION_FACTOR", "DEFAULT_SWEEP_RATES", "sweep_config",
            "SweepKey", "PhaseStats", "hist_quantile", "reduce_window_stats",
-           "phased_stats", "stack_rate_programs", "batched_phased_stats",
-           "load_latency_sweep", "saturation_point", "curve_is_monotone",
-           "curve_record", "ascii_curve"]
+           "phased_stats", "StreamChunk", "phase_schedule",
+           "stream_phased_stats", "measure_program", "stack_rate_programs",
+           "batched_phased_stats", "first_execution", "clear_sweep_cache",
+           "CompiledSweep", "compile_sweep", "load_latency_sweep",
+           "saturation_point", "curve_is_monotone", "curve_record",
+           "ascii_curve"]
 
 # mean latency >= SATURATION_FACTOR * zero-load latency <=> saturated
 SATURATION_FACTOR = 3.0
@@ -140,8 +144,10 @@ def reduce_window_stats(ntiles: int, measure: int, hist: torch.Tensor,
     B = hist.shape[0]
     total = hist.sum(-1)
     denom = total.clamp(min=1).to(F32)
-    per = torch.tensor(float(measure * ntiles), dtype=F32,
-                       device=hist.device)
+    # divisors as tensors on the device (filled there, no copy): a CPU
+    # scalar divisor would become a product with its reciprocal on a card
+    per = torch.full((), float(measure * ntiles), dtype=F32,
+                     device=hist.device)
     bins = torch.arange(LAT_BINS, device=hist.device)
     lat_weight = (bins * hist.long()).sum(-1).to(F32)
     return PhaseStats(
@@ -154,8 +160,8 @@ def reduce_window_stats(ntiles: int, measure: int, hist: torch.Tensor,
         lat_p99=hist_quantile(hist, 0.99),
         lat_max=torch.where(hist > 0, bins, 0).max(-1).values.to(F32),
         peak_link_util=d_util[:, FWD, ..., 1:].reshape(B, -1).max(-1).values
-        .to(F32) / torch.tensor(float(measure), dtype=F32,
-                                device=hist.device),
+        .to(F32) / torch.full((), float(measure), dtype=F32,
+                              device=hist.device),
         hops=d_util[..., 1:].reshape(B, -1).sum(-1).to(I32).to(F32),
         hist=hist,
     )
@@ -184,6 +190,126 @@ def phased_stats(cfg: SimConfig, prog: Program, state: SimState,
     st, _ = simulate(cfg, prog, st, drain, cycles_per_call)
     return reduce_window_stats(ntiles, measure, st.lat_hist.clone(),
                                inj1 - inj0, comp1 - comp0, util1 - util0)
+
+
+# -- per-fence-block streaming -------------------------------------------
+
+class StreamChunk(NamedTuple):
+    """Telemetry delta of one fence block of a streamed phased run: every
+    count is the *change* during cycles [start, stop), so summing the
+    chunks reproduces the run's totals exactly."""
+    phase: str          # "warmup" | "measure" | "drain"
+    start: int          # first cycle of the block
+    stop: int           # one past the last cycle
+    injected: int       # program entries issued during the block (all tiles)
+    completed: int      # requests completed during the block
+    delivered: int      # window-tagged packets delivered during the block
+    hist: np.ndarray    # (LAT_BINS,) int32 latency-histogram delta
+
+
+def phase_schedule(warmup: int, measure: int, drain: int,
+                   check_every: int) -> Tuple[Tuple[str, int], ...]:
+    """The fence-block schedule of a streamed phased run: ``(phase,
+    cycles)`` per block, each phase split into ``check_every``-cycle blocks
+    plus one remainder, so phase boundaries land on block boundaries."""
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    out = []
+    for phase, total in (("warmup", warmup), ("measure", measure),
+                         ("drain", drain)):
+        left = total
+        while left > 0:
+            c = min(check_every, left)
+            out.append((phase, c))
+            left -= c
+    return tuple(out)
+
+
+def stream_phased_stats(cfg, prog, *, warmup: int = 200,
+                        measure: int = 400, drain: int = 400,
+                        check_every: int = 100, fifo_depth=None,
+                        max_credits=None,
+                        cycles_per_call: Optional[int] = None, device=None):
+    """Streaming variant of :func:`phased_stats` for one lane: returns a
+    generator yielding one :class:`StreamChunk` per ``check_every``-cycle
+    fence block as the phases run, and *returning* the final
+    :class:`PhaseStats` (one lane: ``(1,)`` fields, ``hist`` ``(1,
+    LAT_BINS)``; read it from ``StopIteration.value`` or with ``yield
+    from``), equal to :func:`phased_stats` on the same lane.
+
+    ``prog`` is an injection-program dict or a one-lane :class:`Program`.
+    Each block is one :func:`repro_torch.netsim.sim.simulate` run followed
+    by one read to the host (the issued and completed counts and the
+    histogram); the link counters stay on the device.  Runs on the card
+    unless ``device="cpu"``; the arguments are checked, and the state
+    made, when it is called, before the first block runs."""
+    cfg = _as_simconfig(cfg)
+    # validates the phase recipe exactly like the one-shot entry points
+    SweepKey(cfg, warmup, measure, drain, cycles_per_call)
+    schedule = phase_schedule(warmup, measure, drain, check_every)
+    device = resolve_device(device)
+    if isinstance(prog, dict):
+        prog = load_program(prog, device)
+    elif prog.buf.shape[0] != 1:
+        raise ValueError(f"stream_phased_stats runs one lane; the program "
+                         f"has {prog.buf.shape[0]}")
+    else:
+        prog = Program(prog.buf.to(device), prog.length.to(device))
+    st = init_state(cfg, fifo_depth, max_credits, lanes=1, device=device)
+    st = st._replace(measure_start=st.cycle + warmup,
+                     measure_stop=st.cycle + (warmup + measure))
+    return _stream(cfg, prog, st, measure, schedule, cycles_per_call)
+
+
+def _stream(cfg: SimConfig, prog: Program, st: SimState, measure: int,
+            schedule, cycles_per_call: Optional[int]):
+    """The block loop of :func:`stream_phased_stats`."""
+    # phase-boundary snapshots; a zero-length warmup's is the fresh state
+    prev = np.zeros(2 + LAT_BINS, np.int64)      # issued, completed, hist
+    ints_w = ints_m = prev[:2]
+    util_w = util_m = st.link_util.clone()
+    cycle = 0
+    for i, (phase, cycles) in enumerate(schedule):
+        st, _ = simulate(cfg, prog, st, cycles, cycles_per_call)
+        now = torch.cat([st.prog_ptr.sum().view(1), st.completed.sum().view(1),
+                         st.lat_hist[0].long()]).cpu().numpy()
+        d = now - prev
+        yield StreamChunk(phase=phase, start=cycle, stop=cycle + cycles,
+                          injected=int(d[0]), completed=int(d[1]),
+                          delivered=int(d[2:].sum()),
+                          hist=d[2:].astype(np.int32))
+        prev = now
+        cycle += cycles
+        last_of_phase = i + 1 == len(schedule) or schedule[i + 1][0] != phase
+        if last_of_phase and phase == "warmup":
+            ints_w = ints_m = now[:2]
+            util_w = util_m = st.link_util.clone()
+        elif last_of_phase and phase == "measure":
+            ints_m = now[:2]
+            util_m = st.link_util.clone()
+    d_inj, d_comp = (torch.tensor([int(v)], dtype=I32,
+                                  device=st.cycle.device)
+                     for v in ints_m - ints_w)
+    return reduce_window_stats(cfg.nx * cfg.ny, measure, st.lat_hist.clone(),
+                               d_inj, d_comp, util_m - util_w)
+
+
+def measure_program(cfg, entries: Dict[str, np.ndarray], *,
+                    warmup: int = 200, measure: int = 400,
+                    drain: int = 400, cycles_per_call: Optional[int] = None,
+                    device=None) -> Dict[str, object]:
+    """Phased measurement of one injection program; returns plain-python
+    stats (``hist`` as a numpy array).  ``cfg`` may be a MeshConfig or
+    SimConfig.  Runs on the card unless ``device="cpu"``."""
+    cfg = _as_simconfig(cfg)
+    prog = load_program(entries, resolve_device(device))
+    stats = phased_stats(cfg, prog,
+                         init_state(cfg, lanes=1, device=prog.buf.device),
+                         warmup, measure, drain, cycles_per_call)
+    out: Dict[str, object] = {k: float(v[0]) for k, v in
+                              stats._asdict().items() if k != "hist"}
+    out["hist"] = stats.hist[0].cpu().numpy()
+    return out
 
 
 def stack_rate_programs(pattern: str, nx: int, ny: int,
@@ -217,26 +343,89 @@ def batched_phased_stats(key, progs: Program, fifo_depths=None,
                         key.drain, key.cycles_per_call)
 
 
+# Batched shapes run in this process, each a tuple led by its SweepKey:
+# the DSE counts one it has not run before as a compile
+# (``SweepResult.compiles``), and :func:`clear_sweep_cache` forgets them.
+_EXECUTED_SHAPES: set = set()
+
+
+def first_execution(shape: tuple) -> bool:
+    """Record that a batched run of ``shape`` executes; True the first
+    time in this process (or since :func:`clear_sweep_cache`)."""
+    fresh = shape not in _EXECUTED_SHAPES
+    _EXECUTED_SHAPES.add(shape)
+    return fresh
+
+
+def clear_sweep_cache() -> None:
+    """Forget every batched shape recorded by :func:`first_execution`, the
+    per-key state the port keeps (the built router library is one for
+    every key and stays loaded)."""
+    _EXECUTED_SHAPES.clear()
+
+
+class CompiledSweep(NamedTuple):
+    """A sweep ready to run: the :class:`SweepKey` it was prepared for and
+    the device whose router library is loaded.  The key is checked by
+    :func:`load_latency_sweep`: shapes alone cannot tell a permutation of
+    the phase lengths with the same horizon."""
+    key: SweepKey
+    device: torch.device
+
+    def __call__(self, progs: Program) -> PhaseStats:
+        if progs.buf.device != self.device:
+            raise ValueError(f"the sweep was prepared for {self.device}, "
+                             f"the programs are on {progs.buf.device}")
+        return batched_phased_stats(self.key, progs)
+
+
+def compile_sweep(cfg, progs: Program, *, warmup: int = 200,
+                  measure: int = 400, drain: int = 400,
+                  cycles_per_call: Optional[int] = None):
+    """Prepare the batched sweep for ``progs``: on a card, build (at first
+    use) and load the router kernel's library, the port's only compiled
+    artefact; on the CPU there is nothing to build.  Returns
+    ``(CompiledSweep, seconds)`` so a caller can report preparation and
+    run time apart."""
+    import time
+    key = SweepKey(_as_simconfig(cfg), warmup, measure, drain,
+                   cycles_per_call)
+    device = progs.buf.device
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        from repro_torch.kernels.router_step import _library
+        _library()
+    return CompiledSweep(key, device), time.perf_counter() - t0
+
+
 def load_latency_sweep(pattern: str, nx: int, ny: int,
                        rates: Sequence[float], *,
                        warmup: int = 200, measure: int = 400,
                        drain: int = 400, cfg=None,
                        cycles_per_call: Optional[int] = None,
+                       compiled: Optional[CompiledSweep] = None,
                        device=None, **traffic_kw) -> Dict[str, object]:
     """Full load–latency saturation curve for one traffic pattern: every
     offered load is one lane of a single batched phased run.  Returns
     numpy arrays keyed like :class:`PhaseStats` plus the rate grid,
-    zero-load latency and the located saturation point.  Runs on the card
-    unless ``device="cpu"``."""
+    zero-load latency and the located saturation point.  ``compiled`` is
+    a :func:`compile_sweep` result for the same key (a different key
+    raises).  Runs on the card unless ``device="cpu"``."""
     rates = sorted(float(r) for r in rates)
     cfg = SimConfig(nx=nx, ny=ny) if cfg is None else _as_simconfig(cfg)
     # topology-aware patterns (tornado) must see the topology the sim
     # runs on; an explicit traffic_kw["topology"] still wins
     traffic_kw.setdefault("topology", cfg.topology)
     key = SweepKey(cfg, warmup, measure, drain, cycles_per_call)
+    if compiled is not None and compiled.key != key:
+        raise ValueError(
+            f"compiled sweep was prepared for {compiled.key}, but "
+            f"load_latency_sweep was called with {key}; matching shapes "
+            "would run silently with the wrong measurement windows")
     progs = stack_rate_programs(pattern, nx, ny, rates, key.horizon,
                                 device=device, **traffic_kw)
-    stats = batched_phased_stats(key, progs)
+    stats = batched_phased_stats(key, progs) if compiled is None \
+        else compiled(progs)
     out: Dict[str, object] = {k: v.cpu().numpy()
                               for k, v in stats._asdict().items()}
     out["rates"] = np.asarray(rates)

@@ -170,15 +170,14 @@ def unflatten_state(leaves: Sequence[torch.Tensor]) -> SimState:
     return SimState(Fifo(*leaves[0:3]), Fifo(*leaves[3:6]), *leaves[6:])
 
 
-def _per_lane(value, default: int, lanes: int, name: str,
-              device: torch.device) -> torch.Tensor:
+def _per_lane(value, default: int, lanes: int, name: str) -> np.ndarray:
     v = np.asarray(default if value is None else value, np.int64)
     if v.ndim == 0:
         v = np.full((lanes,), int(v), np.int64)
     if v.shape != (lanes,):
         raise ValueError(f"{name} must be a scalar or have one value per "
                          f"lane ({lanes}), got shape {v.shape}")
-    return torch.as_tensor(v.astype(np.int32), device=device)
+    return v.astype(np.int32)
 
 
 def init_state(cfg: SimConfig, fifo_depth=None, max_credits=None,
@@ -196,13 +195,15 @@ def init_state(cfg: SimConfig, fifo_depth=None, max_credits=None,
         lanes = max([np.size(v) for v in (fifo_depth, max_credits)
                      if v is not None and np.ndim(v) > 0] or [1])
     B, ny, nx, L = int(lanes), cfg.ny, cfg.nx, cfg.resp_latency
-    depth = _per_lane(fifo_depth, cfg.router_fifo, B, "fifo_depth", device)
-    mc = _per_lane(max_credits, cfg.max_out_credits, B, "max_credits", device)
-    d = depth.cpu()
+    d = _per_lane(fifo_depth, cfg.router_fifo, B, "fifo_depth")
     if bool((d < 1).any()) or bool((d > cfg.router_fifo).any()):
         raise ValueError(
             f"fifo_depth must lie in [1, router_fifo={cfg.router_fifo}], "
             f"got {d.tolist()}")
+    # checked on the host and copied without a stream sync, so a state
+    # can be made while earlier work still runs on the card
+    depth, mc = (torch.as_tensor(v).to(device, non_blocking=True) for v in (
+        d, _per_lane(max_credits, cfg.max_out_credits, B, "max_credits")))
 
     def z(*shape, dtype=I32):
         return torch.zeros((B,) + shape, dtype=dtype, device=device)

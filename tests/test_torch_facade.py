@@ -118,8 +118,9 @@ def test_facade_rejects_endpoints_and_bad_input():
 
 
 def test_port_imports_nothing_of_jax_or_repro():
-    """A fresh interpreter imports the port and all its submodules; no
-    ``jax*`` and no ``repro`` / ``repro.*`` module may be loaded."""
+    """A fresh interpreter imports the port and all its submodules (the
+    workload library and the DSE among them); no ``jax*`` and no
+    ``repro`` / ``repro.*`` module may be loaded."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import repro_torch\n"
@@ -128,11 +129,16 @@ def test_port_imports_nothing_of_jax_or_repro():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib'))\n"
         "             or n == 'repro' or n.startswith('repro.'))\n"
         "for m in ('kernels.router_step', 'kernels.flash_attention',\n"
-        "          'kernels.ssd_scan', 'kernels.moe_gmm', 'models.jamba'):\n"
+        "          'kernels.ssd_scan', 'kernels.moe_gmm', 'models.jamba',\n"
+        "          'workloads.placement', 'workloads.base',\n"
+        "          'workloads.collectives', 'workloads.pipeline',\n"
+        "          'workloads.moe', 'workloads.pgas', 'workloads.runner',\n"
+        "          'workloads.congestion', 'dse.pareto', 'dse.cost',\n"
+        "          'dse.cache', 'dse.spec', 'dse.runner'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 40
+    assert int(out.stdout.split()[-1]) >= 66

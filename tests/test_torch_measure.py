@@ -1,6 +1,7 @@
 """The port's phased load–latency measurement
 (``repro_torch.netsim.measure``) against ``repro.netsim_jax.measure`` on
-a 4x4 mesh, on the CPU.
+a 4x4 mesh, on the CPU: the batched sweep, and the one-lane streaming
+measurement fence block by fence block.
 
 Integer results (the histogram and every count behind the rates) must
 match exactly.  The float32 fields are held to 1 ulp: the reference
@@ -21,13 +22,20 @@ from repro.netsim_jax import hist_quantile as j_hist_quantile
 from repro.netsim_jax import load_latency_sweep as j_sweep
 from repro.netsim_jax import stack_rate_programs as j_stack
 from repro.netsim_jax.measure import SweepKey as JSweepKey
+from repro.netsim_jax.measure import measure_program as j_measure_program
+from repro.netsim_jax.measure import phase_schedule as j_phase_schedule
 from repro.netsim_jax.measure import reduce_window_stats as j_reduce
-from repro_torch.mesh import MeshConfig, Topology
+from repro.netsim_jax.measure import stream_phased_stats as j_stream
+from repro.netsim_jax.sim import load_program as j_load_program
+from repro_torch.mesh import MeshConfig, Topology, make_traffic
 from repro_torch.netsim import measure
 from repro_torch.netsim.measure import (DEFAULT_SWEEP_RATES, SweepKey,
-                                        batched_phased_stats, hist_quantile,
-                                        load_latency_sweep,
-                                        stack_rate_programs)
+                                        batched_phased_stats, compile_sweep,
+                                        hist_quantile, load_latency_sweep,
+                                        measure_program, phase_schedule,
+                                        stack_rate_programs,
+                                        stream_phased_stats)
+from repro_torch.netsim.sim import load_program
 
 PHASES = dict(warmup=60, measure=150, drain=150)
 FLOAT_FIELDS = ("offered", "accepted", "delivered", "lat_mean", "lat_p50",
@@ -140,3 +148,114 @@ def test_sweep_key_and_config_helpers():
     assert measure.saturation_point([10, 11]) is None
     assert measure.curve_is_monotone([10, 12, 40, 45])
     assert not measure.curve_is_monotone([10, 8, 40])
+
+
+# -- streaming ----------------------------------------------------------
+
+@pytest.mark.parametrize("phases,check_every", [
+    ((60, 150, 150), 1), ((60, 150, 150), 7), ((0, 5, 3), 2),
+    ((10, 20, 0), 100), ((3, 4, 5), 4)])
+def test_phase_schedule_matches_reference(phases, check_every):
+    assert phase_schedule(*phases, check_every) == \
+        j_phase_schedule(*phases, check_every)
+
+
+# the streaming tests' recipe: the window of PHASES, shorter warm-up and
+# drain (a streamed block is one call of the plain cycle each)
+STREAM = dict(warmup=20, measure=150, drain=30)
+
+
+def _drive(gen):
+    """(chunks, final stats) of a streaming generator."""
+    chunks = []
+    while True:
+        try:
+            chunks.append(next(gen))
+        except StopIteration as stop:
+            return chunks, stop.value
+
+
+@pytest.mark.parametrize("check_every,topo,depth,credits", [
+    (1, "mesh", None, None), (7, "torus", 3, 9), (100, "mesh", 2, 4)])
+def test_stream_phased_stats_matches_reference(check_every, topo, depth,
+                                               credits):
+    """Chunk by chunk equal to the reference's stream; the final stats
+    equal the port's one-shot ``batched_phased_stats`` on the same lane
+    exactly, and the reference's within 1 ulp (ROADMAP C-2)."""
+    jt, tt = JTopology.parse(topo), Topology.parse(topo)
+    jcfg = JMeshConfig(nx=4, ny=4, router_fifo=8, max_out_credits=32,
+                       topology=jt)
+    cfg = MeshConfig(nx=4, ny=4, router_fifo=8, max_out_credits=32,
+                     topology=tt)
+    e = make_traffic("uniform", 4, 4, 120, rate=0.4, seed=3, topology=tt)
+    chunks, final = _drive(stream_phased_stats(
+        cfg, e, check_every=check_every, fifo_depth=depth,
+        max_credits=credits, cycles_per_call=5, device="cpu", **STREAM))
+    jchunks, jfinal = _drive(j_stream(
+        jcfg, j_load_program(e), check_every=check_every, fifo_depth=depth,
+        max_credits=credits, **STREAM))
+    assert len(chunks) == len(jchunks) == len(phase_schedule(
+        *STREAM.values(), check_every))
+    for a, b in zip(chunks, jchunks):
+        assert (a.phase, a.start, a.stop, a.injected, a.completed,
+                a.delivered) == (b.phase, b.start, b.stop, b.injected,
+                                 b.completed, b.delivered)
+        np.testing.assert_array_equal(a.hist, b.hist)
+        assert a.hist.dtype == np.asarray(b.hist).dtype
+    assert sum(c.delivered for c in chunks) == int(final.hist.sum())
+    key = SweepKey(cfg, **STREAM)
+    one = batched_phased_stats(key, load_program(e, "cpu"),
+                               depth if depth else None,
+                               credits if credits else None)
+    for f in final._fields:
+        assert torch.equal(getattr(final, f), getattr(one, f)), f
+    _assert_stats_equal({k: v.numpy() for k, v in final._asdict().items()},
+                        {k: np.asarray(v)[None]
+                         for k, v in jfinal._asdict().items()})
+
+
+def test_stream_takes_a_one_lane_program_and_checks_at_the_call():
+    cfg = MeshConfig(nx=4, ny=4)
+    e = make_traffic("tornado", 4, 4, 40, rate=0.5, seed=1)
+    a = _drive(stream_phased_stats(cfg, load_program(e, "cpu"),
+                                   check_every=50, device="cpu", **STREAM))
+    b = _drive(stream_phased_stats(cfg, e, check_every=50, device="cpu",
+                                   **STREAM))
+    assert [c[:6] for c in a[0]] == [c[:6] for c in b[0]]
+    two = stack_rate_programs("uniform", 4, 4, (0.1, 0.2), 10, device="cpu")
+    with pytest.raises(ValueError, match="one lane"):
+        stream_phased_stats(cfg, two, device="cpu")
+    with pytest.raises(ValueError, match="check_every"):
+        stream_phased_stats(cfg, e, check_every=0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stream_phased_stats(cfg, e)          # no card here: never the CPU
+
+
+def test_measure_program_matches_reference():
+    e = make_traffic("transpose", 4, 4, 90, rate=0.5, seed=2)
+    t = measure_program(MeshConfig(nx=4, ny=4), e, cycles_per_call=9,
+                        device="cpu", **STREAM)
+    j = j_measure_program(JMeshConfig(nx=4, ny=4), e, **STREAM)
+    assert set(t) == set(j)
+    _assert_stats_equal({k: np.asarray(v) for k, v in t.items()},
+                        {k: np.asarray(v) for k, v in j.items()})
+
+
+def test_compile_sweep_checks_its_key():
+    """A prepared sweep runs only under its own key: the same total
+    horizon with the phases permuted raises; the same key gives the
+    uncompiled sweep's curve."""
+    cfg = MeshConfig(nx=4, ny=4)
+    progs = stack_rate_programs("uniform", 4, 4, (0.1, 0.3), 360,
+                                device="cpu")
+    compiled, secs = compile_sweep(cfg, progs, **PHASES)
+    assert secs >= 0 and compiled.key == SweepKey(cfg, **PHASES)
+    kw = dict(cfg=cfg, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="compiled sweep"):
+        load_latency_sweep("uniform", 4, 4, (0.1, 0.3), warmup=150,
+                           measure=150, drain=60, compiled=compiled, **kw)
+    got = load_latency_sweep("uniform", 4, 4, (0.1, 0.3), compiled=compiled,
+                             **kw, **PHASES)
+    want = load_latency_sweep("uniform", 4, 4, (0.1, 0.3), **kw, **PHASES)
+    for k in FLOAT_FIELDS + ("hist",):
+        np.testing.assert_array_equal(got[k], want[k])
