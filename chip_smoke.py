@@ -62,6 +62,29 @@ Phases (any failure raises and exits nonzero):
      bit-identical), ``calibrate(8, 8)`` on the card equal to the
      oracle's, and the DSE's four workload instances at 16x32 on the card
      (MoE and a PGAS scatter also against the oracle);
+   - ``[service]``: the simulation service (``repro_torch.sim_service``).
+     Eight concurrent ``SimRequest``s on 16x32 (``router_fifo`` 16,
+     credits 128; uniform at 0.3, seeds 0-7, 200/400/400, ``check_every``
+     100, four fifo/credit pairs twice): 1 batch, 10 ticks, 10 ``direct``
+     router calls, 80 chunks; each response equal to its request's direct
+     ``phased_stats`` on the card, each request's chunks summing to its
+     totals; the same batch through ``BatchRunner`` and the plain version
+     on the same 10 blocks, every state leaf and ``PhaseStats`` field
+     identical.  The same requests at ``check_every`` 500: 1 ``direct``
+     (200) and 2 ``packed`` (400) calls, equal responses, and the batch
+     on those 3 blocks against the plain version leaf for leaf.  Two
+     ``SweepRequest``s on 16x16 (mesh, torus; 12 rates, 300/500/500): 2
+     buckets, each a batch of 8 lanes then 4, 26 ticks of one ``direct``
+     call per bucket, knees 0.25 / 0.40, each curve equal to
+     ``load_latency_sweep``.  Backpressure (``queue_limit`` 8 refuses the
+     12-lane sweep and a 9th lane, and reopens after the drain), two
+     async ``Ticket.stream()`` consumers equal to the sync facade, a warm
+     instance with 0 new shapes, and two processes on a fresh
+     ``compile_cache_dir``: the first builds the router library, the
+     second loads it.  Times, not gated: the service against 8 direct
+     runs, ms per tick, the router's device time per block (the
+     profiler) against the tick's host time, the host's program building
+     at submit, and what padding 5 lanes to 8 costs;
 6. times: the kernel per mesh cycle at 12 lanes x 16x32 with CUDA events,
    in calls of 400 cycles (as the sweep's measure and drain phases) and
    of 1 cycle (as a drain with ``check_every=1``); the cut-over between
@@ -291,22 +314,27 @@ def main_path(device, nx=16, ny=32):
     return out, wall, launches, want, by_variant
 
 
-def phases_against_plain(cfg, prog, fresh, phases, what):
-    """The phases ``(warmup, measure, drain)``, one call each as
-    ``phased_stats`` makes them, through the kernel's wrapper and through
-    the plain version side by side, each from its own ``fresh()`` state
-    with the measure window set.  Every state leaf and every per-cycle
-    ``done`` / ``drained`` column must be identical after each phase, and
-    so must every ``PhaseStats`` field.  Returns (the plain version's
-    ``PhaseStats``, the largest absolute difference seen (0 when
-    identical), the variant of each kernel call)."""
+def phases_against_plain(cfg, prog, fresh, phases, what, check_every=None):
+    """The phases ``(warmup, measure, drain)`` through the kernel's wrapper
+    and through the plain version side by side, each from its own
+    ``fresh()`` state with the measure window set: one call per phase as
+    ``phased_stats`` makes them, or with ``check_every`` one call per
+    fence block as the service's ``BatchRunner`` makes them.  Every state
+    leaf and every per-cycle ``done`` / ``drained`` column must be
+    identical after each call, and so must every ``PhaseStats`` field.
+    Returns (the plain version's ``PhaseStats``, the largest absolute
+    difference seen (0 when identical), the variant of each kernel call,
+    the plain version's final state)."""
     import torch
     from repro_torch.kernels.router_step import (router_step_call,
                                                  router_step_plain,
                                                  router_variant)
-    from repro_torch.netsim.measure import reduce_window_stats
+    from repro_torch.netsim.measure import (phase_schedule,
+                                            reduce_window_stats)
     from repro_torch.netsim.sim import STATE_LEAVES, flatten_state
     warmup, measure, drain = phases
+    schedule = phase_schedule(warmup, measure, drain,
+                              check_every or max(phases))
 
     def windowed():
         st = fresh()
@@ -320,9 +348,9 @@ def phases_against_plain(cfg, prog, fresh, phases, what):
     ks, ps = windowed(), windowed()
     B = ks.cycle.shape[0]
     worst = 0
-    snaps = {"kernel": [], "plain": []}
+    snaps = {"kernel": {}, "plain": {}}
     variants = []
-    for phase, n in zip(("warmup", "measure", "drain"), phases):
+    for i, (phase, n) in enumerate(schedule):
         variants.append(router_variant(cfg, B, n))
         ks, kd, kr = router_step_call(cfg, prog, ks, n)
         ps, pd, pr = router_step_plain(cfg, prog, ps, n)
@@ -336,12 +364,15 @@ def phases_against_plain(cfg, prog, fresh, phases, what):
             if d:
                 bad.append(name)
         check(not bad and worst == 0,
-              f"{what}, {phase}: kernel differs from plain on {bad}")
-        snaps["kernel"].append(snapshot(ks))
-        snaps["plain"].append(snapshot(ps))
+              f"{what}, {phase} block {i}: kernel differs from plain on "
+              f"{bad}")
+        if i + 1 == len(schedule) or schedule[i + 1][0] != phase:
+            snaps["kernel"][phase] = snapshot(ks)
+            snaps["plain"][phase] = snapshot(ps)
     stats = {}
     for side, st in (("kernel", ks), ("plain", ps)):
-        (i0, c0, u0), (i1, c1, u1) = snaps[side][0], snaps[side][1]
+        (i0, c0, u0), (i1, c1, u1) = (snaps[side]["warmup"],
+                                      snaps[side]["measure"])
         stats[side] = reduce_window_stats(cfg.nx * cfg.ny, measure,
                                           st.lat_hist.clone(), i1 - i0,
                                           c1 - c0, u1 - u0)
@@ -349,7 +380,7 @@ def phases_against_plain(cfg, prog, fresh, phases, what):
         a, b = getattr(stats["kernel"], f), getattr(stats["plain"], f)
         worst = max(worst, float((a.double() - b.double()).abs().max()))
         check(torch.equal(a, b), f"{what}: kernel {f} differs from plain")
-    return stats["plain"], worst, variants
+    return stats["plain"], worst, variants, ps
 
 
 def sweep_against_plain(device, out, nx=16, ny=32):
@@ -368,7 +399,7 @@ def sweep_against_plain(device, out, nx=16, ny=32):
     prog = stack_rate_programs("uniform", nx, ny, rates, sum(SWEEP_PHASES),
                                topology=cfg.topology, device=device)
     B = len(rates)
-    stats, worst, _ = phases_against_plain(
+    stats, worst, _, _ = phases_against_plain(
         cfg, prog, lambda: init_state(cfg, lanes=B, device=device),
         SWEEP_PHASES, "16x32 sweep")
     for k, v in stats._asdict().items():
@@ -715,7 +746,7 @@ def dse_canonical(device):
         progs, depths, credits = _lanes(device, pts, length)
         before = router_counts()[1]["packed"]
         t0 = time.perf_counter()
-        plain, err, variants = phases_against_plain(
+        plain, err, variants, _ = phases_against_plain(
             key.cfg, progs,
             lambda: init_state(key.cfg, depths, credits, device=device),
             (key.warmup, key.measure, key.drain), f"[dse] {topo} bucket")
@@ -985,6 +1016,454 @@ def workloads_phase(device):
           f"launches {launches} by variant {by_variant}")
     return {"launches": launches, "by_variant": by_variant,
             "cycles": {k: r.cycles for k, r in big.items()}}
+
+
+# ----------------------------------------------------------------------
+# the simulation service, every fence block through the router
+# ----------------------------------------------------------------------
+# (fifo_depth, max_credits) of the eight concurrent requests, seeds 0-7
+SERVICE_KNOBS = ((None, None), (2, 8), (8, 32), (4, 16)) * 2
+
+
+def service_requests(check_every, nx=16, ny=32):
+    """``[service]``'s eight concurrent requests on the paper's array:
+    uniform at 0.3, seeds 0-7, phases 200/400/400, the knobs of
+    :data:`SERVICE_KNOBS`."""
+    from repro_torch.mesh import MeshConfig
+    from repro_torch.sim_service import SimRequest
+    cfg = MeshConfig(nx=nx, ny=ny, router_fifo=16, max_out_credits=128)
+    return [SimRequest(cfg=cfg, pattern="uniform", load=0.3, seed=s,
+                       warmup=200, measure=400, drain=400,
+                       check_every=check_every, fifo_depth=d, max_credits=c)
+            for s, (d, c) in enumerate(SERVICE_KNOBS)]
+
+
+def _same_stats(a, b) -> bool:
+    """Two ``PhaseStats`` of one lane (numpy leaves or one-lane tensors)
+    equal in every field."""
+    import numpy as np
+
+    def host(v):
+        return v[0].cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+    return all(np.array_equal(host(getattr(a, f)), host(getattr(b, f)))
+               for f in a._fields)
+
+
+def _same_chunks(a, b) -> bool:
+    """Two lists of ``TelemetryChunk``s with equal fence-block deltas."""
+    import numpy as np
+    return len(a) == len(b) and all(
+        x.chunk[:-1] == y.chunk[:-1]
+        and np.array_equal(x.chunk.hist, y.chunk.hist) for x, y in zip(a, b))
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def service_phase(device):
+    """``[service]``: the simulation service on the card (see the module
+    docstring), each service run with the router's counts set to 0 just
+    before it and read just after.  Returns (the service's launches by
+    variant, its times)."""
+    import asyncio
+    import numpy as np
+    from repro_torch.mesh import Topology, make_traffic
+    from repro_torch.netsim.measure import (DEFAULT_SWEEP_RATES,
+                                            load_latency_sweep,
+                                            phased_stats, sweep_config)
+    from repro_torch.netsim.sim import (STATE_LEAVES, flatten_state,
+                                        init_state, load_program)
+    from repro_torch.kernels.router_step import cycle_bytes
+    from repro_torch.sim_service import (BatchRunner, ServiceOverloaded,
+                                         SimServer, SimService,
+                                         SweepRequest, bucket_key)
+    from repro_torch.sim_service.bucketing import stack_lanes
+    card = card_line()
+    total = {"direct": 0, "packed": 0}
+
+    def counted(fn):
+        zero_router()
+        out = fn()
+        by_variant = router_counts()[1]
+        for v, n in by_variant.items():
+            total[v] += n
+        return out, by_variant
+
+    # (1) eight concurrent requests, one batch, one call per fence block
+    reqs = service_requests(100)
+    svc = SimService(max_batch=8, device=device)
+    ticks = []
+
+    def run_ticks():
+        t0 = time.perf_counter()
+        tickets = [svc.submit(r) for r in reqs]
+        while not svc.server.idle:
+            t = time.perf_counter()
+            svc.server.tick()
+            ticks.append(time.perf_counter() - t)
+        return tickets, time.perf_counter() - t0
+    (tickets, wall), by_variant = counted(run_ticks)
+    m = svc.metrics
+    print(f"[service] {card}: 8 requests x 16x32 (uniform 0.3, seeds 0-7, "
+          f"200/400/400, check_every 100): {m.batches} batch, {m.ticks} "
+          f"ticks, {m.blocks} blocks, {m.chunks} chunks, new shapes "
+          f"{m.sim_compiles} block + {m.aux_compiles} init/reduce; "
+          f"router_step launches by variant {by_variant}")
+    check(m.batches == 1 and m.ticks == 10 and m.blocks == 10
+          and m.chunks == 80 and m.completed == 8,
+          f"[service] 8 requests: {m.snapshot()}")
+    check(by_variant == {"direct": 10, "packed": 0},
+          f"[service] 8 requests ran {by_variant}, not 10 direct calls")
+    ntiles = 16 * 32
+    for r, t in zip(reqs, tickets):
+        st, ch = t.response.stats, t.chunks
+        hist = np.asarray(st.hist)
+        check(len(ch) == 10
+              and sum(c.chunk.delivered for c in ch) == int(hist.sum())
+              and (sum(c.chunk.hist for c in ch) == hist).all()
+              and sum(c.chunk.injected for c in ch
+                      if c.chunk.phase == "measure")
+              == round(float(st.offered) * ntiles * 400),
+              f"[service] seed {r.seed}: the chunks do not sum to the "
+              f"totals")
+    # each request alone, direct, on the card (not the service: uncounted)
+    direct, t0 = [], time.perf_counter()
+    for r in reqs:
+        cfg = r.cfg.to_sim()
+        prog = load_program(make_traffic(
+            r.pattern, r.cfg.nx, r.cfg.ny, int(np.ceil(r.load * r.horizon))
+            + 1, rate=r.load, seed=r.seed, topology=r.cfg.topology), device)
+        st = init_state(cfg, r.fifo_depth, r.max_credits, lanes=1,
+                        device=device)
+        direct.append(phased_stats(cfg, prog, st, 200, 400, 400))
+        _sync(device)
+    direct_s = time.perf_counter() - t0
+    for r, t, d in zip(reqs, tickets, direct):
+        check(_same_stats(d, t.response.stats),
+              f"[service] seed {r.seed}: the response differs from its "
+              f"direct phased_stats on the card")
+    print("[service] every response equals its request's direct "
+          "phased_stats on the card, every field; each request's 10 "
+          "chunks sum to its totals")
+
+    # the same batch through the service's BatchRunner and the plain
+    # version on the same schedule (comparison launches: uncounted)
+    lanes = [ln for r in reqs for ln in r.lanes()]
+    key = reqs[0].sweep_key()
+    runner = BatchRunner(bucket_key(key, lanes[0].program, 100), lanes, 8,
+                         device)
+    while not runner.done:
+        runner.advance()
+    run_stats = runner.finalize()
+    t0 = time.perf_counter()
+    plain, err, variants, plain_state = phases_against_plain(
+        key.cfg, runner.progs,
+        lambda: init_state(key.cfg, [ln.fifo_depth for ln in lanes],
+                           [ln.max_credits for ln in lanes], device=device),
+        (200, 400, 400), "[service] batch", check_every=100)
+    bad = [n for n, a, b in zip(STATE_LEAVES, flatten_state(runner.states),
+                                flatten_state(plain_state))
+           if not bool((a == b).all())]
+    check(not bad, f"[service] the service batch's state differs from "
+                   f"the plain version's on {bad}")
+    for i, t in enumerate(tickets):
+        lane = type(plain)(*(f[i:i + 1] for f in plain))
+        check(_same_stats(lane, run_stats[i])
+              and _same_stats(lane, t.response.stats),
+              f"[service] lane {i}: PhaseStats differ from the plain "
+              f"version's")
+    print(f"[service] the batch (8 lanes x 16x32, 10 blocks of 100, "
+          f"variants {sorted(set(variants))}) through BatchRunner and "
+          f"router_step_plain side by side in "
+          f"{time.perf_counter() - t0:.1f} s: every state leaf and "
+          f"PhaseStats field identical (max_abs_err {err}), and equal to "
+          f"the service's responses")
+
+    # (2) the same requests at check_every 500: blocks of 200, 400, 400
+    reqs500 = service_requests(500)
+    svc500 = SimService(max_batch=8, device=device)
+    got500, by_variant500 = counted(lambda: svc500.run(reqs500))
+    print(f"[service] check_every 500: {svc500.metrics.ticks} ticks, "
+          f"router_step launches by variant {by_variant500}")
+    check(by_variant500 == {"direct": 1, "packed": 2},
+          f"[service] check_every 500 ran {by_variant500}, not 1 direct "
+          f"(200) + 2 packed (400, 400)")
+    check(all(_same_stats(a.stats, t.response.stats)
+              for a, t in zip(got500, tickets)),
+          "[service] check_every 500 changed a response")
+    # its blocks of 200, 400 and 400 (the two packed) through BatchRunner
+    # and the plain version side by side (comparison launches: uncounted)
+    runner = BatchRunner(bucket_key(key, lanes[0].program, 500), lanes, 8,
+                         device)
+    while not runner.done:
+        runner.advance()
+    run500 = runner.finalize()
+    t0 = time.perf_counter()
+    plain500, err500, variants500, plain_state = phases_against_plain(
+        key.cfg, runner.progs,
+        lambda: init_state(key.cfg, [ln.fifo_depth for ln in lanes],
+                           [ln.max_credits for ln in lanes], device=device),
+        (200, 400, 400), "[service] batch at check_every 500",
+        check_every=500)
+    check(variants500 == ["direct", "packed", "packed"],
+          f"[service] check_every 500 compared {variants500}")
+    bad = [n for n, a, b in zip(STATE_LEAVES, flatten_state(runner.states),
+                                flatten_state(plain_state))
+           if not bool((a == b).all())]
+    check(not bad, f"[service] the check_every 500 batch's state differs "
+                   f"from the plain version's on {bad}")
+    for i, a in enumerate(got500):
+        lane = type(plain500)(*(f[i:i + 1] for f in plain500))
+        check(_same_stats(lane, run500[i]) and _same_stats(lane, a.stats),
+              f"[service] check_every 500, lane {i}: PhaseStats differ "
+              f"from the plain version's")
+    print(f"[service] the check_every 500 batch (blocks of 200, 400, 400: "
+          f"{variants500}) through BatchRunner and router_step_plain side "
+          f"by side in {time.perf_counter() - t0:.1f} s: every state leaf "
+          f"and PhaseStats field identical (max_abs_err {err500}), and "
+          f"equal to the service's responses")
+
+    # (3) two sweeps on 16x16, mesh and torus: 2 buckets of 8 + 4 lanes
+    sweeps = [SweepRequest(cfg=sweep_config(16, 16, Topology.parse(k)),
+                           warmup=300, measure=500, drain=500, seed=0)
+              for k in ("mesh", "torus")]
+    svc3 = SimService(max_batch=8, device=device)
+    t0 = time.perf_counter()
+    curves, by_variant3 = counted(lambda: svc3.run(sweeps))
+    sweep_wall = time.perf_counter() - t0
+    m3 = svc3.metrics
+    buckets = {c.metrics["bucket"] for c in curves}
+    print(f"[service] {card}: 2 SweepRequests (16x16 mesh and torus, 12 "
+          f"rates, 300/500/500): {len(buckets)} buckets, {m3.batches} "
+          f"batches, {m3.ticks} ticks, {m3.blocks} blocks, wall "
+          f"{sweep_wall:.3f} s; router_step launches by variant "
+          f"{by_variant3}; knees mesh {curves[0].curve['saturation_rate']}"
+          f", torus {curves[1].curve['saturation_rate']}")
+    check(len(buckets) == 2 and m3.batches == 4 and m3.ticks == 26
+          and m3.blocks == 52 and all(c.metrics["batch_width"] == 4
+                                      for c in curves),
+          f"[service] sweeps: {m3.snapshot()}, buckets {buckets}")
+    check(by_variant3 == {"direct": 52, "packed": 0},
+          f"[service] sweeps ran {by_variant3}, not one direct call per "
+          f"bucket per tick")
+    knees = {k: c.curve["saturation_rate"]
+             for k, c in zip(("mesh", "torus"), curves)}
+    check(knees == DSE_KNEES, f"[service] sweep knees {knees}")
+    for k, c in zip(("mesh", "torus"), curves):
+        ref = load_latency_sweep("uniform", 16, 16, DEFAULT_SWEEP_RATES,
+                                 warmup=300, measure=500, drain=500,
+                                 cfg=sweep_config(16, 16, Topology.parse(k)),
+                                 seed=0, device=device)
+        for f in c.stats[0]._fields:
+            check(all(np.array_equal(np.asarray(getattr(s, f)), ref[f][i])
+                      for i, s in enumerate(c.stats)),
+                  f"[service] {k} sweep: {f} differs from "
+                  f"load_latency_sweep's")
+        check(c.curve["saturation_index"] == ref["saturation_index"]
+              and c.curve["monotone"] == ref["monotone"],
+              f"[service] {k} curve summary differs")
+    print("[service] each curve equals load_latency_sweep on the card, "
+          "field by field and rate by rate")
+
+    # (4) backpressure, then the async surface
+    def backpressure():
+        small = SimService(max_batch=8, queue_limit=8, device=device)
+        refused = []
+        for req in [sweeps[0]] + reqs + [reqs[0]]:
+            try:
+                small.submit(req)
+            except ServiceOverloaded:
+                refused.append(req)
+        small.server.run_until_idle()
+        again = small.submit(reqs[0])
+        small.server.run_until_idle()
+        return small, refused, again
+    (small, refused, again), _ = counted(backpressure)
+    check(len(refused) == 2 and refused[0] is sweeps[0]
+          and small.metrics.rejected == 2
+          and small.metrics.peak_pending == 8 and again.done
+          and _same_stats(again.response.stats, tickets[0].response.stats),
+          f"[service] backpressure: {small.metrics.snapshot()}")
+
+    async def two_consumers():
+        server = SimServer(max_batch=8, device=device)
+        t1, t2 = server.submit(reqs[0]), server.submit(reqs[0])
+        serve = asyncio.ensure_future(server.serve(until_idle=True))
+
+        async def consume(t):
+            return [c async for c in t.stream()], await t.result()
+        out = await asyncio.gather(consume(t1), consume(t2))
+        await serve
+        return out
+    streamed, _ = counted(lambda: asyncio.run(two_consumers()))
+    check(all(_same_chunks(c, tickets[0].chunks)
+              and _same_stats(r.stats, tickets[0].response.stats)
+              for c, r in streamed),
+          "[service] the async consumers differ from the sync facade")
+    print("[service] queue_limit 8: the 12-lane sweep and a 9th lane "
+          "refused (ServiceOverloaded), admission reopened after the "
+          "drain; two Ticket.stream() consumers under serve(until_idle="
+          "True) got the sync facade's chunks and stats")
+
+    # (5) cold and warm: a second instance, then two fresh processes
+    warm = SimService(max_batch=8, device=device)
+    warm_ticks = []
+
+    def run_warm():
+        t0 = time.perf_counter()
+        got = [warm.submit(r) for r in reqs]
+        submit = time.perf_counter() - t0
+        while not warm.server.idle:
+            t = time.perf_counter()
+            warm.server.tick()
+            warm_ticks.append(time.perf_counter() - t)
+        return got, submit, time.perf_counter() - t0
+    (again8, warm_submit, warm_wall), _ = counted(run_warm)
+    check(warm.metrics.sim_compiles == 0 and warm.metrics.aux_compiles == 0
+          and all(_same_stats(a.response.stats, t.response.stats)
+                  for a, t in zip(again8, tickets)),
+          f"[service] the warm instance: {warm.metrics.snapshot()}")
+    cold = service_processes()
+    print(f"[service] a second SimService in this process: 0 new shapes "
+          f"(the first: {m.sim_compiles} + {m.aux_compiles}); two "
+          f"processes on a fresh compile_cache_dir: {cold}")
+
+    # (6) times, written down and not gated: the first run in the process
+    # pays the CUDA modules' first loads, so the per-tick times are the
+    # warm instance's; its first tick forms the batch, its last reduces.
+    # The device's share of a block comes from the profiler over one more
+    # warm batch of the same shape (its blocks only), apart from the
+    # unprofiled ticks: the router's kernels, and all of the device's work
+    # (the kernels and the block's read to the host)
+    bkey = bucket_key(key, lanes[0].program, 100)
+    runner = BatchRunner(bkey, lanes, 8, device)
+    router_ms, busy_ms = _profiled_blocks(runner)
+    tick_ms = [t * 1e3 for t in warm_ticks]
+    steady = float(np.mean(tick_ms[1:-1]))
+    padded = padded_lane_cost(device, key, lanes)
+    t0 = time.perf_counter()                  # the first tick's host part
+    stack_lanes(lanes, bkey.prog_len, 8)
+    stack_ms = (time.perf_counter() - t0) * 1e3
+    bound_us = cycle_bytes(key.cfg, 8) / H100_BYTES_PER_S * 1e6
+    if router_ms:
+        device_part = (
+            f"per block the router's kernels {router_ms:.4f} ms of device "
+            f"time (the profiler, the 10 blocks' mean; {router_ms * 10:.3f} "
+            f"us a cycle against a byte bound of {bound_us:.4f} us), all "
+            f"of the block's device work {busy_ms:.4f} ms, against a steady "
+            f"tick's host wall {steady:.3f} ms (host share "
+            f"{1 - busy_ms / steady:.3f})")
+    else:
+        device_part = ("per block the router's device time not measured "
+                       "(the profiler saw no device work)")
+    print(f"[service] {card}: 8 requests through the service: first run "
+          f"{wall:.3f} s (first tick {ticks[0] * 1e3:.1f} ms, last "
+          f"{ticks[-1] * 1e3:.1f} ms), warm {warm_wall:.3f} s, of which "
+          f"submit (building 8 programs on the host) {warm_submit:.3f} s; "
+          f"8 sequential direct phased_stats runs {direct_s:.3f} s")
+    print(f"[service] {card}: warm ticks {np.mean(tick_ms):.3f} ms on "
+          f"average: the first (forming the batch: programs padded, "
+          f"stacked, copied; the state made) {tick_ms[0]:.3f} ms, the last "
+          f"(block + reduce + responses) {tick_ms[-1]:.3f} ms, the 8 "
+          f"between {steady:.3f} ms; padding and stacking the 8 programs "
+          f"on the host alone {stack_ms:.3f} ms; {device_part}; padded "
+          f"lanes: {padded}")
+    return total, {"wall": wall, "warm_wall": warm_wall,
+                   "submit_s": warm_submit, "direct_s": direct_s,
+                   "tick_ms": steady, "block_router_ms": router_ms,
+                   "block_device_ms": busy_ms}
+
+
+def _profiled_blocks(runner):
+    """Run ``runner``'s fence blocks under ``torch.profiler``; returns the
+    device time per block, in ms, of the router's kernels and of all the
+    device's work (0.0 where the profiler saw none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    blocks = len(runner.schedule)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        while not runner.done:
+            runner.advance()
+        torch.cuda.synchronize()
+    router = busy = 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        busy += us
+        if any(k in ev.name for k in ROUTER_KERNELS):
+            router += us
+    return router / 1e3 / blocks, busy / 1e3 / blocks
+
+
+def padded_lane_cost(device, key, lanes, real=5, width=8):
+    """The router's device time per block (the profiler) for ``real`` of
+    the requests' lanes run unpadded and padded to ``width`` (lane 0
+    repeated), in turns: padded, unpadded, unpadded, padded."""
+    import numpy as np
+    from repro_torch.sim_service import BatchRunner, bucket_key
+    bkey = bucket_key(key, lanes[0].program, 100)
+    ms = {real: [], width: []}
+    for w in (width, real, real, width):
+        ms[w].append(_profiled_blocks(BatchRunner(bkey, lanes[:real], w,
+                                                  device))[0])
+    a, b = np.mean(ms[real]), np.mean(ms[width])
+    if not a:
+        return "not measured (the profiler saw no device work)"
+    return (f"{real} lanes padded to {width}: {b:.4f} ms a block against "
+            f"{a:.4f} ms unpadded (+{(b / a - 1) * 100:.1f}% for "
+            f"{width - real} padded lanes)")
+
+
+SERVICE_PROCESS = """
+import json, sys
+from repro_torch.mesh import MeshConfig
+from repro_torch.sim_service import SimRequest, SimService
+svc = SimService(max_batch=8, compile_cache_dir=sys.argv[1])
+r = svc.run_one(SimRequest(cfg=MeshConfig(nx=16, ny=32, router_fifo=16,
+                                          max_out_credits=128),
+                           load=0.3, check_every=100))
+snap = svc.metrics.snapshot()
+print(json.dumps({"cache": snap["compilation_cache"],
+                  "new_shapes": snap["sim_compiles"] + snap["aux_compiles"],
+                  "lat_mean": float(r.stats.lat_mean)}))
+"""
+
+
+def service_processes():
+    """Two processes, one after the other, each serving one request with
+    the same fresh ``compile_cache_dir``: the first builds the router
+    library there, the second loads it without building."""
+    import tempfile
+    env = {k: v for k, v in os.environ.items()
+           if k != "REPRO_TORCH_BUILD_DIR"}
+    env["PYTHONPATH"] = os.path.join(HERE, "src")
+    outs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            p = subprocess.run([sys.executable, "-c", SERVICE_PROCESS, tmp],
+                               capture_output=True, text=True, timeout=600,
+                               env=env)
+            check(p.returncode == 0, f"[service] a service process failed:"
+                                     f"\n{p.stderr[-3000:]}")
+            out = json.loads(p.stdout.strip().splitlines()[-1])
+            out["wall_s"] = round(time.perf_counter() - t0, 2)
+            outs.append(out)
+    first, second = (o["cache"] for o in outs)
+    check(first["built"] == 1 and first["loaded"] == 0
+          and second["built"] == 0 and second["loaded"] == 1
+          and first["entries"] == second["entries"] == 1
+          and outs[0]["lat_mean"] == outs[1]["lat_mean"],
+          f"[service] compile_cache_dir across processes: {outs}")
+    return (f"the first built the router library ({outs[0]['wall_s']} s "
+            f"wall), the second loaded it from disk without nvcc "
+            f"({outs[1]['wall_s']} s), equal responses: {outs}")
 
 
 # ----------------------------------------------------------------------
@@ -1910,16 +2389,18 @@ def main() -> int:
     dse = dse_canonical("cuda")
     dse_wide = dse_16x32("cuda")
     loads = workloads_phase("cuda")
+    service, _ = service_phase("cuda")
     check(dse["launches"] > 0 and dse_wide["launches"] > 0
-          and loads["launches"] > 0,
-          "a DSE or workload path launched no router kernel")
+          and loads["launches"] > 0 and sum(service.values()) > 0,
+          "a DSE, workload or service path launched no router kernel")
     router = timings("cuda", facade_wall)
     router["dse"] = dse["timing"]["mesh"]
     # the sweep's long calls run packed and its short ones direct, the
     # facade's drain direct (phases 3 and 5); the DSE's buckets packed
     # (16x32 buckets of 4 lanes direct), the workloads' 256-cycle fence
-    # blocks on one lane direct
-    paths = (dse, dse_wide, loads)
+    # blocks on one lane direct; the service's fence blocks direct, its
+    # 400-cycle blocks at check_every 500 packed
+    paths = (dse, dse_wide, loads, {"by_variant": service})
     kernels = [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/router_step.cu",
@@ -1937,21 +2418,24 @@ def main() -> int:
              {"sweep": sweep_by_variant["packed"],
               "dse": dse["by_variant"]["packed"],
               "dse_16x32": dse_wide["by_variant"]["packed"],
-              "workloads": loads["by_variant"]["packed"]}),
+              "workloads": loads["by_variant"]["packed"],
+              "service": service["packed"]}),
             ("router_step_direct", "direct", "direct",
              sweep_by_variant["direct"] + facade_launches
              + endpoints["by_variant"]["direct"]
              + sum(p["by_variant"]["direct"] for p in paths), worst,
              "1 lane x 16x32, calls of 1 cycle (the facade's drain; "
              "the sweep's 200-cycle warm-up, the endpoint scenario's "
-             "replay, the 16x32 DSE's small buckets and the workloads' "
-             "256-cycle fence blocks also run direct)",
+             "replay, the 16x32 DSE's small buckets, the workloads' "
+             "256-cycle fence blocks and the service's fence blocks also "
+             "run direct)",
              {"sweep": sweep_by_variant["direct"],
               "facade": facade_launches,
               "endpoints": endpoints["by_variant"]["direct"],
               "dse": dse["by_variant"]["direct"],
               "dse_16x32": dse_wide["by_variant"]["direct"],
-              "workloads": loads["by_variant"]["direct"]}),
+              "workloads": loads["by_variant"]["direct"],
+              "service": service["direct"]}),
             ("router_step_dse_bucket", "dse", "packed", dse["launches"],
              dse["max_abs_err"], None, {"dse": dse["launches"]}))]
     # the DSE entry's times are the mesh bucket's; both buckets' beside them

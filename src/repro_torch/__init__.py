@@ -19,6 +19,10 @@ A package of its own beside the JAX reference ``repro``; it imports
   bucketed runner whose buckets run as the lanes of one batched
   measurement through the router kernel, the result cache and the
   area/throughput Pareto frontiers (counterpart of ``repro.dse``);
+* :mod:`repro_torch.sim_service` — the simulation service: phased
+  measurements and saturation curves queued, bucketed by shape, run as
+  one batched router call per bucket per tick and streamed per fence
+  block (counterpart of ``repro.sim_service``);
 * :mod:`repro_torch.kernels` — the device policy, the ``nvcc`` build and
   the Hopper kernels: the router step, flash attention, the SSD scan and
   the grouped matmul (counterpart of ``repro.kernels``);
@@ -32,4 +36,4 @@ A package of its own beside the JAX reference ``repro``; it imports
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 __all__ = ["configs", "core", "dse", "kernels", "launch", "mesh", "models",
-           "netsim", "workloads"]
+           "netsim", "sim_service", "workloads"]

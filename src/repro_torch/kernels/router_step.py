@@ -231,9 +231,16 @@ def router_step_plain(cfg: SimConfig, prog: Program, st: SimState, C: int
     return st, torch.stack(dones, 1), torch.stack(drains, 1)
 
 
-@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = build.load("router_step")
+    """The router library of the current build directory
+    (:func:`repro_torch.kernels.build.build_dir`), bound and checked once
+    per directory: a directory set later is used, not ignored."""
+    return _library_in(build.build_dir())
+
+
+@functools.lru_cache(maxsize=None)
+def _library_in(directory) -> ctypes.CDLL:
+    lib = build.load("router_step", directory)
     lib.router_step_launch.argtypes = [ctypes.POINTER(_Args),
                                        ctypes.POINTER(_Dims), ctypes.c_int,
                                        ctypes.c_void_p]

@@ -15,8 +15,10 @@ The port of ``repro/netsim_jax/measure.py`` (Dally & Towles §23.1):
 Every function takes and returns a leading lane axis: where the reference
 ``vmap``\\ s :func:`phased_stats` over offered loads, the port runs the
 loads as lanes of one state, and on a card every cycle of every lane is
-one pass of the router kernel.  :func:`stream_phased_stats` runs one lane
-fence block by fence block, yielding each block's telemetry delta.  The
+one pass of the router kernel.  :class:`FenceStream` runs lanes fence
+block by fence block with one read to the host a block;
+:func:`stream_phased_stats` drives it on one lane, yielding each block's
+telemetry delta.  The
 saturation point is the first offered load whose mean latency reaches
 ``3x`` the zero-load latency (the latency at the lowest swept rate).
 """
@@ -39,11 +41,11 @@ from repro_torch.netsim.sim import (FWD, Program, SimConfig, SimState,
 __all__ = ["SATURATION_FACTOR", "DEFAULT_SWEEP_RATES", "sweep_config",
            "SweepKey", "PhaseStats", "hist_quantile", "reduce_window_stats",
            "phased_stats", "StreamChunk", "phase_schedule",
-           "stream_phased_stats", "measure_program", "stack_rate_programs",
-           "batched_phased_stats", "first_execution", "clear_sweep_cache",
-           "CompiledSweep", "compile_sweep", "load_latency_sweep",
-           "saturation_point", "curve_is_monotone", "curve_record",
-           "ascii_curve"]
+           "stream_phased_stats", "FenceStream", "measure_program",
+           "stack_rate_programs", "batched_phased_stats", "first_execution",
+           "clear_sweep_cache", "CompiledSweep", "compile_sweep",
+           "load_latency_sweep", "saturation_point", "curve_is_monotone",
+           "curve_record", "ascii_curve"]
 
 # mean latency >= SATURATION_FACTOR * zero-load latency <=> saturated
 SATURATION_FACTOR = 3.0
@@ -238,14 +240,12 @@ def stream_phased_stats(cfg, prog, *, warmup: int = 200,
     from``), equal to :func:`phased_stats` on the same lane.
 
     ``prog`` is an injection-program dict or a one-lane :class:`Program`.
-    Each block is one :func:`repro_torch.netsim.sim.simulate` run followed
-    by one read to the host (the issued and completed counts and the
-    histogram); the link counters stay on the device.  Runs on the card
-    unless ``device="cpu"``; the arguments are checked, and the state
-    made, when it is called, before the first block runs."""
+    The blocks run through a one-lane :class:`FenceStream`.  Runs on the
+    card unless ``device="cpu"``; the arguments are checked, and the
+    state made, when it is called, before the first block runs."""
     cfg = _as_simconfig(cfg)
     # validates the phase recipe exactly like the one-shot entry points
-    SweepKey(cfg, warmup, measure, drain, cycles_per_call)
+    key = SweepKey(cfg, warmup, measure, drain, cycles_per_call)
     schedule = phase_schedule(warmup, measure, drain, check_every)
     device = resolve_device(device)
     if isinstance(prog, dict):
@@ -256,42 +256,98 @@ def stream_phased_stats(cfg, prog, *, warmup: int = 200,
     else:
         prog = Program(prog.buf.to(device), prog.length.to(device))
     st = init_state(cfg, fifo_depth, max_credits, lanes=1, device=device)
-    st = st._replace(measure_start=st.cycle + warmup,
-                     measure_stop=st.cycle + (warmup + measure))
-    return _stream(cfg, prog, st, measure, schedule, cycles_per_call)
+    return _one_lane(FenceStream(key, schedule, prog, st))
 
 
-def _stream(cfg: SimConfig, prog: Program, st: SimState, measure: int,
-            schedule, cycles_per_call: Optional[int]):
-    """The block loop of :func:`stream_phased_stats`."""
-    # phase-boundary snapshots; a zero-length warmup's is the fresh state
-    prev = np.zeros(2 + LAT_BINS, np.int64)      # issued, completed, hist
-    ints_w = ints_m = prev[:2]
-    util_w = util_m = st.link_util.clone()
-    cycle = 0
-    for i, (phase, cycles) in enumerate(schedule):
-        st, _ = simulate(cfg, prog, st, cycles, cycles_per_call)
-        now = torch.cat([st.prog_ptr.sum().view(1), st.completed.sum().view(1),
-                         st.lat_hist[0].long()]).cpu().numpy()
-        d = now - prev
-        yield StreamChunk(phase=phase, start=cycle, stop=cycle + cycles,
-                          injected=int(d[0]), completed=int(d[1]),
-                          delivered=int(d[2:].sum()),
-                          hist=d[2:].astype(np.int32))
-        prev = now
-        cycle += cycles
-        last_of_phase = i + 1 == len(schedule) or schedule[i + 1][0] != phase
-        if last_of_phase and phase == "warmup":
-            ints_w = ints_m = now[:2]
-            util_w = util_m = st.link_util.clone()
-        elif last_of_phase and phase == "measure":
-            ints_m = now[:2]
-            util_m = st.link_util.clone()
-    d_inj, d_comp = (torch.tensor([int(v)], dtype=I32,
-                                  device=st.cycle.device)
-                     for v in ints_m - ints_w)
-    return reduce_window_stats(cfg.nx * cfg.ny, measure, st.lat_hist.clone(),
-                               d_inj, d_comp, util_m - util_w)
+def _one_lane(run: "FenceStream"):
+    while not run.done:
+        (chunk,) = run.advance()
+        yield chunk
+    return run.finalize()
+
+
+class FenceStream:
+    """A phased run over the lanes of ``state``, advanced one fence block
+    of ``schedule`` (:func:`phase_schedule`) at a time: the block loop of
+    :func:`stream_phased_stats` (one lane) and of the simulation service's
+    batches (many).
+
+    ``state`` is fresh; the measure window of ``key`` is set on it here.
+    Each :meth:`advance` is ONE :func:`repro_torch.netsim.sim.simulate`
+    over every lane, on a card one router kernel call by default,
+    followed by ONE device-to-host copy: per read lane the issued and
+    completed counts and the latency histogram, from which it returns
+    one :class:`StreamChunk` per read lane.  The link counters stay on
+    the device, snapshotted there at the phase boundaries.  Only the
+    first ``lanes`` lanes (default all) are read and reduced; the rest
+    run and are never read.  :meth:`finalize` reduces the read lanes with
+    :func:`reduce_window_stats`, each equal to :func:`phased_stats` of the
+    lane alone."""
+
+    def __init__(self, key: SweepKey, schedule, prog: Program,
+                 state: SimState, lanes: Optional[int] = None):
+        self.key = key
+        self.schedule = tuple(schedule)
+        self.prog = prog
+        self.state = state._replace(
+            measure_start=state.cycle + key.warmup,
+            measure_stop=state.cycle + (key.warmup + key.measure))
+        self.lanes = int(state.cycle.shape[0]) if lanes is None else lanes
+        self.idx = 0
+        self.cycle = 0
+        # per lane: issued, completed, then the histogram, as last read
+        self._prev = np.zeros((self.lanes, 2 + LAT_BINS), np.int64)
+        # phase-boundary snapshots; a zero-length warmup's is the fresh
+        # state, exactly like phased_stats' 0-cycle run
+        self._ints_w = self._ints_m = self._prev[:, :2]
+        self._util_w = self._util_m = \
+            self.state.link_util[:self.lanes].clone()
+
+    @property
+    def done(self) -> bool:
+        return self.idx >= len(self.schedule)
+
+    def _read(self) -> np.ndarray:
+        """The read lanes' issued and completed counts and histograms,
+        ``(lanes, 2 + LAT_BINS)`` int64, in one copy to the host."""
+        n, st = self.lanes, self.state
+        return torch.cat([st.prog_ptr[:n].sum((1, 2))[:, None],
+                          st.completed[:n].sum((1, 2))[:, None],
+                          st.lat_hist[:n].long()], 1).cpu().numpy()
+
+    def advance(self) -> Tuple[StreamChunk, ...]:
+        """Run the next fence block; returns each read lane's chunk."""
+        assert not self.done
+        phase, cycles = self.schedule[self.idx]
+        self.state, _ = simulate(self.key.cfg, self.prog, self.state, cycles,
+                                 self.key.cycles_per_call)
+        now = self._read()
+        d = now - self._prev
+        out = tuple(StreamChunk(
+            phase=phase, start=self.cycle, stop=self.cycle + cycles,
+            injected=int(row[0]), completed=int(row[1]),
+            delivered=int(row[2:].sum()), hist=row[2:].astype(np.int32))
+            for row in d)
+        self._prev = now
+        self.cycle += cycles
+        self.idx += 1
+        nxt = self.schedule[self.idx][0] if not self.done else None
+        if phase != nxt and phase in ("warmup", "measure"):
+            self._ints_m = now[:, :2]
+            self._util_m = self.state.link_util[:self.lanes].clone()
+            if phase == "warmup":
+                self._ints_w, self._util_w = self._ints_m, self._util_m
+        return out
+
+    def finalize(self) -> PhaseStats:
+        """The read lanes' :class:`PhaseStats`, on the state's device."""
+        assert self.done
+        cfg, n = self.key.cfg, self.lanes
+        d = np.ascontiguousarray((self._ints_m - self._ints_w).T, np.int32)
+        d_inj, d_comp = torch.as_tensor(d).to(self.state.cycle.device)
+        return reduce_window_stats(cfg.nx * cfg.ny, self.key.measure,
+                                   self.state.lat_hist[:n].clone(), d_inj,
+                                   d_comp, self._util_m - self._util_w)
 
 
 def measure_program(cfg, entries: Dict[str, np.ndarray], *,

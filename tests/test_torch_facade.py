@@ -119,8 +119,8 @@ def test_facade_rejects_endpoints_and_bad_input():
 
 def test_port_imports_nothing_of_jax_or_repro():
     """A fresh interpreter imports the port and all its submodules (the
-    workload library and the DSE among them); no ``jax*`` and no
-    ``repro`` / ``repro.*`` module may be loaded."""
+    workload library, the DSE and the simulation service among them); no
+    ``jax*`` and no ``repro`` / ``repro.*`` module may be loaded."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import repro_torch\n"
@@ -134,11 +134,14 @@ def test_port_imports_nothing_of_jax_or_repro():
         "          'workloads.collectives', 'workloads.pipeline',\n"
         "          'workloads.moe', 'workloads.pgas', 'workloads.runner',\n"
         "          'workloads.congestion', 'dse.pareto', 'dse.cost',\n"
-        "          'dse.cache', 'dse.spec', 'dse.runner'):\n"
+        "          'dse.cache', 'dse.spec', 'dse.runner', 'sim_service',\n"
+        "          'sim_service.request', 'sim_service.bucketing',\n"
+        "          'sim_service.metrics', 'sim_service.streaming',\n"
+        "          'sim_service.server'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 66
+    assert int(out.stdout.split()[-1]) >= 72
