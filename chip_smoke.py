@@ -145,7 +145,30 @@ Phases (any failure raises and exits nonzero):
    fp32 (``cuda_core``) time; the decode/tma cut-over; then the ``kernels`` JSON line (one entry per
    kernel variant and shape on the main paths, the router's with its
    launches by path and one at the DSE bucket's shape) and the ``ok``
-   line.
+   line;
+11. ``[train]``, training through the kernels' backward passes (phase 7
+   and 10 also hold and time flash at Moonshot's training shape and the
+   SSD at Mamba-2's training batch of 8):
+   (1) each autograd op of ``kernels/ops.py`` against its plain version
+   by autograd on the card, fp32 and bf16, at the training shapes plus a
+   GQA and a ragged case: the gradient of a fixed random projection of
+   the output, each forward one kernel launch of its variant, the GMM's
+   backward two more GMM launches; (2) the reduced Jamba, Mixtral,
+   Qwen2-VL, Mamba-2 LM and Whisper (fp32): loss, every gradient and one
+   ``train_step`` on the card equal to the CPU's; (3) through ``Trainer``
+   and ``launch/train.py``'s code, bf16 weights drawn on the card, full
+   remat, each model freed before the next: Mamba-2 370M whole, 8 x 4096
+   tokens, 20 steps (96 ``tensor_core`` SSD launches a step: 48 forward
+   and 48 rematerialised; an injected fault at step 3 retried), and
+   Moonshot's widths, 2 of 48 layers, 1 x 4096, 10 steps (4
+   ``wgmma_tma`` flash and 24 ``tma`` GMM a step: 6 forward, 6
+   rematerialised, 12 in the backward), the launches asserted at every
+   step and the loss falling; (4) Mamba-2's checkpoint of step 10
+   restored by a fresh ``Trainer``, whose next step's loss equals the
+   uninterrupted run's step 11; (5) times, not gated: ms per warm step,
+   tokens/s, model FLOP/s, peak memory, the profiler's device time by
+   category over 3 warm steps and the idle share, and the GMM's backward
+   products beside ``torch.bmm`` with their transposed copies.
 
 It needs a card: without one it prints the reason to stderr and exits 1.
 """
@@ -1479,10 +1502,17 @@ WHISPER_CLIPS = 4              # 4 clips of 1500 frames each
 WHISPER_TOKENS = 448           # Whisper's published decoder context
 WHISPER_FRAMES = 1500          # its encoder_seq: 30 s of audio
 BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core rate, SXM data sheet
+# The training paths (phase 11): Mamba-2 370M whole at 8 x 4096 tokens,
+# Moonshot's widths (2 of 48 layers) at 1 x 4096, both with full remat.
+TRAIN_SEQ = 4096
+MAMBA2_TRAIN_BATCH, MAMBA2_TRAIN_STEPS = 8, 20
+MOONSHOT_TRAIN_LAYERS, MOONSHOT_TRAIN_STEPS = 2, 10
 # The model kernels' shapes on the main paths: (name, arch, batch, Sq, Sk,
-# causal) of each flash call of a prefill, (name, arch, tokens) of each
-# expert FFN's GMM pair (gate/up and down at the capacity of ``tokens``: a
-# prefill, or a decode tick of 4 slots) and of each SSD call of a prefill.
+# causal) of each flash call of a prefill or a training step, (name, arch,
+# tokens) of each expert FFN's GMM pair (gate/up and down at the capacity
+# of ``tokens``: a prefill or a training step's forward, or a decode tick
+# of 4 slots) and (name, arch, S, batch) of each SSD call of a prefill or
+# a training step.
 FLASH_CASES = (
     ("Jamba prefill", JAMBA, 1, PREFILL_TOKENS, PREFILL_TOKENS, True),
     ("Mixtral prefill", MIXTRAL, 1, MIXTRAL_TOKENS, MIXTRAL_TOKENS, True),
@@ -1493,14 +1523,16 @@ FLASH_CASES = (
     ("Whisper cross", WHISPER, WHISPER_CLIPS, WHISPER_TOKENS, WHISPER_FRAMES,
      False),
     ("Whisper decoder self", WHISPER, WHISPER_CLIPS, WHISPER_TOKENS,
-     WHISPER_TOKENS, True))
+     WHISPER_TOKENS, True),
+    ("Moonshot train", MOONSHOT, 1, TRAIN_SEQ, TRAIN_SEQ, True))
 GMM_CASES = (("Jamba prefill", JAMBA, PREFILL_TOKENS),
              ("Jamba decode", JAMBA, 4),
              ("Mixtral prefill", MIXTRAL, MIXTRAL_TOKENS),
              ("Mixtral decode", MIXTRAL, 4),
              ("Moonshot prefill", MOONSHOT, PREFILL_TOKENS))
-SSD_CASES = (("Jamba", JAMBA, PREFILL_TOKENS),
-             ("Mamba-2", MAMBA2, PREFILL_TOKENS))
+SSD_CASES = (("Jamba", JAMBA, PREFILL_TOKENS, 1),
+             ("Mamba-2", MAMBA2, PREFILL_TOKENS, 1),
+             ("Mamba-2 train", MAMBA2, TRAIN_SEQ, MAMBA2_TRAIN_BATCH))
 
 
 def _wrappers():
@@ -1603,9 +1635,10 @@ def _gmm_inputs(device, dtype, arch, tokens, seed):
             "down": (rnd(E, m, Fe), rnd(E, Fe, D, scale=Fe ** -0.5))}
 
 
-def _ssd_inputs(device, dtype, arch, S, seed):
-    """(x, dt, B, C, A as kwargs, chunk) of one of ``arch``'s SSD calls in
-    a prefill of S tokens; A is the models' initial -linspace(1, 16)."""
+def _ssd_inputs(device, dtype, arch, S, seed, batch=1):
+    """(x, dt, B, C, A as kwargs, chunk) of one of ``arch``'s SSD calls on
+    ``batch`` sequences of S tokens; A is the models' initial
+    -linspace(1, 16)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -1613,11 +1646,11 @@ def _ssd_inputs(device, dtype, arch, S, seed):
     s = c.ssm
     rnd, g = _rnd(device, dtype, seed)
     nh, G = s.num_heads(c.d_model), s.num_groups
-    return dict(x=rnd(1, nh, S, s.head_dim, scale=0.5),
-                dt=(F.softplus(torch.randn(1, nh, S, generator=g,
+    return dict(x=rnd(batch, nh, S, s.head_dim, scale=0.5),
+                dt=(F.softplus(torch.randn(batch, nh, S, generator=g,
                                            device=device)) * 0.1).to(dtype),
-                B=rnd(1, G, S, s.state_dim, scale=0.5),
-                C=rnd(1, G, S, s.state_dim, scale=0.5),
+                B=rnd(batch, G, S, s.state_dim, scale=0.5),
+                C=rnd(batch, G, S, s.state_dim, scale=0.5),
                 A=-torch.linspace(1.0, 16.0, nh, device=device)), s.chunk
 
 
@@ -1682,8 +1715,8 @@ def kernels_vs_plain(device):
                      f"alignment {tuple(lhs.shape)}@{tuple(rhs.shape)} "
                      f"[{var}]", out, ref.grouped_matmul_ref(lhs, rhs))
             del out, off, buf, lhs, rhs
-        for name, arch, S in SSD_CASES:
-            ssd, chunk = _ssd_inputs(device, dtype, arch, S, 0)
+        for name, arch, S, batch in SSD_CASES:
+            ssd, chunk = _ssd_inputs(device, dtype, arch, S, 0, batch)
             y, var = _variant_of(ssd_mod.ssd_scan, lambda: ssd_mod.ssd_scan(
                 **ssd, chunk=chunk))
             check(var == ("tensor_core" if bf16 else "cuda_core"),
@@ -2070,8 +2103,8 @@ def kernel_timings(device):
                 nbytes=nb, ops=ops,
                 shape=f"{name} {part} {tuple(lhs.shape)}@{tuple(rhs.shape)}")
             del lhs, rhs
-    for name, arch, S in SSD_CASES:
-        ssd, chunk = _ssd_inputs(device, torch.bfloat16, arch, S, 1)
+    for name, arch, S, batch in SSD_CASES:
+        ssd, chunk = _ssd_inputs(device, torch.bfloat16, arch, S, 1, batch)
         nb, ops = ssd_mod.ssd_bound(ssd["x"], ssd["B"], chunk)
         models_layout = [ssd[k].transpose(1, 2) for k in ("x", "dt", "B",
                                                           "C")]
@@ -2359,6 +2392,575 @@ def family_paths(device):
     return paths
 
 
+# ----------------------------------------------------------------------
+# training on the card: the kernels' backward passes, AdamW, the data
+# pipeline, checkpoints and the fault-tolerant Trainer
+# ----------------------------------------------------------------------
+def _t(x):
+    return x.transpose(1, 2)
+
+
+def _plain_op(kind, args, kw):
+    """The op of ``kind`` in the models' layouts through its kernel's plain
+    version, differentiable by autograd alone (the SSD token by token)."""
+    from repro_torch.kernels import ref
+    if kind == "flash":
+        q, k, v = args
+        return _t(ref.flash_attention_ref(_t(q), _t(k), _t(v), **kw))
+    if kind == "ssd":
+        x, dt, B, C, A = args
+        return _t(ref.ssd_scan_ref(_t(x), _t(dt), _t(B), _t(C), A))
+    return ref.grouped_matmul_ref(*args)
+
+
+def _train_op_cases(device, dtype):
+    """(name, kind, args, op kwargs, plain kwargs) of phase 11's op checks:
+    flash at Moonshot's training shape (1 x 4096, 16 heads of 128, causal)
+    and with Qwen2-VL's GQA 64/8 (1 x 2048); the SSD at Mamba-2's (one
+    4096-token sequence of the training batch, N 128, chunk 256) and
+    ragged (1000 steps); the GMM at Moonshot's training forward (gate/up
+    and down at capacity(4096) = 488) and with a ragged M (100)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+    rnd, g = _rnd(device, dtype, 7)
+
+    def leaf(t):
+        return t.requires_grad_()
+
+    moon, qwen, mamba = (get_config(a) for a in (MOONSHOT, QWEN2_VL, MAMBA2))
+    out = []
+    for name, c, S in (("Moonshot train", moon, TRAIN_SEQ),
+                       ("Qwen2-VL GQA 64/8", qwen, 2048)):
+        H, K, hd = c.num_heads, c.num_kv_heads, c.head_dim
+        out.append((f"flash {name}", "flash",
+                    [leaf(rnd(1, S, H, hd)), leaf(rnd(1, S, K, hd)),
+                     leaf(rnd(1, S, K, hd))], dict(causal=True),
+                    dict(causal=True)))
+    s = mamba.ssm
+    nh = s.num_heads(mamba.d_model)
+    for name, S in (("Mamba-2 train (one sequence)", TRAIN_SEQ),
+                    ("Mamba-2 ragged", 1000)):
+        args = [leaf(rnd(1, S, nh, s.head_dim, scale=0.5)),
+                leaf((F.softplus(torch.randn(1, S, nh, generator=g,
+                                             device=device)) * 0.1).to(dtype)),
+                leaf(rnd(1, S, s.num_groups, s.state_dim, scale=0.5)),
+                leaf(rnd(1, S, s.num_groups, s.state_dim, scale=0.5)),
+                leaf(-torch.linspace(1.0, 16.0, nh, device=device))]
+        out.append((f"ssd {name}", "ssd", args, dict(chunk=s.chunk), {}))
+    E, D, Fe = moon.moe.num_experts, moon.d_model, moon.moe.d_ff_expert
+    m = capacity(TRAIN_SEQ, moon.moe)
+    for name, (mm, k, n) in (("Moonshot train gate/up", (m, D, Fe)),
+                             ("Moonshot train down", (m, Fe, D)),
+                             ("Moonshot ragged M", (100, D, Fe))):
+        out.append((f"gmm {name}", "gmm",
+                    [leaf(rnd(E, mm, k)), leaf(rnd(E, k, n, scale=k ** -0.5))],
+                    {}, {}))
+    return out
+
+
+def train_ops_vs_plain(device):
+    """Phase 11 (1): each autograd op of ``kernels/ops.py`` against its
+    plain version by autograd, on the same card tensors, in fp32 and bf16
+    (:func:`_train_op_cases`): the gradient of a fixed random projection of
+    the output through both.  Each forward must launch its kernel once
+    (bf16: flash ``wgmma_tma``, SSD ``tensor_core``, GMM ``tma``; fp32:
+    ``f32`` / ``cuda_core``); the backward launches no flash or SSD kernel
+    (it recomputes) and two GMMs (``d_lhs``, ``d_rhs``), each of the
+    variant ``gmm_variant`` gives its shape (the ragged M's ``d_rhs`` has
+    K = 100, 200-byte rows TMA cannot describe: ``ragged``).  Tolerance on each gradient, against its largest magnitude:
+    fp32 1e-3 (the SSD's recompute is the chunked algorithm, the plain
+    version token by token), bf16 2e-2 (bf16 rounds the output and the
+    gradients).  Returns {case: bf16 max_abs_err}."""
+    import torch
+    from repro_torch.kernels import moe_gmm as gmm_mod
+    from repro_torch.kernels import ops
+    wrappers = _wrappers()
+    key = {"flash": "flash_attention", "ssd": "ssd_scan", "gmm": "moe_gmm"}
+    op_of = {"flash": ops.flash_attention_op, "ssd": ops.ssd_scan_op,
+             "gmm": ops.grouped_matmul}
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for name, kind, args, kw, plain_kw in _train_op_cases(device, dtype):
+            w = wrappers[key[kind]]
+            want_var = {"flash": "wgmma_tma" if bf16 else "f32",
+                        "ssd": "tensor_core" if bf16 else "cuda_core",
+                        "gmm": "tma" if bf16 else "f32"}[kind]
+            out, var = _variant_of(w, lambda: op_of[kind](*args, **kw))
+            check(var == want_var, f"{name} forward ran {var}")
+            g = torch.Generator(device).manual_seed(11)
+            proj = torch.randn(out.shape, generator=g, device=device)
+            before = dict(w.launches_by_variant)
+            got = torch.autograd.grad((out.float() * proj).sum(), args)
+            torch.cuda.synchronize()
+            bwd = {k: n - before[k] for k, n in w.launches_by_variant.items()
+                   if n != before[k]}
+            want_bwd = {}
+            if kind == "gmm":       # d_lhs (E, m, n)@(E, n, k), d_rhs
+                e, m, k = args[0].shape         # (E, k, m)@(E, m, n)
+                n = args[1].shape[-1]
+                for mm, kk, nn in ((m, n, k), (k, m, n)):
+                    v = gmm_mod.gmm_variant(mm, kk, nn) if bf16 else "f32"
+                    want_bwd[v] = want_bwd.get(v, 0) + 1
+            check(bwd == want_bwd, f"{name} backward launched {bwd}, "
+                  f"expected {want_bwd}")
+            del out
+            want = torch.autograd.grad((_plain_op(kind, args, plain_kw)
+                                        .float() * proj).sum(), args)
+            rel = 2e-2 if bf16 else 1e-3
+            worst, ok = 0.0, True
+            for a, b in zip(got, want):
+                err = float((a.float() - b.float()).abs().max())
+                scale = float(b.float().abs().max())
+                ok &= err <= rel * scale and bool(torch.isfinite(a).all())
+                worst = max(worst, err / max(scale, 1e-30))
+            print(f"[train ops] {name} {str(dtype)[6:]}: "
+                  f"{' '.join(str(tuple(a.shape)) for a in args)}; forward "
+                  f"[{var}], backward launches {bwd or 'none (recompute)'}; "
+                  f"gradient max error {worst:.3e} of its largest "
+                  f"magnitude (tolerance {rel}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"{name} {dtype}: the op's gradient differs from the "
+                  "plain version's")
+            if bf16:
+                errs[name] = worst
+            del got, want, args, proj
+            torch.cuda.empty_cache()
+    return errs
+
+
+def reduced_training(device, arch, seq=32):
+    """Phase 11 (2): the reduced model of ``arch`` (fp32, capacity factor
+    8 so no token drops) on the card through the kernels and their
+    backward, against the CPU through the plain versions: the loss (1e-4
+    relative), every parameter's gradient (1e-3 of its largest magnitude
+    plus 1e-3 relative) and the parameters after one ``train_step`` (every
+    one within 2 lr of the CPU's, all but 1% within 1e-5: Adam's first
+    update is g / (|g| + eps), so a gradient near zero moves its parameter
+    by what its rounding decides)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.step import train_step
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import init_params
+    cfg = reduced_config(get_config(arch))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = synthetic_batch(cfg, ShapeConfig("t", seq, 2, "train"), 0)
+    if cfg.mrope_sections is not None:
+        i = np.arange(seq, dtype=np.int32)
+        batch["positions"] = np.broadcast_to(
+            np.stack([i // 4, i // 2, i])[:, None], (3, 2, seq)).copy()
+    opt = optim.OptConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    res = {}
+    for dev in (device, "cpu"):
+        model = get_model(cfg)(cfg, dev, params={
+            k: v.to(dev, copy=True) for k, v in cpu_params.items()})
+        model.requires_grad_(True)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        zero_counts()
+        loss, _ = model.loss(tb)
+        loss.backward()
+        counts = read_counts()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        state = optim.init(dict(model.named_parameters()))
+        m = train_step(model, opt, state, tb)
+        res[dev] = (loss.item(), grads, {k: p.detach().cpu() for k, p
+                                         in model.named_parameters()},
+                    float(m["lr"]), counts)
+    (lc, gc, pc, lr, counts), (lx, gx, px, _lr, _c) = res[device], res["cpu"]
+    gerr = max(float((gc[k] - gx[k]).abs().max())
+               / max(float(gx[k].abs().max()), 1e-30) for k in gx)
+    gok = all(bool(((gc[k] - gx[k]).abs() <= 1e-3 * gx[k].abs().max()
+                    + 1e-3 * gx[k].abs()).all()) for k in gx)
+    diffs = torch.cat([(pc[k] - px[k]).abs().ravel() for k in px])
+    beyond = float((diffs > 1e-5).float().mean())
+    print(f"[train reduced] {cfg.name}: fp32, 2 x {seq} tokens: loss card "
+          f"{lc:.6f} vs CPU {lx:.6f}; gradients max error {gerr:.3e} of "
+          f"their largest magnitude (tolerance 1e-3 + 1e-3 relative); one "
+          f"train_step: parameters max difference {float(diffs.max()):.3e} "
+          f"(bound 2 lr = {2 * lr:.1e}), {beyond:.2e} beyond 1e-5 "
+          f"(tolerance 1e-2); loss and backward "
+          f"launches {counts}")
+    want = {"flash_attention": cfg.family != "ssm",
+            "ssd_scan": cfg.ssm is not None, "moe_gmm": cfg.moe is not None}
+    check({k: n > 0 for k, n in counts.items()} == want,
+          f"reduced {arch} training launched {counts}, expected {want}")
+    check(abs(lc - lx) <= 1e-4 * abs(lx), f"reduced {arch}: loss {lc} on "
+          f"the card, {lx} on the CPU")
+    check(gok, f"reduced {arch}: gradients differ by {gerr} of their "
+          "magnitude")
+    check(float(diffs.max()) <= 2 * lr and beyond <= 1e-2,
+          f"reduced {arch}: parameters after one step differ")
+    return gerr
+
+
+_TRAIN_CATEGORIES = (
+    "model kernels (forward and remat forward)",
+    "flash/SSD backward (plain recompute)",
+    "backward GMMs (kernel)", "backward GMMs' transposed copies",
+    "cross entropy", "optimizer", "cuBLAS matmuls (dense layers, LM head)",
+    "other (elementwise, norms, embedding, casts)")
+_OURS = ("flash_wgmma_kernel", "flash_fwd_kernel", "ssd_state_",
+         "ssd_pass_", "ssd_out_", "gmm_tma_kernel", "gmm_decode_kernel",
+         "gmm_bf16_kernel", "gmm_f32_kernel")
+_CUBLAS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
+
+
+def _train_breakdown(prof, wall_s):
+    """Device time of a profiled window of training steps by category.
+    Each device kernel or copy counts once (the ranges' own device-side
+    annotations excluded) and is attributed by its launching op's chain of
+    ancestors (the custom ops' backward nodes ``_FlashBackward``,
+    ``_SSDBackward``, ``_GMMBackward``; ``train_step``'s ranges; the cross
+    entropy's range and its backward nodes) and by its name; the chain is
+    found through the launching op's list of kernels, matched by name and
+    duration (a kernel the profiler lists under two ops is counted once).
+    Returns (categories in us, busy s, idle share, backward GMM
+    launches)."""
+    from collections import defaultdict
+    from torch.autograd import DeviceType
+    chains = defaultdict(list)
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        chain, p = [ev.name], ev.cpu_parent
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        for k in ev.kernels:
+            chains[(k.name, k.duration)].append(" | ".join(chain))
+    cats = dict.fromkeys(_TRAIN_CATEGORIES + ("unattributed",), 0.0)
+    bwd_gmm = 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA \
+                or getattr(ev, "is_user_annotation", False):
+            continue
+        us = ev.time_range.elapsed_us()
+        found = chains.get((ev.name, us))
+        joined = found.pop() if found else None
+        name = ev.name.lower()
+        ours = any(x in name for x in _OURS)
+        if joined is None:
+            cat = "unattributed"
+        elif "_GMMBackward" in joined:
+            cat = _TRAIN_CATEGORIES[2] if ours else _TRAIN_CATEGORIES[3]
+            bwd_gmm += ours
+        elif "_FlashBackward" in joined or "_SSDBackward" in joined:
+            cat = _TRAIN_CATEGORIES[1]
+        elif ours:
+            cat = _TRAIN_CATEGORIES[0]
+        elif "train_step: optimizer" in joined:
+            cat = _TRAIN_CATEGORIES[5]
+        elif "cross_entropy" in joined or "LogsumexpBackward" in joined \
+                or "GatherBackward" in joined:
+            cat = _TRAIN_CATEGORIES[4]
+        elif any(x in name for x in _CUBLAS):
+            cat = _TRAIN_CATEGORIES[6]
+        else:
+            cat = _TRAIN_CATEGORIES[7]
+        cats[cat] += us
+    busy = sum(cats.values()) / 1e6
+    return cats, busy, 1.0 - busy / wall_s, bwd_gmm
+
+
+def _model_flops(cfg, batch, seq):
+    """Model FLOPs of one training step: 6 x the parameters a token
+    multiplies by (the active ones: top-k of the experts; the embedding
+    lookup excluded) x tokens, plus 12 hd H per (query, key) pair of each
+    causal attention layer (QK^T and PV, forward and backward)."""
+    tokens = batch * seq
+    dense = cfg.active_param_count() - cfg.vocab_size * cfg.d_model
+    attn_layers = 0 if cfg.family == "ssm" else cfg.num_layers
+    pairs = seq * (seq + 1) // 2
+    return 6 * dense * tokens + 12 * cfg.head_dim * cfg.num_heads * pairs \
+        * batch * attn_layers
+
+
+def _run_on(trainer, batch, on_step):
+    """``trainer.run`` on ``batch`` (numpy) repeated, through the data
+    pipeline's ``Prefetcher`` (a host thread; the copy to the card on this
+    one).  The stream's own batches would not do for the falling-loss
+    check at these vocabularies: its documents start at uniform random
+    token offsets, so no batch teaches the next one much in 10 or 20 steps
+    from random weights, and a batch's own difficulty moves its loss by
+    more (PERF.md §6); one batch repeated must be learnt."""
+    import itertools
+    from repro_torch.data.pipeline import Prefetcher
+    data = Prefetcher(itertools.repeat(batch))
+    try:
+        return trainer.run(iter(data), on_step)
+    finally:
+        data.close()
+
+
+def train_path(device, cfg, label, batch, steps, per_step, ckpt_dir=None,
+               fault_at=None):
+    """Phase 11 (3): train ``cfg`` at full width through ``Trainer`` and
+    ``launch/train.py``'s ``make_trainer`` (AdamW at the launcher's 3e-4
+    peak after 10 warmup steps), bf16 weights drawn on the card, full
+    remat, on the data pipeline's batch 0 of ``batch`` x 4096 tokens
+    repeated (:func:`_run_on`) for ``steps`` steps.  The launch counts are
+    set to 0 before the run and read after each step: each step must
+    launch exactly ``per_step`` {kernel: {variant: n}} (every other kernel
+    and variant 0).  Every loss finite, the mean of the last 3 below the
+    mean of the first 3 (``tests/test_runtime.py``'s test).  ``fault_at``:
+    one injected fault at that step, retried.  Then 3 warm
+    ``train_step``s under the profiler.  Returns (trainer, record)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.step import train_step
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.runtime import FaultInjector
+    card = card_line()
+    params, nbytes, init_s = draw_params(device, cfg)
+    nparams = sum(p.numel() for p in params.values())
+    trainer = make_trainer(
+        cfg, TRAIN_SEQ, batch, steps, device=device, remat="full",
+        ckpt_dir=ckpt_dir, ckpt_every=10,
+        fault_injector=None if fault_at is None else FaultInjector(
+            {fault_at: 1}))
+    trainer.init(params=params)
+    del params
+    data = synthetic_batch(cfg, trainer.shape, 0)
+    # the GMM's backward launches, attributed by wrapping the op's backward
+    gmm = _wrappers()["moe_gmm"]
+    bwd_gmm = [0]
+    backward = ops._GMM.backward
+
+    def counted_backward(ctx, g):
+        before = gmm.launches
+        out = backward(ctx, g)
+        bwd_gmm[0] += gmm.launches - before
+        return out
+
+    losses, variants, stamps = [], [], []
+
+    def on_step(step, m):
+        losses.append(float(m["loss"]))
+        variants.append(read_variants())
+        zero_counts()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops._GMM.backward = staticmethod(counted_backward)
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        _run_on(trainer, data, on_step)
+        wall = time.perf_counter() - t0
+    finally:
+        ops._GMM.backward = staticmethod(backward)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = np.diff([t0] + stamps)
+    warm = float(np.median(step_s[1:]))
+    tokens = batch * TRAIN_SEQ
+    flops = _model_flops(cfg, batch, TRAIN_SEQ)
+    for i, v in enumerate(variants):
+        for k, n in v.items():
+            for var, c in n.items():
+                check(c == per_step.get(k, {}).get(var, 0),
+                      f"{label} step {i + 1}: {k} launched {n}, expected "
+                      f"{per_step.get(k, {})}")
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          f"{label}: losses {losses}")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"{label}: the loss did not fall: {losses}")
+    failures = [e for e in trainer.events if e["kind"] == "step_failure"]
+    if fault_at is not None:
+        check([e["step"] for e in failures] == [fault_at],
+              f"{label}: step failures {failures}")
+    total = {k: {var: sum(v[k][var] for v in variants)
+                 for var in variants[0][k]} for k in variants[0]}
+    print(f"[train] {card}: {label} ({nparams / 1e9:.3f} B parameters, "
+          f"{nbytes / 2**30:.2f} GiB bf16, drawn in {init_s:.1f} s): "
+          f"{batch} x {TRAIN_SEQ} tokens, {steps} steps, remat full: losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; launches per step "
+          f"{per_step} (asserted at every step), total "
+          f"{ {k: {a: b for a, b in v.items() if b} for k, v in total.items()} }, "
+          f"of them GMM launches in the backward {bwd_gmm[0]}; events "
+          f"{[(e['kind'], e['step']) for e in trainer.events]}")
+    print(f"[train] {card}: {label}: wall {wall:.2f} s for {steps} steps; "
+          f"warm step (median of steps 2-{steps}) {warm * 1e3:.1f} ms, "
+          f"{tokens / warm:.0f} tokens/s, model {flops / warm / 1e12:.1f} "
+          f"TFLOP/s ({flops / warm / BF16_OPS_PER_S:.3f} of 989 bf16; "
+          f"{flops / 1e12:.2f} TFLOP a step: 6 x active non-embedding "
+          f"parameters x tokens + attention); first step "
+          f"{step_s[0] * 1e3:.1f} ms; peak memory {peak / 2**30:.1f} GiB")
+    # where the time goes: 3 warm steps of the same step function
+    bts = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in data.items()}] * 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for b in bts:
+            m = train_step(trainer.model, trainer.opt_cfg, trainer.opt_state,
+                           b, trainer.remat)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t1
+    cats, busy, idle, prof_bwd_gmm = _train_breakdown(prof, pwall)
+    parts = ", ".join(f"{k} {v / 1e3 / 3:.2f} ms" for k, v in
+                      sorted(cats.items(), key=lambda kv: -kv[1]))
+    print(f"[where the time goes] {card}: {label} training, 3 warm steps "
+          f"under the profiler: {pwall / 3 * 1e3:.1f} ms a step, device busy "
+          f"{busy / 3 * 1e3:.1f} ms (idle share {idle:.3f}); {parts}; "
+          f"backward GMM kernels in the profile {prof_bwd_gmm / 3:.0f} a "
+          f"step")
+    del bts, prof
+    rec = dict(losses=losses, total=total, data=data, warm=warm, wall=wall, peak=peak,
+               tokens=tokens, flops=flops, cats={k: v / 1e3 / 3 for k, v
+                                                 in cats.items()},
+               busy=busy / 3, idle=idle, pwall=pwall / 3,
+               bwd_gmm=bwd_gmm[0], nparams=nparams)
+    return trainer, rec
+
+
+def checkpoint_resume(device, cfg, ckpt_dir, losses, data, at=10):
+    """Phase 11 (4): the Mamba-2 run's checkpoint of step ``at`` (written
+    by its ``AsyncCheckpointer``; the later step's directory is removed)
+    restored by a fresh ``Trainer`` (``resume_or_init``), which takes the
+    next step on the run's batch ``data``: its loss must equal the
+    uninterrupted run's step ``at + 1`` within 1e-5 relative (the same
+    parameters, bit for bit, and the same batch; the forward's sums may
+    run in another order)."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch.train import make_trainer
+    card = card_line()
+    for d in sorted(os.listdir(ckpt_dir)):
+        if d.startswith("step_") and int(d[5:13]) > at:
+            shutil.rmtree(os.path.join(ckpt_dir, d))
+    check(latest_step(ckpt_dir) == at, f"no checkpoint of step {at}")
+    t0 = time.perf_counter()
+    tr = make_trainer(cfg, TRAIN_SEQ, MAMBA2_TRAIN_BATCH, at + 1,
+                      device=device, remat="full", ckpt_dir=ckpt_dir,
+                      ckpt_every=10)
+    tr.resume_or_init()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(tr.step == at and {"kind": "resume", "step": at} in tr.events,
+          f"resumed at {tr.step}, events {tr.events}")
+    got = []
+    _run_on(tr, data, lambda s, m: got.append(float(m["loss"])))
+    tr.close()
+    rel = abs(got[0] - losses[at]) / abs(losses[at])
+    print(f"[train checkpoint] {card}: {cfg.name}: restored step {at} in "
+          f"{restore_s:.1f} s; the next step's loss {got[0]:.6f} against "
+          f"the uninterrupted run's {losses[at]:.6f} (relative difference "
+          f"{rel:.2e}, tolerance 1e-5)")
+    check(rel <= 1e-5, "the resumed step's loss differs from the "
+          "uninterrupted run's")
+    del tr
+
+
+def train_paths(device):
+    """Phase 11 (3) and (4): Mamba-2 370M whole (8 x 4096 tokens, 20
+    steps, a fault injected at step 3, checkpoints every 10 steps, the
+    resume), then Moonshot's widths, 2 of 48 layers (1 x 4096, 10 steps,
+    no checkpoint: its 25 GiB of state would take most of a minute to
+    write), one model at a time.  Returns {arch: record}."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    out = {}
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        free = shutil.disk_usage(ckpt_dir).free
+        print(f"[train checkpoint] checkpoints under {ckpt_dir} "
+              f"({free / 2**30:.0f} GiB free)")
+        cfg = get_config(MAMBA2)
+        label = f"{MAMBA2} whole ({cfg.num_layers} layers)"
+        trainer, rec = train_path(
+            device, cfg, label, MAMBA2_TRAIN_BATCH, MAMBA2_TRAIN_STEPS,
+            {"ssd_scan": {"tensor_core": 2 * cfg.num_layers}},
+            ckpt_dir=ckpt_dir, fault_at=3)
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+        checkpoint_resume(device, cfg, ckpt_dir, rec["losses"], rec["data"])
+        out[MAMBA2] = rec
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    full = get_config(MOONSHOT)
+    cfg = dataclasses.replace(full, num_layers=MOONSHOT_TRAIN_LAYERS)
+    label = (f"{MOONSHOT} widths, {cfg.num_layers} of {full.num_layers} "
+             f"layers")
+    L = cfg.num_layers
+    trainer, rec = train_path(
+        device, cfg, label, 1, MOONSHOT_TRAIN_STEPS,
+        {"flash_attention": {"wgmma_tma": 2 * L}, "moe_gmm": {"tma": 12 * L}})
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    out[MOONSHOT] = rec
+    return out
+
+
+def train_kernel_timings(device):
+    """Phase 11 (5): the GMM's backward products at Moonshot's training
+    shapes (bf16, CUDA events): ``d_lhs = gmm(g, rhsᵀ)`` and ``d_rhs =
+    gmm(lhsᵀ, g)`` of the gate/up and the down products, each kernel
+    against the plain version (checked) and ``torch.bmm`` on the same
+    operands, with its bound; and the ``.contiguous()`` copies of the
+    transposed operands that the backward makes.  Returns {case:
+    record}."""
+    import torch
+    from repro_torch.kernels import moe_gmm as gmm_mod
+    from repro_torch.kernels import ref
+    card = card_line()
+    out = {}
+    for part, (lhs, rhs) in _gmm_inputs(device, torch.bfloat16, MOONSHOT,
+                                        TRAIN_SEQ, 3).items():
+        g = torch.randn(lhs.shape[0], lhs.shape[1], rhs.shape[2],
+                        device=device).to(torch.bfloat16)
+        copy_ms = {"rhsᵀ": _event_ms(lambda: _t(rhs).contiguous(), 5),
+                   "lhsᵀ": _event_ms(lambda: _t(lhs).contiguous(), 5)}
+        rhs_t, lhs_t = _t(rhs).contiguous(), _t(lhs).contiguous()
+        for prod, a, b in (("d_lhs", g, rhs_t), ("d_rhs", lhs_t, g)):
+            got, var = _variant_of(gmm_mod.grouped_matmul,
+                                   lambda: gmm_mod.grouped_matmul(a, b))
+            check(var == "tma", f"backward {part} {prod} ran {var}")
+            err = _compare("moe_gmm", f"Moonshot train backward {part} {prod} "
+                           f"{tuple(a.shape)}@{tuple(b.shape)} [{var}]", got,
+                           ref.grouped_matmul_ref(a, b))
+            nb, ops_ = gmm_mod.gmm_bound(a, b)
+            r = dict(ms=_event_ms(lambda: gmm_mod.grouped_matmul(a, b), 5),
+                     plain_ms=_event_ms(lambda: ref.grouped_matmul_ref(a, b),
+                                        2),
+                     library_ms=_event_ms(lambda: torch.bmm(a, b), 5),
+                     bound=_bound(nb, ops_, BF16_OPS_PER_S), err=err,
+                     shape=f"Moonshot train backward {part} {prod} "
+                           f"{tuple(a.shape)}@{tuple(b.shape)}",
+                     copy_ms=copy_ms["rhsᵀ" if prod == "d_lhs" else "lhsᵀ"])
+            out[f"{part} {prod}"] = r
+            print(f"[times] {card}: moe_gmm {r['shape']}, bf16: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch.bmm "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
+                  f"{r['bound'][1]}; its transposed operand's contiguous copy "
+                  f"{r['copy_ms']:.4f} ms")
+        del lhs, rhs, g, rhs_t, lhs_t
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2457,6 +3059,11 @@ def main() -> int:
     paths = family_paths("cuda")
     times = kernel_timings("cuda")
     gmm_cutover("cuda")
+    grad_errs = train_ops_vs_plain("cuda")
+    for arch in (JAMBA, MIXTRAL, QWEN2_VL, MAMBA2, WHISPER):
+        reduced_training("cuda", arch)
+    trains = train_paths("cuda")
+    bwd_times = train_kernel_timings("cuda")
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:86",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
                 "moe_gmm": "src/repro/kernels/moe_gmm.py:44"}
@@ -2512,6 +3119,62 @@ def main() -> int:
                              "bound_by": d["bound"][1],
                              "max_abs_err": errs[case + " down"]}
         kernels.append(entry)
+    # the training paths' kernels (phase 11): launches from the two runs;
+    # the GMM's split into the backward's (d_lhs and d_rhs, one each per
+    # forward GMM) and the rest (forward and remat forward)
+    moon, mamba = trains[MOONSHOT], trains[MAMBA2]
+    moon_tma = moon["total"]["moe_gmm"]["tma"]
+    train_entries = (
+        ("flash_attention_moonshot_train", "flash_attention", "wgmma_tma",
+         times["flash Moonshot train"], errs["flash Moonshot train"],
+         moon["total"]["flash_attention"]["wgmma_tma"], MOONSHOT,
+         grad_errs["flash Moonshot train"]),
+        ("ssd_scan_mamba2_train", "ssd_scan", "tensor_core",
+         times["ssd Mamba-2 train"], errs["ssd Mamba-2 train"],
+         mamba["total"]["ssd_scan"]["tensor_core"], MAMBA2,
+         grad_errs["ssd Mamba-2 train (one sequence)"]),
+        ("moe_gmm_moonshot_train", "moe_gmm", "tma",
+         times["gmm Moonshot prefill gate/up"],
+         errs["gmm Moonshot prefill gate/up"], moon_tma - moon["bwd_gmm"],
+         MOONSHOT, grad_errs["gmm Moonshot train gate/up"]))
+    for key, name, variant, t, err, n, arch, gerr in train_entries:
+        check(n > 0, f"{key} was never launched on the {arch} training path")
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces[name], "launches": n, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"], "library": t["library"],
+            "checked_against_plain": True, "variant": variant,
+            "path": f"{arch} training", "shape": t["shape"],
+            "grad_rel_err_vs_plain": gerr})
+    for prod in ("d_lhs", "d_rhs"):
+        t = bwd_times[f"gate/up {prod}"]
+        d = bwd_times[f"down {prod}"]
+        check(moon["bwd_gmm"] > 0, "no backward GMM on the Moonshot path")
+        kernels.append({
+            "name": f"moe_gmm_moonshot_backward_{prod}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+            "replaces": replaces["moe_gmm"], "launches": moon["bwd_gmm"] // 2,
+            "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"], "library": "torch.bmm",
+            "checked_against_plain": True, "variant": "tma",
+            "path": f"{MOONSHOT} training (the GMM's backward)",
+            "shape": t["shape"], "transposed_copy_ms": t["copy_ms"],
+            "down": {"shape": d["shape"], "ms": d["ms"],
+                     "plain_ms": d["plain_ms"], "library_ms": d["library_ms"],
+                     "bound_ms": d["bound"][0], "bound_by": d["bound"][1],
+                     "max_abs_err": d["err"],
+                     "transposed_copy_ms": d["copy_ms"]}})
+    for arch, r in trains.items():
+        print(f"[summary] {card_line()}: {arch} training {r['tokens']} tokens "
+              f"a step: warm step {r['warm'] * 1e3:.1f} ms, "
+              f"{r['tokens'] / r['warm']:.0f} tokens/s, model "
+              f"{r['flops'] / r['warm'] / 1e12:.1f} TFLOP/s, peak memory "
+              f"{r['peak'] / 2**30:.1f} GiB, idle share {r['idle']:.3f}; "
+              f"loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}")
     for arch, (pre, srv) in paths.items():
         toks = pre["batch"] * pre["seq"]
         print(f"[summary] {card_line()}: {arch} prefill {pre['batch']} x "

@@ -27,13 +27,24 @@ A package of its own beside the JAX reference ``repro``; it imports
   the Hopper kernels: the router step, flash attention, the SSD scan and
   the grouped matmul (counterpart of ``repro.kernels``);
 * :mod:`repro_torch.configs` — the architecture configs;
-* :mod:`repro_torch.models` — the model stack the Jamba hybrid uses and
-  the ``Jamba`` module (counterpart of ``repro.models``);
-* :mod:`repro_torch.launch` — the prefill and serve steps and the
-  continuous-batching ``Server`` (counterpart of ``repro.launch``);
+* :mod:`repro_torch.models` — every model family (the Jamba hybrid, the
+  dense/MoE/VLM transformer, the Mamba-2 LM, Whisper), each with its
+  training ``loss`` (counterpart of ``repro.models``);
+* :mod:`repro_torch.optim` — AdamW with an fp32 master copy (counterpart
+  of ``repro.optim``);
+* :mod:`repro_torch.data` — the deterministic synthetic data pipeline and
+  its credit-bounded prefetcher (counterpart of ``repro.data``);
+* :mod:`repro_torch.checkpoint` — atomic, crc-checked, async checkpoints
+  in the reference's on-disk layout (counterpart of ``repro.checkpoint``);
+* :mod:`repro_torch.runtime` — the fault-tolerant ``Trainer``
+  (counterpart of ``repro.runtime``);
+* :mod:`repro_torch.launch` — the train, prefill and serve steps, the
+  training launcher and the continuous-batching ``Server`` (counterpart
+  of ``repro.launch``);
 * :mod:`repro_torch.core` — the network constants.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
-__all__ = ["configs", "core", "dse", "kernels", "launch", "mesh", "models",
-           "netsim", "sim_service", "workloads"]
+__all__ = ["checkpoint", "configs", "core", "data", "dse", "kernels",
+           "launch", "mesh", "models", "netsim", "optim", "runtime",
+           "sim_service", "workloads"]

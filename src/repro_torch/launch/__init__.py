@@ -1,2 +1,3 @@
-"""Serving entry points of the port: the prefill and serve steps
-(:mod:`.step`) and the continuous-batching server (:mod:`.serve`)."""
+"""Entry points of the port: the train, prefill and serve steps
+(:mod:`.step`), the training launcher (:mod:`.train`) and the
+continuous-batching server (:mod:`.serve`)."""

@@ -98,6 +98,7 @@ class Server:
                 self.feed[s] = int(req.prompt[0])
 
     # ------------------------------------------------------------------
+    @torch.no_grad()
     def tick(self):
         """One decode step for every slot (idle slots eat a pad token)."""
         self._admit()

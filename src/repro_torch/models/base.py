@@ -4,6 +4,11 @@ Every model of the port registers its parameters under the reference's
 names (``layers/wq``, ``periods/mamba_in_proj``, ...), one per row of its
 family's table, so ``state_dict()`` keys equal the reference's parameter
 names and the two packages run on the same weights.
+
+What the families' training shares is here too: the loss
+(:meth:`TableModule._loss`, the reference's ``loss_fn`` tail) and the
+rematerialisation of a layer (:func:`run_layer`, the reference's
+``Rules.remat``).
 """
 from __future__ import annotations
 
@@ -11,11 +16,31 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
+from .layers import cross_entropy
 
-__all__ = ["TableModule"]
+__all__ = ["TableModule", "run_layer", "AUX_COEF", "REMAT"]
+
+AUX_COEF = 0.01            # the MoE load-balance loss's weight
+REMAT = ("none", "full")   # the reference's "dots" is a JAX save policy
+
+
+def run_layer(fn, remat: str, *args):
+    """``fn(*args)``, under ``remat="full"`` through
+    ``torch.utils.checkpoint`` (non-reentrant): the layer keeps only its
+    inputs for the backward, which runs its forward again first, as the
+    reference's ``jax.checkpoint`` does.  No layer draws random numbers,
+    so the RNG state is not kept."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
 
 
 class TableModule(nn.Module):
@@ -30,7 +55,9 @@ class TableModule(nn.Module):
     themselves, without a copy, so several modules can share one set of
     weights, and rejects mismatched names, shapes, dtypes or devices;
     without, it allocates them uninitialised, for ``load_state_dict``.
-    Forward only: the parameters do not require gradients.
+    The parameters do not require gradients (serving builds no graph);
+    training turns them on with ``requires_grad_(True)``, which keeps the
+    tensors shared.
 
     A subclass with recurrent decode state names those cache leaves in
     ``RECURRENT_LEAVES`` and their batch dimension in ``CACHE_BATCH_DIM``,
@@ -84,6 +111,19 @@ class TableModule(nn.Module):
         idx = (slice(None),) * self.CACHE_BATCH_DIM + (s,)
         for name in self.RECURRENT_LEAVES:
             cache[name][idx] = 0
+
+    def _loss(self, logits: torch.Tensor, aux: torch.Tensor,
+              batch: Dict[str, torch.Tensor], moe: bool
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's ``loss_fn`` tail: token-mean cross entropy of
+        ``batch["labels"]`` (masked by ``batch["mask"]`` when present);
+        for the ``moe`` families plus ``AUX_COEF`` times the load-balance
+        loss.  Returns (loss, {"ce"[, "moe_aux"]})."""
+        with record_function("cross_entropy"):
+            ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+        if moe:
+            return ce + AUX_COEF * aux, {"ce": ce, "moe_aux": aux}
+        return ce, {"ce": ce}
 
     def _p(self, name: str) -> torch.Tensor:
         return getattr(self, name)

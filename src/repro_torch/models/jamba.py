@@ -12,8 +12,9 @@ On a CUDA tensor every attention layer goes through the flash kernel,
 every mixer through the SSD kernel and every expert FFN through the GMM
 kernel; on the CPU through their plain versions.  Decode attention, the
 mixer recurrence of decode, the dense projections and the LM head are
-plain tensor code.  Forward only: the module's parameters do not require
-gradients.
+plain tensor code.  :meth:`Jamba.loss` is the reference's ``loss_fn``;
+``remat="full"`` rematerialises each period in the backward, as the
+reference's ``jax.checkpoint`` of its period body does.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from . import mamba2, moe as moe_mod
 from .attention import decode_attention
-from .base import TableModule
+from .base import TableModule, run_layer
 from .layers import embed_lookup, rms_norm, rope, swiglu
 from .transformer import attn_block, scatter_kv
 
@@ -123,16 +124,37 @@ class Jamba(TableModule):
         return x + out, torch.zeros((), dtype=F32, device=x.device), \
             (di + 1, mi)
 
-    @torch.no_grad()
+    def _period(self, x: torch.Tensor, per: int, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One period: ``attn_period - 1`` mixers, then attention, each
+        followed by its MLP; returns (x, the period's MoE aux loss)."""
+        cfg = self.cfg
+        P = cfg.attn_period
+        aux = torch.zeros((), dtype=F32, device=x.device)
+        counters = (0, 0)
+        for i in range(P):
+            if i == P - 1:
+                lp = {k: self._p(f"periods/{k}")[per]
+                      for k in ("attn_norm", "wq", "wk", "wv", "wo")}
+                x = attn_block(x, lp, cfg, positions)
+            else:
+                lp = self._mamba(per, i)
+                h = rms_norm(x, lp["norm"], cfg.norm_eps)
+                x = x + mamba2.mixer_apply(lp, h, cfg)
+            x, a, counters = self._mlp(x, per, i, counters)
+            aux = aux + a
+        return x, aux
+
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                last_only: bool = False
+                last_only: bool = False, remat: str = "none"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (logits (B, S or 1, V), MoE aux loss).
         ``last_only`` computes the logits of the last position only
-        (serving prefill)."""
+        (serving prefill); ``remat="full"`` rematerialises each period in
+        the backward."""
         cfg = self.cfg
-        P, NP = cfg.attn_period, cfg.num_layers // cfg.attn_period
+        NP = cfg.num_layers // cfg.attn_period
         B, S = tokens.shape
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32,
@@ -140,22 +162,21 @@ class Jamba(TableModule):
         x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
         aux = torch.zeros((), dtype=F32, device=x.device)
         for per in range(NP):
-            counters = (0, 0)
-            for i in range(P):
-                if i == P - 1:
-                    lp = {k: self._p(f"periods/{k}")[per]
-                          for k in ("attn_norm", "wq", "wk", "wv", "wo")}
-                    x = attn_block(x, lp, cfg, positions)
-                else:
-                    lp = self._mamba(per, i)
-                    h = rms_norm(x, lp["norm"], cfg.norm_eps)
-                    x = x + mamba2.mixer_apply(lp, h, cfg)
-                x, a, counters = self._mlp(x, per, i, counters)
-                aux = aux + a
+            x, a = run_layer(self._period, remat, x, per, positions)
+            aux = aux + a
         if last_only:
             x = x[:, -1:]
         x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)
         return x @ self._p("lm_head"), aux
+
+    def loss(self, batch: Dict[str, torch.Tensor], remat: str = "none"
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of ``batch`` (``tokens``, ``labels``, optional
+        ``mask``): cross entropy plus ``AUX_COEF`` times the MoE aux loss,
+        and {"ce", "moe_aux"}.  Positions are the default 0..S-1, as the
+        reference's ``loss_fn`` passes none."""
+        logits, aux = self(batch["tokens"], remat=remat)
+        return self._loss(logits, aux, batch, moe=True)
 
     def init_cache(self, batch: int, max_seq: int) -> Dict[str, torch.Tensor]:
         """Decode cache on the model's device: KV of the attention layers

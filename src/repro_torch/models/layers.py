@@ -1,19 +1,19 @@
 """Shared model layers (the port's counterpart of ``repro.models.layers``):
-norms, RoPE and M-RoPE, embeddings, the SwiGLU MLP and the dense
-initialiser.
+norms, RoPE and M-RoPE, embeddings, the SwiGLU MLP, the dense
+initialiser and the token-mean cross entropy.
 
 Functions on tensors, with the reference's numerics: RMSNorm and the
 rotary embedding in fp32, SiLU in fp32 cast back to the activation dtype.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["init_dense", "rms_norm", "rope", "mrope", "swiglu",
-           "embed_lookup"]
+           "embed_lookup", "cross_entropy"]
 
 F32 = torch.float32
 
@@ -94,3 +94,17 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy in fp32 (logsumexp).  logits (..., V),
+    labels (...) of any integer dtype; with ``mask`` (...) the masked sum
+    over the mask's sum (at least 1)."""
+    logits = logits.to(F32)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = torch.logsumexp(logits, dim=-1) - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / mask.sum().clamp_min(1)
+    return nll.mean()

@@ -1,17 +1,17 @@
 """Mamba-2 (SSD): the mixer blocks and the attention-free LM built of them
-(the port's counterpart of ``repro.models.mamba2``, for serving on one
-card).
+(the port's counterpart of ``repro.models.mamba2``, on one card).
 
 :func:`mixer_apply` runs a whole sequence through the SSD kernel
 (``ssd_scan_op``: the Hopper kernel on a CUDA tensor, the token-by-token
 recurrence on the CPU), as the reference does with ``ssd_impl="kernel"``.
-:func:`ssd_chunked` is the reference's chunked algorithm in plain PyTorch,
-kept as a second oracle for the kernel.  :func:`mixer_decode` carries the
-(N, P) state and the convolution tail one token at a time.
-:class:`Mamba2LM` (``mamba2-370m``) stacks the mixers, pre-norm and
-residual, between the embedding and the LM head; its forward runs every
-mixer through the SSD kernel, its decode step every mixer's recurrence in
-plain tensor code.
+:func:`ssd_chunked` is the reference's chunked algorithm in plain PyTorch:
+a second oracle for the kernel, and the recompute that ``ssd_scan_op``'s
+backward differentiates.  :func:`mixer_decode` carries the (N, P) state
+and the convolution tail one token at a time.  :class:`Mamba2LM`
+(``mamba2-370m``) stacks the mixers, pre-norm and residual, between the
+embedding and the LM head; its forward runs every mixer through the SSD
+kernel, its decode step every mixer's recurrence in plain tensor code,
+and its :meth:`~Mamba2LM.loss` is the reference's ``loss_fn``.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import ssd_scan_op
-from .base import TableModule
+from .base import TableModule, run_layer
 from .layers import embed_lookup, rms_norm
 
 __all__ = ["mixer_table", "mixer_apply", "mixer_decode", "ssd_chunked",
@@ -215,25 +215,35 @@ class Mamba2LM(TableModule):
     def _layer(self, i: int) -> Dict[str, torch.Tensor]:
         return self._stack("layers/", mixer_table(self.cfg, 1), i)
 
-    @torch.no_grad()
+    def _block(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        lp = self._layer(i)
+        return x + mixer_apply(lp, rms_norm(x, lp["norm"], self.cfg.norm_eps),
+                               self.cfg)
+
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                last_only: bool = False
+                last_only: bool = False, remat: str = "none"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (logits (B, S or 1, V), 0).  ``positions``
         is accepted and unused, as in the reference; ``last_only``
-        computes the last position's logits only."""
+        computes the last position's logits only; ``remat="full"``
+        rematerialises each layer in the backward."""
         cfg = self.cfg
         x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
         for i in range(cfg.num_layers):
-            lp = self._layer(i)
-            x = x + mixer_apply(lp, rms_norm(x, lp["norm"], cfg.norm_eps),
-                                cfg)
+            x = run_layer(self._block, remat, x, i)
         if last_only:
             x = x[:, -1:]
         x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)
         return x @ self._p("lm_head"), torch.zeros((), dtype=F32,
                                                    device=x.device)
+
+    def loss(self, batch: Dict[str, torch.Tensor], remat: str = "none"
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of ``batch`` (``tokens``, ``labels``, optional
+        ``mask``): the cross entropy, and {"ce"}."""
+        logits, aux = self(batch["tokens"], remat=remat)
+        return self._loss(logits, aux, batch, moe=False)
 
     def init_cache(self, batch: int, max_seq: int = 0
                    ) -> Dict[str, torch.Tensor]:

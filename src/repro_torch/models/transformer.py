@@ -20,10 +20,12 @@ masks by token index, as the reference's flash path does; the
 reference's ``ref`` path masks by the temporal stream ``positions[0]``,
 which is the same for text positions (``ROADMAP.md`` C-5).
 
-The reference's SPMD islands (``_attn_manual``, ``_mlp_manual``,
-``_resolve_axis``, ``param_specs``, ``cache_specs``) and remat belong to
-the SPMD and training slices; without sharding rules its
-``_decode_rules`` has nothing to rewrite, so it has no counterpart here.
+:meth:`Transformer.loss` is the reference's ``loss_fn`` and the forward's
+``remat="full"`` its ``Rules.remat`` (each layer rematerialised in the
+backward).  The reference's SPMD islands (``_attn_manual``,
+``_mlp_manual``, ``_resolve_axis``, ``param_specs``, ``cache_specs``)
+belong to the SPMD slice; without sharding rules its ``_decode_rules``
+has nothing to rewrite, so it has no counterpart here.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_attention_op
 from . import moe as moe_mod
 from .attention import decode_attention
-from .base import TableModule
+from .base import TableModule, run_layer
 from .layers import embed_lookup, mrope, rms_norm, rope, swiglu
 
 __all__ = ["param_table", "param_dtype", "init_rule", "attn_block",
@@ -175,14 +177,19 @@ class Transformer(TableModule):
             out = out + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
         return x + out, aux
 
-    @torch.no_grad()
+    def _block(self, x: torch.Tensor, i: int, positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        lp = self._layer(i)
+        return self._mlp(attn_block(x, lp, self.cfg, positions), lp)
+
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                last_only: bool = False
+                last_only: bool = False, remat: str = "none"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (logits (B, S or 1, V), MoE aux loss summed
         over layers).  ``positions``: (B, S), or (3, B, S) for M-RoPE;
-        ``last_only`` computes the last position's logits only."""
+        ``last_only`` computes the last position's logits only;
+        ``remat="full"`` rematerialises each layer in the backward."""
         cfg = self.cfg
         B, S = tokens.shape
         if positions is None:
@@ -193,14 +200,21 @@ class Transformer(TableModule):
         x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
         aux = torch.zeros((), dtype=F32, device=x.device)
         for i in range(cfg.num_layers):
-            lp = self._layer(i)
-            x = attn_block(x, lp, cfg, positions)
-            x, a = self._mlp(x, lp)
+            x, a = run_layer(self._block, remat, x, i, positions)
             aux = aux + a
         if last_only:
             x = x[:, -1:]
         x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)
         return x @ self._head(), aux
+
+    def loss(self, batch: Dict[str, torch.Tensor], remat: str = "none"
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of ``batch`` (``tokens``, ``labels``, optional
+        ``mask`` and ``positions``): cross entropy plus ``AUX_COEF`` times
+        the MoE aux loss, and {"ce", "moe_aux"}."""
+        logits, aux = self(batch["tokens"], positions=batch.get("positions"),
+                           remat=remat)
+        return self._loss(logits, aux, batch, moe=True)
 
     def cache_len(self, max_seq: int) -> int:
         """Sequence length of the KV cache: the window, when it is

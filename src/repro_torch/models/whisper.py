@@ -19,9 +19,11 @@ no Pallas kernel either).
 
 RoPE stands in for Whisper's learned positions: the cross queries are
 rotated at decoder positions and the cross keys at encoder positions, as
-the reference does (``ROADMAP.md`` C-7).  The reference's ``loss_fn``,
-``param_specs`` and ``cache_specs`` belong to the training and SPMD
-slices.
+the reference does (``ROADMAP.md`` C-7).  :meth:`Whisper.loss` is the
+reference's ``loss_fn`` (the encoder run on ``batch["frames"]``);
+``remat="full"`` rematerialises each encoder and each decoder layer in
+the backward.  The reference's ``param_specs`` and ``cache_specs`` belong
+to the SPMD slice.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_attention_op
 from .attention import decode_attention
-from .base import TableModule
+from .base import TableModule, run_layer
 from .layers import embed_lookup, rms_norm, rope, swiglu
 from .transformer import scatter_kv
 
@@ -144,33 +146,47 @@ class Whisper(TableModule):
         return x + swiglu(h, lp[f"{prefix}_w_gate"], lp[f"{prefix}_w_up"],
                           lp[f"{prefix}_w_down"])
 
-    @torch.no_grad()
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def _enc_layer(self, x: torch.Tensor, i: int,
+                   positions: torch.Tensor) -> torch.Tensor:
+        lp = self._layer("enc/", i)
+        x = self._attn(x, lp, "enc", positions, causal=False)
+        return self._mlp(x, lp, "enc")
+
+    def _dec_layer(self, x: torch.Tensor, i: int, positions: torch.Tensor,
+                   enc_out: torch.Tensor, enc_pos: torch.Tensor
+                   ) -> torch.Tensor:
+        lp = self._layer("dec/", i)
+        x = self._attn(x, lp, "self", positions, causal=True)
+        x = self._attn(x, lp, "cross", positions, causal=False,
+                       kv_x=enc_out, kv_positions=enc_pos)
+        return self._mlp(x, lp, "dec")
+
+    def encode(self, frames: torch.Tensor, remat: str = "none"
+               ) -> torch.Tensor:
         """frames (B, Se, D), the stubbed frontend's embeddings -> the
         encoder output (B, Se, D): ``encoder_layers`` non-causal layers,
-        then ``enc_final_norm``."""
+        then ``enc_final_norm``; ``remat="full"`` rematerialises each
+        layer in the backward."""
         cfg = self.cfg
         B, S, _D = frames.shape
         positions = _positions(B, S, frames.device)
         x = frames.to(cfg.param_dtype)
         for i in range(cfg.encdec.encoder_layers):
-            lp = self._layer("enc/", i)
-            x = self._attn(x, lp, "enc", positions, causal=False)
-            x = self._mlp(x, lp, "enc")
+            x = run_layer(self._enc_layer, remat, x, i, positions)
         return rms_norm(x, self._p("enc_final_norm"), cfg.norm_eps)
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 embeds: Optional[torch.Tensor] = None,
                 frames: Optional[torch.Tensor] = None,
-                last_only: bool = False
+                last_only: bool = False, remat: str = "none"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced decoder pass: tokens (B, S) -> (logits (B, S or
         1, V), a zero aux loss).  ``frames`` (B, Se, D) go through
         :meth:`encode`; ``embeds`` (B, Se, D) stand in for the encoder
         output directly.  ``last_only`` computes the last position's
-        logits only."""
+        logits only; ``remat="full"`` rematerialises each encoder and
+        decoder layer in the backward."""
         cfg = self.cfg
         B, S = tokens.shape
         if positions is None:
@@ -178,21 +194,28 @@ class Whisper(TableModule):
         if embeds is None and frames is None:
             raise ValueError("Whisper.forward needs frames, or embeds in "
                              "place of the encoder output")
-        enc_out = embeds if embeds is not None else self.encode(frames)
+        enc_out = embeds if embeds is not None else \
+            self.encode(frames, remat)
         enc_pos = _positions(B, enc_out.shape[1], enc_out.device)
         x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
         for i in range(cfg.num_layers):
-            lp = self._layer("dec/", i)
-            x = self._attn(x, lp, "self", positions, causal=True)
-            x = self._attn(x, lp, "cross", positions, causal=False,
-                           kv_x=enc_out, kv_positions=enc_pos)
-            x = self._mlp(x, lp, "dec")
+            x = run_layer(self._dec_layer, remat, x, i, positions, enc_out,
+                          enc_pos)
         if last_only:
             x = x[:, -1:]
         x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)
         return (x @ self._p("lm_head"),
                 torch.zeros((), dtype=F32, device=x.device))
 
+    def loss(self, batch: Dict[str, torch.Tensor], remat: str = "none"
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of ``batch`` (``tokens``, ``labels``,
+        ``frames``, optional ``mask``): the cross entropy, and {"ce"}."""
+        logits, aux = self(batch["tokens"], frames=batch["frames"],
+                           remat=remat)
+        return self._loss(logits, aux, batch, moe=False)
+
+    @torch.no_grad()
     def init_cache(self, batch: int, max_seq: int,
                    filled: Optional[int] = None,
                    enc_out: Optional[torch.Tensor] = None

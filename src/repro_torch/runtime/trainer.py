@@ -1,0 +1,207 @@
+"""Fault-tolerant training runtime on one card (the port's counterpart of
+``repro.runtime.trainer``).
+
+The loop is the reference's, with the host-side control plane explicit:
+
+* **checkpoint/restart** — resume from the newest committed checkpoint;
+  async saves every ``ckpt_every`` steps and at the last (credit-bounded,
+  paper C3); a final fence guarantees durability before ``run`` returns.
+  ``ckpt_dir=None`` keeps no checkpoints (a run whose state is too large
+  to write where it runs): it resumes nothing, and repeated failures
+  start again from :meth:`Trainer.init`, as the reference does before its
+  first checkpoint.
+* **step retry** — a failed step (an injected fault, a flaky worker) is
+  retried on the same batch from the last good state; repeated failures
+  of one step restore from the last checkpoint; a retry budget bounds the
+  loop.  The port's step updates in place, but only after the step's loss
+  and gradients exist (``launch/step.py::train_step``), so a step that
+  fails before its update leaves the state as it was, as the reference's
+  functional step does.
+* **straggler detection** — each step's wall time against the rolling
+  median of the last steps; a step slower than ``straggler_factor`` times
+  it is recorded as an event.
+
+One device, given explicitly (the card unless ``device="cpu"``), so there
+is no mesh; the reference's elastic ``reshard`` belongs to the SPMD slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import statistics
+import time
+from typing import Callable, Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import optim
+from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.launch.step import train_step
+from repro_torch.models import get_model
+from repro_torch.models.convert import init_params
+
+__all__ = ["TrainerConfig", "Trainer", "FaultInjector"]
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    ckpt_every: int = 50
+    ckpt_dir: Optional[str] = "checkpoints"   # None: no checkpoints
+    ckpt_credits: int = 2
+    max_retries_per_step: int = 2
+    max_total_retries: int = 10
+    straggler_factor: float = 3.0
+    log_every: int = 10
+
+
+class FaultInjector:
+    """Deterministic fault schedule for tests/examples: raises
+    ``RuntimeError`` the first ``times`` times ``step`` is executed."""
+
+    def __init__(self, fail_at: Dict[int, int]):
+        self.fail_at = dict(fail_at)
+
+    def maybe_fail(self, step: int):
+        n = self.fail_at.get(step, 0)
+        if n > 0:
+            self.fail_at[step] = n - 1
+            raise RuntimeError(f"injected fault at step {step}")
+
+
+class Trainer:
+    """Trains ``cfg``'s model on batches of ``shape`` on one device.
+    ``remat`` is the models' ``"none"`` or ``"full"``."""
+
+    def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
+                 opt_cfg: Optional[optim.OptConfig] = None,
+                 tcfg: Optional[TrainerConfig] = None,
+                 fault_injector: Optional[FaultInjector] = None,
+                 device=None, remat: str = "none"):
+        self.cfg, self.shape = cfg, shape
+        self.tcfg = tcfg or TrainerConfig()
+        self.opt_cfg = opt_cfg or optim.OptConfig()
+        self.fault_injector = fault_injector
+        self.device = resolve_device(device)
+        self.remat = remat
+        self.events: List[Dict] = []
+        self.step_times: List[float] = []
+        self.ckpt = None if self.tcfg.ckpt_dir is None else \
+            AsyncCheckpointer(self.tcfg.ckpt_dir,
+                              credits=self.tcfg.ckpt_credits)
+        self.model = None
+        self.opt_state = None
+        self.step = 0
+
+    # ------------------------------------------------------------------
+    def _bind(self, params: Dict[str, torch.Tensor], opt_state) -> None:
+        """Build the model around ``params`` (held, not copied), trainable."""
+        self.model = get_model(self.cfg)(self.cfg, self.device, params=params)
+        self.model.requires_grad_(True)
+        self.opt_state = opt_state
+
+    def init(self, seed: int = 0,
+             params: Optional[Dict[str, torch.Tensor]] = None):
+        """Fresh parameters (``init_params`` from a generator seeded
+        ``seed``, or the state dict ``params`` on the device) and a fresh
+        optimizer state, at step 0."""
+        if params is None:
+            params = init_params(self.cfg, torch.Generator(
+                self.device).manual_seed(seed), self.device)
+        self._bind(params, optim.init(params))
+        self.step = 0
+        return self
+
+    def resume_or_init(self, seed: int = 0):
+        """Restore the newest committed checkpoint (params and optimizer
+        state, onto the device), or :meth:`init` where there is none."""
+        last = None if self.ckpt is None else latest_step(self.tcfg.ckpt_dir)
+        if last is None:
+            return self.init(seed)
+        model = get_model(self.cfg)
+        like = {k: torch.empty(shape, dtype=model.param_dtype(self.cfg, k),
+                               device="meta")
+                for k, shape in model.param_table(self.cfg).items()}
+        tree, step, _extra = restore(
+            self.tcfg.ckpt_dir, {"params": like,
+                                 "opt": optim.init(like)},
+            device=self.device)
+        self._bind(tree["params"], tree["opt"])
+        self.step = step
+        self.events.append({"kind": "resume", "step": step})
+        return self
+
+    # ------------------------------------------------------------------
+    def _put_batch(self, batch: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in batch.items()}
+
+    def run(self, batches: Iterator[Dict[str, np.ndarray]],
+            on_step: Optional[Callable[[int, Dict], None]] = None) -> Dict:
+        if self.model is None:
+            raise RuntimeError("call init() or resume_or_init() first")
+        total_retries = 0
+        metrics = {}
+        while self.step < self.tcfg.total_steps:
+            batch = next(batches)
+            retries = 0
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    if self.fault_injector is not None:
+                        self.fault_injector.maybe_fail(self.step)
+                    metrics = train_step(self.model, self.opt_cfg,
+                                         self.opt_state,
+                                         self._put_batch(batch), self.remat)
+                    float(metrics["loss"])          # wait for the step
+                    break
+                except Exception as e:
+                    retries += 1
+                    total_retries += 1
+                    self.events.append({"kind": "step_failure",
+                                        "step": self.step, "error": str(e)})
+                    if total_retries > self.tcfg.max_total_retries:
+                        raise RuntimeError("retry budget exhausted") from e
+                    if retries > self.tcfg.max_retries_per_step:
+                        # fall back to last durable state
+                        if self.ckpt is not None:
+                            self.ckpt.fence()
+                        self.resume_or_init()
+                        retries = 0
+                dt = time.perf_counter() - t0
+                self._heartbeat(dt)
+            dt = time.perf_counter() - t0
+            self._heartbeat(dt)
+            self.step += 1
+            if self.ckpt is not None and (
+                    self.step % self.tcfg.ckpt_every == 0
+                    or self.step == self.tcfg.total_steps):
+                self.ckpt.submit(self.step, {
+                    "params": {k: p.detach() for k, p
+                               in self.model.named_parameters()},
+                    "opt": self.opt_state},
+                    extra={"loss": float(metrics["loss"])})
+            if on_step is not None:
+                on_step(self.step, metrics)
+            if self.step % self.tcfg.log_every == 0:
+                print(f"step {self.step:5d}  loss {float(metrics['loss']):.4f}"
+                      f"  ({dt*1e3:.0f} ms)", flush=True)
+        if self.ckpt is not None:
+            self.ckpt.fence()   # durability barrier (paper C3 fence)
+        return {k: float(v) for k, v in metrics.items()}
+
+    def _heartbeat(self, dt: float):
+        self.step_times.append(dt)
+        hist = self.step_times[-20:-1]
+        if len(hist) >= 5:
+            med = statistics.median(hist)
+            if dt > self.tcfg.straggler_factor * med:
+                self.events.append({"kind": "straggler", "step": self.step,
+                                    "dt": dt, "median": med})
+
+    def close(self):
+        if self.ckpt is not None:
+            self.ckpt.close()

@@ -119,15 +119,17 @@ def test_facade_rejects_endpoints_and_bad_input():
 
 def test_port_imports_nothing_of_jax_or_repro():
     """A fresh interpreter imports the port and all its submodules (the
-    workload library, the DSE and the simulation service among them); no
-    ``jax*`` and no ``repro`` / ``repro.*`` module may be loaded."""
+    workload library, the DSE, the simulation service and the training
+    path among them); no ``jax*``, no ``ml_dtypes`` and no ``repro`` /
+    ``repro.*`` module may be loaded."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib'))\n"
-        "             or n == 'repro' or n.startswith('repro.'))\n"
+        "             or n == 'repro' or n.startswith('repro.')\n"
+        "             or n == 'ml_dtypes' or n.startswith('ml_dtypes.'))\n"
         "for m in ('kernels.router_step', 'kernels.flash_attention',\n"
         "          'kernels.ssd_scan', 'kernels.moe_gmm', 'models.jamba',\n"
         "          'workloads.placement', 'workloads.base',\n"
@@ -137,7 +139,9 @@ def test_port_imports_nothing_of_jax_or_repro():
         "          'dse.cache', 'dse.spec', 'dse.runner', 'sim_service',\n"
         "          'sim_service.request', 'sim_service.bucketing',\n"
         "          'sim_service.metrics', 'sim_service.streaming',\n"
-        "          'sim_service.server'):\n"
+        "          'sim_service.server', 'optim.adamw', 'data.pipeline',\n"
+        "          'checkpoint.store', 'runtime.trainer', 'launch.step',\n"
+        "          'launch.train', 'kernels.ops'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")

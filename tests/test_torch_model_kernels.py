@@ -694,3 +694,80 @@ def test_reduced_models_on_card_match_cpu(arch):
             steps.append(lg)
         torch.testing.assert_close(torch.stack(steps, 1), on_card,
                                    rtol=2e-4, atol=2e-4)
+
+
+def _plain_op(kind, *a, **kw):
+    """The op of ``kind`` through its kernel's plain version, in the
+    models' layouts, differentiable by autograd alone."""
+    t = lambda x: x.transpose(1, 2)   # noqa: E731
+    if kind == "flash":
+        q, k, v = a
+        return t(ref.flash_attention_ref(t(q), t(k), t(v), **kw))
+    if kind == "ssd":
+        x, dt, B, C, A = a
+        return t(ref.ssd_scan_ref(t(x), t(dt), t(B), t(C), A))
+    return ref.grouped_matmul_ref(*a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_ops_kernel_against_plain_on_card(dtype):
+    """Each op's gradient of a fixed random projection of its output,
+    through the kernel-backed op (forward: the kernel; backward: the
+    recompute, or for the GMM two more kernel launches) and through the
+    plain version by autograd, on the same card tensors: causal, windowed
+    GQA and Sq != Sk flash; an SSD of several chunks with G < H; a ragged
+    GMM.  fp32 within 1e-3 of the gradient's largest magnitude (the SSD's
+    recompute is another algorithm than the token-by-token plain
+    version); bf16 within 2e-2 of it (bf16 rounds the op's output and the
+    gradients)."""
+    _need_card()
+    g = torch.Generator("cuda").manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale
+                ).to(dtype).requires_grad_()
+
+    cases = [
+        ("flash", fa_mod.flash_attention,
+         (rnd(1, 200, 4, 64), rnd(1, 200, 2, 64), rnd(1, 200, 2, 64)),
+         dict(causal=True, window=None), 0),
+        ("flash", fa_mod.flash_attention,
+         (rnd(2, 96, 8, 128), rnd(2, 96, 2, 128), rnd(2, 96, 2, 128)),
+         dict(causal=True, window=40), 0),
+        ("flash", fa_mod.flash_attention,
+         (rnd(2, 48, 4, 64), rnd(2, 130, 4, 64), rnd(2, 130, 4, 64)),
+         dict(causal=False, window=None), 0),
+        ("ssd", ssd_mod.ssd_scan,
+         (rnd(1, 160, 4, 64, scale=0.5),
+          (torch.nn.functional.softplus(torch.randn(
+              1, 160, 4, generator=g, device="cuda")) * 0.1).to(dtype)
+          .requires_grad_(),
+          rnd(1, 160, 2, 128, scale=0.5), rnd(1, 160, 2, 128, scale=0.5),
+          (-torch.linspace(1.0, 8.0, 4, device="cuda")).requires_grad_()),
+         dict(chunk=64), 0),
+        ("gmm", gmm_mod.grouped_matmul,
+         (rnd(4, 100, 256), rnd(4, 256, 192, scale=1 / 16)), {}, 2),
+    ]
+    for kind, wrapper, args, kw, bwd_launches in cases:
+        out_shape = _plain_op(kind, *args, **{k: v for k, v in kw.items()
+                                              if k != "chunk"}).shape
+        proj = torch.randn(out_shape, generator=g, device="cuda").to(dtype)
+        op = {"flash": ops.flash_attention_op, "ssd": ops.ssd_scan_op,
+              "gmm": ops.grouped_matmul}[kind]
+        before = wrapper.launches
+        out = op(*args, **kw)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, kind
+        got = torch.autograd.grad((out.float() * proj.float()).sum(), args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1 + bwd_launches, kind
+        want = torch.autograd.grad(
+            (_plain_op(kind, *args, **{k: v for k, v in kw.items()
+                                       if k != "chunk"}).float()
+             * proj.float()).sum(), args)
+        rel = 1e-3 if dtype == torch.float32 else 2e-2
+        for a, b in zip(got, want):
+            scale = float(b.float().abs().max())
+            torch.testing.assert_close(a.float(), b.float(), rtol=rel,
+                                       atol=rel * scale)
