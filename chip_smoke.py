@@ -168,7 +168,32 @@ Phases (any failure raises and exits nonzero):
    uninterrupted run's step 11; (5) times, not gated: ms per warm step,
    tokens/s, model FLOP/s, peak memory, the profiler's device time by
    category over 3 warm steps and the idle share, and the GMM's backward
-   products beside ``torch.bmm`` with their transposed copies.
+   products beside ``torch.bmm`` with their transposed copies;
+12. ``[spmd]``, serving on a mesh: 4 ranks (data 2 x model 2) started
+   by ``repro_torch.launch.mesh.spawn`` share the card and talk over gloo
+   (NCCL refuses two ranks of one communicator on one device; the ops
+   gloo takes only on the host are printed), so nothing here measures an
+   interconnect: (1) the mechanisms on CUDA tensors (XY all-to-all,
+   all-reduce, reduce-scatter and all-gather, ``all_reduce(max)``, the
+   ring shift, remote store / load / CAS, the mutex, the barrier), each
+   equal to the same result computed in one process; (2) Qwen2-72B's
+   widths, 2 of 80 layers, a 2 x 4096 prefill under manual TP, the counts
+   set to 0 just before and read just after on every rank (2
+   ``wgmma_tma`` flash a rank, no GMM), the gathered logits against the
+   same model unsharded on the card (within 2e-2 of the largest logit,
+   the bf16 bar of ``[train ops]``); (3) Mixtral's widths, 2 of 32
+   layers, a 2 x 8192 prefill in the ``xy``, ``ep`` and ``local``
+   dispatch modes at the published capacity factor (2 flash and 6 ``tma``
+   GMM a rank each, the drops printed) and again at a factor that drops
+   nothing (2 x 4096 tokens), where the three modes' logits agree within
+   2e-2; (4) each rank's distinct flash and GMM calls against their plain
+   versions at its local shapes; (5) the fp32 mesh ``Server`` at
+   Mixtral's widths (8 requests, 4 slots: rows over ``data``, the KV
+   cache over ``model``, the MoE ``ep``; 6 ``f32`` GMM a tick a rank),
+   its tokens identical to the single-card ``Server``'s; then the times
+   of each local shape's kernel, plain version, library call and bound on
+   the card alone, and the per-rank launches in the ``kernels`` line.
+   Every time is labelled as 4 ranks time-sharing one card.
 
 It needs a card: without one it prints the reason to stderr and exits 1.
 """
@@ -2961,6 +2986,616 @@ def train_kernel_timings(device):
     return out
 
 
+# ----------------------------------------------------------------------
+# [spmd]: serving on a mesh of ranks sharing the card
+# ----------------------------------------------------------------------
+QWEN2 = "qwen2-72b"
+SPMD_WORLD, SPMD_MESH = 4, (2, 2)        # (data, model)
+SPMD_LAYERS, SPMD_BATCH = 2, 2
+SPMD_QWEN_TOKENS, SPMD_MIXTRAL_TOKENS = 4096, 8192
+SPMD_MODES = ("xy", "ep", "local")
+# Mixtral's E / top_k: a FIFO of T * top_k * cf / E slots holds every
+# token (a token takes an expert at most once), so no layout drops; at
+# 2 x 4096 tokens, where its (E, T, F) expert activations fit four ranks
+SPMD_NO_DROP_CF, SPMD_NO_DROP_TOKENS = 4.0, 4096
+SPMD_LABEL = (f"{SPMD_WORLD} ranks (data {SPMD_MESH[0]} x model "
+              f"{SPMD_MESH[1]}) time-sharing one card through gloo")
+
+
+def _spmd_cfg(arch, **moe):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), num_layers=SPMD_LAYERS)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    return cfg
+
+
+def _spmd_tokens(cfg, seq):
+    import numpy as np
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SPMD_BATCH, seq)).astype(np.int64)
+
+
+def _spmd_collectives(mesh):
+    """The paper's mechanisms on CUDA tensors, each against the same
+    result computed in this process from every rank's inputs: the XY
+    all-to-all (fp32 and int32), the XY all-reduce, reduce-scatter then
+    all-gather, all_reduce(max), the ring shift (host-staged on gloo),
+    remote store, load and CAS (the mutex), and the barrier.  Returns
+    {case: ok}."""
+    import torch
+    from repro_torch.core import pgas, routing, sync
+    from repro_torch.parallel import comm
+    dev, T, r = mesh.device, mesh.size, mesh.rank
+    g = torch.Generator().manual_seed(5)
+    A = torch.randn(T, T, 3, generator=g)
+    Ai = torch.randint(0, 1000, (T, 2 * T), generator=g, dtype=torch.int32)
+    X = torch.randn(T, 2 * T, 3, generator=g)
+    on = lambda t: t.to(dev)                                # noqa: E731
+    ok = {}
+    ok["xy_all_to_all"] = torch.equal(routing.xy_all_to_all(
+        on(A[r]), mesh, "model", "data").cpu(), A[:, r])
+    ok["xy_all_to_all int32"] = torch.equal(routing.xy_all_to_all(
+        on(Ai[r]), mesh, "model", "data").cpu(),
+        Ai.reshape(T, T, 2)[:, r].reshape(-1))
+    ok["xy_all_reduce"] = torch.allclose(routing.xy_all_reduce(
+        on(X[r]), mesh, "model", "data").cpu(), X.sum(0), atol=1e-5)
+    ok["reduce_scatter + all_gather"] = torch.allclose(routing.xy_all_gather(
+        routing.xy_reduce_scatter(on(X[r]), mesh, "model", "data"), mesh,
+        "model", "data").cpu(), X.sum(0), atol=1e-5)
+    ok["all_reduce max"] = torch.equal(comm.all_reduce(
+        on(X[r]), mesh, ("data", "model"), "max").cpu(), X.amax(0))
+    nx = mesh.axis_size("model")
+    y, x = divmod(r, nx)
+    ok["shift (ppermute)"] = torch.equal(routing.shift(
+        on(A[r]), mesh, "model").cpu(), A[y * nx + (x - 1) % nx])
+    mem = torch.zeros(16, device=dev)
+    pk = pgas.PacketBatch(
+        addr=torch.full((T, 2), r, dtype=torch.int32, device=dev),
+        data=torch.full((T, 2), r + 1.0, device=dev),
+        mask=torch.ones((T, 2), dtype=torch.bool, device=dev))
+    got, credits = pgas.remote_store(mem, pk, mesh, "model", "data")
+    want = torch.zeros(16)
+    want[:T] = torch.arange(T) + 1.0
+    ok["remote_store"] = torch.equal(got.cpu(), want) and \
+        torch.equal(credits.cpu(), torch.full((T,), 2, dtype=torch.int32))
+    data, valid = pgas.remote_load(got, pk, mesh, "model", "data")
+    ok["remote_load"] = bool(valid.all()) and torch.equal(
+        data.cpu(), (want[r] * torch.ones(T, 2)))
+    m1, won = sync.mutex_try_acquire(mem, 1, 0, mesh, "model", "data", T)
+    wins = comm.all_reduce(won.to(torch.int32), mesh, ("data", "model"))
+    ok["remote_cas mutex"] = int(wins) == 1 and bool(won) == (r == 0) and \
+        (r != 1 or float(m1[0]) == 1.0)
+    b = sync.barrier_arrive(mem, 0, 0, mesh, "model", "data", T)
+    ok["barrier"] = (r != 0 or bool(sync.barrier_done(b, 0, T))) and \
+        int(sync.spmd_barrier(mesh, "model", "data")) == T
+    return ok
+
+
+def _spmd_gather_times(device, mib=16, reps=3):
+    """Seconds of one gloo all-gather of ``mib`` MiB of bf16 a rank over
+    all ranks, on the ranks' CUDA tensors and staged through the host
+    (the last of ``reps``, each between barriers): the cost of staging
+    an op through the host (``comm.HOST_STAGED``, chosen by what gloo
+    takes on the card) against gloo's own CUDA path."""
+    import torch
+    import torch.distributed as dist
+    x = torch.ones(mib * 2**20 // 2, dtype=torch.bfloat16, device=device)
+    out = torch.empty(dist.get_world_size() * x.numel(), dtype=x.dtype,
+                      device=device)
+    times = {}
+    for where in ("cuda", "host"):
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            if where == "cuda":
+                dist.all_gather_into_tensor(out, x)
+            else:
+                host = torch.empty(out.shape, dtype=x.dtype)
+                dist.all_gather_into_tensor(host, x.cpu())
+                out.copy_(host)
+            torch.cuda.synchronize()
+            times[where] = time.perf_counter() - t0
+    return times
+
+
+def _spmd_layer_comm(log):
+    """Per-layer collective stats: wrap the islands so each layer's
+    calls (attention and MLP) accumulate in ``log``."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import comm
+
+    def wrap(fn):
+        def run(*a, **kw):
+            before = comm.comm_stats()
+            out = fn(*a, **kw)
+            for op, v in comm.comm_stats().items():
+                b = before.get(op, {"calls": 0, "bytes": 0})
+                d = log.setdefault(op, {"calls": 0, "bytes": 0})
+                d["calls"] += v["calls"] - b["calls"]
+                d["bytes"] += v["bytes"] - b["bytes"]
+            return out
+        return run
+    tf._attn_manual = wrap(tf._attn_manual)
+    tf.Transformer._spmd_mlp = wrap(tf.Transformer._spmd_mlp)
+
+
+def _spmd_prefill(model, tokens, rules, mesh):
+    """One prefill on every rank in lockstep, the counts set to 0 just
+    before and read just after: (logits, wall, launches by variant,
+    collective stats, drops)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.step import prefill_step
+    from repro_torch.models import moe
+    from repro_torch.parallel import comm
+    torch.cuda.synchronize()
+    dist.barrier()
+    zero_counts()
+    comm.reset_comm_stats()
+    t0 = time.perf_counter()
+    with moe.counting_drops() as drops:
+        logits = prefill_step(model, {"tokens": tokens}, rules)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    variants, stats = read_variants(), comm.comm_stats()
+    dist.barrier()
+    return logits, wall, variants, stats, int(sum(int(d) for d in drops))
+
+
+def _spmd_kernel_checks(log, device, seed):
+    """Each distinct kernel call a rank made (``log`` of ops-level
+    shapes), again on random inputs at that shape, against the plain
+    version: {shape: max_abs_err}."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import grouped_matmul
+    errs = {}
+    for kind, shapes, window in log:
+        if (kind, shapes) in errs:
+            continue
+        rnd, _ = _rnd(device, torch.bfloat16, seed)
+        if kind == "flash":
+            q, k, v = (rnd(*s) for s in shapes)
+            got = flash_attention(q, k, v, causal=True, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=True,
+                                           window=window)
+        else:
+            lhs = rnd(*shapes[0])
+            rhs = rnd(*shapes[1], scale=shapes[1][1] ** -0.5)
+            got = grouped_matmul(lhs, rhs)
+            want = ref.grouped_matmul_ref(lhs, rhs)
+        errs[(kind, shapes)] = _compare(
+            f"[spmd rank] {kind}", f"{shapes} window {window}", got, want)
+    return errs
+
+
+def _spmd_rank(rank, plan):
+    """The [spmd] program of one rank (4 ranks sharing the card over
+    gloo): the mechanisms on CUDA tensors, Qwen2-72B's widths (2 layers)
+    in a manual-TP prefill, Mixtral's widths (2 layers) prefilled in the
+    xy, ep and local dispatch modes (at the published capacity factor and
+    at one that drops nothing), and the fp32 mesh ``Server``.  Returns
+    its records (CPU numbers and numpy logits)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.backend import resolve_device
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.launch.step import cell_rules
+    from repro_torch.models import moe
+    from repro_torch.models.convert import init_params
+    from repro_torch.models.transformer import Transformer, _decode_rules
+    from repro_torch.parallel import comm
+    device = str(resolve_device(plan["device"]))
+    mesh = make_test_mesh(SPMD_MESH, ("data", "model"), device)
+    out = {"collectives": _spmd_collectives(mesh),
+           "gather_s": _spmd_gather_times(device)}
+    calls = []
+
+    def flash_log(q, k, v, **kw):
+        calls.append(("flash", (tuple(q.shape), tuple(k.shape),
+                                tuple(v.shape)), kw.get("window")))
+        return real_flash(q, k, v, **kw)
+
+    def gmm_log(lhs, rhs):
+        calls.append(("gmm", (tuple(lhs.shape), tuple(rhs.shape)), None))
+        return real_gmm(lhs, rhs)
+    real_flash, real_gmm = ops.flash_attention, ops._gmm_kernel
+    ops.flash_attention, ops._gmm_kernel = flash_log, gmm_log
+    layer_comm = {}
+    _spmd_layer_comm(layer_comm)
+
+    # Qwen2-72B's widths, 2 of 80 layers, 2 x 4096, manual TP
+    cfg = _spmd_cfg(QWEN2)
+    rules = cell_rules(mesh, cfg, ShapeConfig(
+        "prefill", SPMD_QWEN_TOKENS, SPMD_BATCH, "prefill"))
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device).manual_seed(0),
+                         device, rules=rules)
+    model = Transformer(cfg, device, params=params, rules=rules)
+    tokens = torch.from_numpy(_spmd_tokens(cfg, SPMD_QWEN_TOKENS)).to(device)
+    torch.cuda.synchronize()
+    draw = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    calls.clear()
+    layer_comm.clear()
+    logits, wall, variants, stats, _ = _spmd_prefill(model, tokens, rules,
+                                                     mesh)
+    per_layer = {k: {f: v[f] // cfg.num_layers for f in v}
+                 for k, v in layer_comm.items()}
+    _, warm, _, _, _ = _spmd_prefill(model, tokens, rules, mesh)
+    out["qwen2"] = dict(
+        logits=logits.float().cpu().numpy(), wall=wall, warm=warm,
+        variants=variants, comm=stats, comm_per_layer=per_layer, draw=draw,
+        peak=torch.cuda.max_memory_allocated(),
+        bytes=sum(p.numel() * p.element_size() for p in params.values()),
+        calls=sorted(set(calls)))
+    del model, params, logits
+    torch.cuda.empty_cache()
+
+    # Mixtral's widths, 2 of 32 layers, 2 x 8192 (window 4096), three modes
+    cfg = _spmd_cfg(MIXTRAL)
+    free = _spmd_cfg(MIXTRAL, capacity_factor=SPMD_NO_DROP_CF)
+    tokens = {label: torch.from_numpy(_spmd_tokens(cfg, n)).to(device)
+              for label, n in (("published", SPMD_MIXTRAL_TOKENS),
+                               ("no drop", SPMD_NO_DROP_TOKENS))}
+    shape = ShapeConfig("prefill", SPMD_MIXTRAL_TOKENS, SPMD_BATCH,
+                        "prefill")
+    held = {}
+    out["mixtral"] = {}
+    torch.cuda.reset_peak_memory_stats()
+    for mode in SPMD_MODES:
+        rules = cell_rules(mesh, cfg, shape, dispatch=mode)
+        key = "ff" if mode == "local" else "experts"
+        if key not in held:
+            held.clear()
+            torch.cuda.empty_cache()
+            held[key] = init_params(cfg, torch.Generator(device)
+                                    .manual_seed(0), device, rules=rules)
+        calls.clear()
+        layer_comm.clear()
+        rec = {}
+        for label, c in (("published", cfg), ("no drop", free)):
+            model = Transformer(c, device, params=held[key], rules=rules)
+            logits, wall, variants, stats, drops = _spmd_prefill(
+                model, tokens[label], rules, mesh)
+            rec[label] = dict(logits=logits.float().cpu().numpy(),
+                              wall=wall, variants=variants, comm=stats,
+                              drops=drops)
+            if label == "published":
+                rec[label]["calls"] = sorted(set(calls))
+                rec[label]["comm_per_layer"] = {
+                    k: {f: v[f] // cfg.num_layers for f in v}
+                    for k, v in layer_comm.items()}
+            del model, logits
+        out["mixtral"][mode] = rec
+    out["mixtral_peak"] = torch.cuda.max_memory_allocated()
+    del held
+    torch.cuda.empty_cache()
+
+    # each distinct kernel call of the runs above, against its plain
+    # version at that local shape (not counted: the paths are read)
+    ops.flash_attention, ops._gmm_kernel = real_flash, real_gmm
+    seen = [c for c in out["qwen2"]["calls"]]
+    for rec in out["mixtral"].values():
+        seen += rec["published"]["calls"]
+    # one rank at a time: the plain attention materialises its scores
+    import torch.distributed as dist
+    for turn in range(mesh.size):
+        if turn == rank:
+            out["kernel_errs"] = _spmd_kernel_checks(sorted(set(seen)),
+                                                     device, 10 + rank)
+            torch.cuda.empty_cache()
+        dist.barrier()
+
+    # the fp32 mesh Server at Mixtral's widths, 2 layers: 8 requests, 4
+    # slots (rows over data, the KV cache over model, the MoE through ep)
+    cfg32 = dataclasses.replace(_spmd_cfg(MIXTRAL), dtype="float32")
+    server = Server(cfg32, slots=4, max_seq=64, device=device, mesh=mesh)
+    for req in plan["requests"]:
+        server.submit(Request(rid=req[0], prompt=req[1], max_new=req[2]))
+    torch.cuda.synchronize()
+    zero_counts()
+    comm.reset_comm_stats()
+    t0 = time.perf_counter()
+    ticks = server.run(tick_limit=1000)
+    torch.cuda.synchronize()
+    out["server"] = dict(
+        outs=[r.out for r in sorted(server.completed, key=lambda r: r.rid)],
+        ticks=ticks, wall=time.perf_counter() - t0,
+        variants=read_variants(), comm=comm.comm_stats(),
+        batch=server.rules._clean(server.rules.batch),
+        kv_seq=server.rules._clean(server.rules.kv_seq),
+        mode=moe.moe_mode(cfg32, _decode_rules(server.rules)))
+    del server
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spmd_times(device, calls):
+    """Kernel, plain version, library call and bound at the ranks' local
+    shapes, on the card alone after the ranks have exited (bf16, CUDA
+    events): {(kind, shapes, window): record}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm_mod
+    from repro_torch.kernels import ref
+    out = {}
+    for kind, shapes, window in calls:
+        rnd, _ = _rnd(device, torch.bfloat16, 1)
+        if kind == "flash":
+            q, k, v = (rnd(*s) for s in shapes)
+            nb, ops = fa.flash_bound(q, k, causal=True, window=window)
+            if window is None:
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, is_causal=True, enable_gqa=True)
+            else:
+                i = torch.arange(q.shape[2], device=device)
+                band = (i[None, :] <= i[:, None]) & \
+                    (i[None, :] > i[:, None] - window)
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, attn_mask=band, enable_gqa=True)
+            out[(kind, shapes, window)] = dict(
+                ms=_event_ms(lambda: fa.flash_attention(
+                    q, k, v, causal=True, window=window), 5),
+                plain_ms=_event_ms(lambda: ref.flash_attention_ref(
+                    q, k, v, causal=True, window=window), 1),
+                library_ms=_event_ms(lib, 5),
+                library="scaled_dot_product_attention",
+                bound=_bound(nb, ops, BF16_OPS_PER_S))
+            del q, k, v, lib
+        else:
+            lhs = rnd(*shapes[0])
+            rhs = rnd(*shapes[1], scale=shapes[1][1] ** -0.5)
+            nb, ops = gmm_mod.gmm_bound(lhs, rhs)
+            out[(kind, shapes, window)] = dict(
+                ms=_event_ms(lambda: gmm_mod.grouped_matmul(lhs, rhs), 5),
+                plain_ms=_event_ms(lambda: ref.grouped_matmul_ref(lhs, rhs),
+                                   2),
+                library_ms=_event_ms(lambda: torch.bmm(lhs, rhs), 5),
+                library="torch.bmm", bound=_bound(nb, ops, BF16_OPS_PER_S))
+            del lhs, rhs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rel_err(a, b):
+    """max |a - b| over max |b| (numpy arrays)."""
+    import numpy as np
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def spmd_phase(device):
+    """Phase 12, ``[spmd]``: serving on a mesh.  4 ranks (data 2 x model
+    2) share the card and talk over gloo (NCCL refuses two ranks of one
+    communicator on one device), so nothing here measures an
+    interconnect.  Checks: the mechanisms on CUDA tensors; every flash and
+    GMM launch on every rank by variant; each rank's kernel outputs
+    against their plain versions at its local shapes; the gathered
+    Qwen2-72B prefill logits against the same model unsharded on the
+    card; the xy / ep / local Mixtral logits against each other at a
+    capacity factor that drops nothing; the fp32 mesh ``Server``'s tokens
+    identical to the single-card ``Server``'s.  Returns its records."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.launch.step import prefill_step
+    from repro_torch.models.convert import init_params
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.parallel import comm
+    card = card_line()
+    rng = np.random.default_rng(1)
+    vocab = _spmd_cfg(MIXTRAL).vocab_size
+    requests = [(r, rng.integers(0, vocab, size=16).astype(np.int32), 16)
+                for r in range(8)]
+    print(f"[spmd] {card}: {SPMD_LABEL}; backend gloo, ops staged through "
+          f"the host on it: {sorted(comm.HOST_STAGED['gloo'])}; this process "
+          f"holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    kind = torch.device(device).type
+    ranks = spawn(_spmd_rank, SPMD_WORLD, "gloo", device=kind,
+                  args=({"requests": requests, "device": kind},),
+                  timeout=600)
+    ranks_wall = time.perf_counter() - t_phase
+    for r, rec in enumerate(ranks):
+        bad = [k for k, ok in rec["collectives"].items() if not ok]
+        check(not bad, f"[spmd] rank {r}: collectives differ from the "
+              f"single-process result: {bad}")
+    print(f"[spmd] collectives on CUDA tensors equal the single-process "
+          f"result on every rank: {sorted(ranks[0]['collectives'])}")
+    g = ranks[0]["gather_s"]
+    print(f"[spmd] {card}: a gloo all-gather of 16 MiB a rank into "
+          f"{16 * SPMD_WORLD} MiB ({SPMD_LABEL}): on the CUDA tensors "
+          f"{g['cuda']:.3f} s, staged through the host {g['host']:.3f} s")
+
+    # Qwen2-72B: 2 wgmma_tma flash a rank, no GMM; logits vs unsharded
+    L = SPMD_LAYERS
+    for r, rec in enumerate(ranks):
+        q = rec["qwen2"]
+        check(q["variants"]["flash_attention"] == {
+            "wgmma_tma": L, "wgmma_loads": 0, "f32": 0}
+            and sum(q["variants"]["moe_gmm"].values()) == 0,
+            f"[spmd] rank {r} qwen2 prefill launched {q['variants']}")
+        print(f"[spmd] {card}: {QWEN2} widths, {L} layers, "
+              f"{SPMD_BATCH} x {SPMD_QWEN_TOKENS} prefill, manual TP, rank "
+              f"{r} ({SPMD_LABEL}): {q['bytes'] / 2**30:.2f} GiB of "
+              f"weights drawn in {q['draw']:.1f} s; wall {q['wall']:.3f} s "
+              f"(again {q['warm']:.3f} s); launches {q['variants']}; local "
+              f"kernel calls {q['calls']}; collectives per layer "
+              f"{q['comm_per_layer']}; whole prefill {q['comm']}; peak "
+              f"memory {q['peak'] / 2**30:.2f} GiB")
+    cfg = _spmd_cfg(QWEN2)
+    full = init_params(cfg, torch.Generator(device).manual_seed(0), device)
+    model = Transformer(cfg, device, params=full)
+    tokens = torch.from_numpy(_spmd_tokens(cfg, SPMD_QWEN_TOKENS)).to(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = prefill_step(model, {"tokens": tokens}).float().cpu().numpy()
+    single_wall = time.perf_counter() - t0
+    del model, full
+    torch.cuda.empty_cache()
+    qerr = max(_rel_err(rec["qwen2"]["logits"], single) for rec in ranks)
+    print(f"[spmd] {card}: {QWEN2} gathered prefill logits (every rank) vs "
+          f"the same model unsharded on the card (one process, wall "
+          f"{single_wall:.3f} s): max error {qerr:.3e} of the largest "
+          f"logit (tolerance 2e-2, the bf16 bar of [train ops]); argmax "
+          f"equal on {int((ranks[0]['qwen2']['logits'].argmax(-1) == single.argmax(-1)).sum())}"
+          f"/{SPMD_BATCH} rows")
+    check(qerr <= 2e-2 and all(np.isfinite(rec["qwen2"]["logits"]).all()
+                               for rec in ranks),
+          f"[spmd] sharded qwen2 logits differ from unsharded by {qerr}")
+
+    # Mixtral: per mode and rank 6 tma GMM, 2 flash; no-drop logits agree
+    want = {"flash_attention": {"wgmma_tma": L, "wgmma_loads": 0, "f32": 0},
+            "moe_gmm": {"tma": 3 * L, "decode": 0, "ragged": 0, "f32": 0}}
+    for r, rec in enumerate(ranks):
+        for mode, m in rec["mixtral"].items():
+            for label, run in m.items():
+                got = {k: run["variants"][k] for k in want}
+                check(got == want and run["variants"]["ssd_scan"] ==
+                      dict.fromkeys(run["variants"]["ssd_scan"], 0),
+                      f"[spmd] rank {r} mixtral {mode} {label} launched "
+                      f"{run['variants']}, expected {want}")
+            print(f"[spmd] {card}: {MIXTRAL} widths, {L} layers, "
+                  f"{SPMD_BATCH} x {SPMD_MIXTRAL_TOKENS} prefill (window "
+                  f"4096), dispatch {mode}, rank {r} ({SPMD_LABEL}): "
+                  f"capacity factor 1.25: wall {m['published']['wall']:.3f}"
+                  f" s, {m['published']['drops']} assignments dropped, "
+                  f"launches {m['published']['variants']}, local kernel "
+                  f"calls {m['published']['calls']}, collectives per layer "
+                  f"{m['published']['comm_per_layer']}; capacity factor "
+                  f"{SPMD_NO_DROP_CF} at {SPMD_BATCH} x "
+                  f"{SPMD_NO_DROP_TOKENS}: wall {m['no drop']['wall']:.3f} "
+                  f"s, {m['no drop']['drops']} dropped")
+            check(m["no drop"]["drops"] == 0, f"[spmd] {mode} dropped "
+                  f"at capacity factor {SPMD_NO_DROP_CF}")
+        print(f"[spmd] rank {r} peak memory: qwen2 "
+              f"{rec['qwen2']['peak'] / 2**30:.2f} GiB, mixtral "
+              f"{rec['mixtral_peak'] / 2**30:.2f} GiB")
+    base = ranks[0]["mixtral"]["xy"]["no drop"]["logits"]
+    merr = max(_rel_err(rec["mixtral"][mode]["no drop"]["logits"], base)
+               for rec in ranks for mode in SPMD_MODES)
+    print(f"[spmd] {MIXTRAL} logits of {SPMD_BATCH} x {SPMD_NO_DROP_TOKENS} "
+          f"tokens at capacity factor {SPMD_NO_DROP_CF} (nothing dropped), "
+          f"every mode and rank vs xy on rank 0: max "
+          f"error {merr:.3e} of the largest logit (tolerance 2e-2)")
+    check(merr <= 2e-2, f"[spmd] mixtral modes disagree by {merr}")
+    kerr = max(e for rec in ranks for e in rec["kernel_errs"].values())
+
+    # the fp32 mesh Server vs the single-card Server
+    cfg32 = dataclasses.replace(_spmd_cfg(MIXTRAL), dtype="float32")
+    server = Server(cfg32, slots=4, max_seq=64, device=device)
+    for rid, prompt, max_new in requests:
+        server.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+    t0 = time.perf_counter()
+    server.run(tick_limit=1000)
+    single_server = time.perf_counter() - t0
+    alone = [r.out for r in sorted(server.completed, key=lambda r: r.rid)]
+    ticks = server.ticks
+    del server
+    torch.cuda.empty_cache()
+    for r, rec in enumerate(ranks):
+        s = rec["server"]
+        per_tick = {k: {v: n / max(s["ticks"], 1) for v, n in d.items()
+                        if n} for k, d in s["variants"].items()}
+        print(f"[spmd] {card}: fp32 {MIXTRAL} widths, {L} layers, mesh "
+              f"Server rank {r} ({SPMD_LABEL}; rows over {s['batch']}, KV "
+              f"cache over {s['kv_seq']}, MoE {s['mode']}): 8 requests x 16 "
+              f"prompt tokens, 16 new, 4 slots: {s['ticks']} ticks, wall "
+              f"{s['wall']:.3f} s ({s['wall'] / s['ticks'] * 1e3:.1f} ms a "
+              f"tick; one card alone {single_server / ticks * 1e3:.1f} ms); "
+              f"launches per tick {per_tick}; collectives {s['comm']}")
+        check(s["outs"] == alone and s["ticks"] == ticks,
+              f"[spmd] rank {r}: mesh Server tokens differ from the "
+              f"single-card Server's")
+        check(s["variants"]["moe_gmm"]["f32"] == 3 * L * s["ticks"],
+              f"[spmd] rank {r}: server GMM launches {s['variants']}")
+    print(f"[spmd] mesh Server tokens identical to the single-card Server "
+          f"on every rank ({ticks} ticks)")
+
+    calls = sorted({c for rec in ranks for c in rec["qwen2"]["calls"]} |
+                   {c for rec in ranks for m in rec["mixtral"].values()
+                    for c in m["published"]["calls"]})
+    times = _spmd_times(device, calls)
+    for key, t in times.items():
+        print(f"[spmd times] {card}: {key[0]} at a rank's local shape "
+              f"{key[1]} window {key[2]} (the card alone): kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"{t['library']} {t['library_ms']:.4f} ms, bound "
+              f"{t['bound'][0]:.4f} ms by {t['bound'][1]}")
+    print(f"[spmd] phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"(the ranks {ranks_wall:.1f} s of it)")
+    return {"ranks": ranks, "times": times, "kernel_err": kerr}
+
+
+def spmd_entries(spmd, replaces):
+    """The ``kernels`` entries of the [spmd] paths: one per kernel and
+    local shape of the published runs (Qwen2-72B's prefill; each Mixtral
+    dispatch mode's prefill at capacity factor 1.25), its launches summed
+    over the ranks (``launches_by_rank`` beside), its error the worst
+    rank's against the plain version, its times at that local shape on
+    the card alone."""
+    ranks, times = spmd["ranks"], spmd["times"]
+    runs = [("qwen2", None, lambda rec: rec["qwen2"])] + \
+        [(f"mixtral_{m}", m, lambda rec, m=m: rec["mixtral"][m]["published"])
+         for m in SPMD_MODES]
+    out = []
+    for label, mode, get in runs:
+        calls = sorted({c for rec in ranks for c in get(rec)["calls"]})
+        for kind in ("flash", "gmm"):
+            mine = [c for c in calls if c[0] == kind]
+            if not mine or (kind == "flash" and mode not in (None, "xy")):
+                continue         # the modes share one flash shape: one entry
+            name = "flash_attention" if kind == "flash" else "moe_gmm"
+            variant = "wgmma_tma" if kind == "flash" else "tma"
+            key = mine[0]
+            by_rank = [get(rec)["variants"][name][variant] for rec in ranks]
+            if kind == "flash" and mode == "xy":     # every mode's launches
+                by_rank = [sum(rec["mixtral"][m]["published"]["variants"]
+                               [name][variant] for m in SPMD_MODES)
+                           for rec in ranks]
+            t = times[key]
+            entry = {
+                "name": f"{name}_spmd_{label if kind == 'gmm' else label.split('_')[0]}",
+                "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces[name], "launches": sum(by_rank),
+                "launches_by_rank": by_rank,
+                "max_abs_err": max(rec["kernel_errs"][key[:2]]
+                                   for rec in ranks),
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "library_ms": t["library_ms"], "library": t["library"],
+                "checked_against_plain": True, "variant": variant,
+                "path": f"[spmd] {label} prefill, {SPMD_LABEL}",
+                "shape": f"local {key[1]} window {key[2]}"}
+            if kind == "gmm" and len(mine) > 1:
+                d = times[mine[1]]
+                entry["down"] = {"shape": f"local {mine[1][1]}",
+                                 "ms": d["ms"], "plain_ms": d["plain_ms"],
+                                 "library_ms": d["library_ms"],
+                                 "bound_ms": d["bound"][0],
+                                 "bound_by": d["bound"][1],
+                                 "max_abs_err": max(
+                                     rec["kernel_errs"][mine[1][:2]]
+                                     for rec in ranks)}
+            check(entry["launches"] > 0, f"{entry['name']} never launched")
+            out.append(entry)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3064,6 +3699,7 @@ def main() -> int:
         reduced_training("cuda", arch)
     trains = train_paths("cuda")
     bwd_times = train_kernel_timings("cuda")
+    spmd = spmd_phase("cuda")
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:86",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
                 "moe_gmm": "src/repro/kernels/moe_gmm.py:44"}
@@ -3168,6 +3804,7 @@ def main() -> int:
                      "bound_ms": d["bound"][0], "bound_by": d["bound"][1],
                      "max_abs_err": d["err"],
                      "transposed_copy_ms": d["copy_ms"]}})
+    kernels += spmd_entries(spmd, replaces)
     for arch, r in trains.items():
         print(f"[summary] {card_line()}: {arch} training {r['tokens']} tokens "
               f"a step: warm step {r['warm'] * 1e3:.1f} ms, "

@@ -38,13 +38,18 @@ A package of its own beside the JAX reference ``repro``; it imports
   in the reference's on-disk layout (counterpart of ``repro.checkpoint``);
 * :mod:`repro_torch.runtime` — the fault-tolerant ``Trainer``
   (counterpart of ``repro.runtime``);
-* :mod:`repro_torch.launch` — the train, prefill and serve steps, the
-  training launcher and the continuous-batching ``Server`` (counterpart
-  of ``repro.launch``);
-* :mod:`repro_torch.core` — the network constants.
+* :mod:`repro_torch.launch` — the train, prefill and serve steps and
+  ``cell_rules``, the training launcher, the continuous-batching
+  ``Server`` (on one card or on a mesh) and the meshes and rank launcher
+  (counterpart of ``repro.launch``);
+* :mod:`repro_torch.parallel` — the named mesh of process groups and its
+  collectives, and the sharding rules (counterpart of ``repro.parallel``);
+* :mod:`repro_torch.core` — the paper's SPMD mechanisms (PGAS addressing,
+  XY collectives, credits, remote store / load / CAS, token queues, the
+  endpoint, barrier and mutex), the network constants and the oracle.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 __all__ = ["checkpoint", "configs", "core", "data", "dse", "kernels",
-           "launch", "mesh", "models", "netsim", "optim", "runtime",
-           "sim_service", "workloads"]
+           "launch", "mesh", "models", "netsim", "optim", "parallel",
+           "runtime", "sim_service", "workloads"]

@@ -1,33 +1,60 @@
-"""The three step kinds (the port's counterpart of the steps of
-``repro.launch.step``, one card, no sharding rules).
+"""The three step kinds and the per-cell sharding rules (the port's
+counterpart of ``repro.launch.step``).
 
-* ``train_step``   — loss, backward and the AdamW update;
+* ``train_step``   — loss, backward and the AdamW update (one card);
 * ``prefill_step`` — forward, last-token logits only;
 * ``serve_step``   — one ``decode_step`` against the KV cache, then greedy
                      next tokens.
 
 The reference's ``make_train_step(cfg, rules, opt_cfg)``,
 ``make_prefill_step(cfg, rules)`` and ``make_serve_step(cfg, rules)``
-build closures over the config and the sharding rules; on one card there
-is nothing to close over, so these are plain functions of the model (an
-``nn.Module`` from ``repro_torch.models.get_model``).
+build closures over the config and the sharding rules; here they are
+plain functions of the model (an ``nn.Module`` from
+``repro_torch.models.get_model``), the serving two with an optional
+``rules``: without it they run on one card exactly as before; with it
+(on a mesh, every rank calling them in lockstep with the global batch)
+the model runs its SPMD islands and every rank gets the global result.
+:func:`cell_rules` adapts a strategy to a cell as the reference's does.
 ``batch["positions"]`` is passed through as the reference passes it: (B,
 S), or (3, B, S) for Qwen2-VL's M-RoPE; for the ``audio`` family
 (Whisper) ``batch["frames"]`` (B, encoder_seq, D) too.  The serving steps
 build no autograd graph, whether or not the parameters require
-gradients.  The reference's cells (``build_cell``, shardings,
-ShapeDtypeStruct stand-ins) belong to the SPMD slice and the dry run.
+gradients.  The reference's jit cells (``build_cell``, shardings,
+ShapeDtypeStruct stand-ins) serve its dry run, which has no counterpart
+here; SPMD training is the next slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
 
 from repro_torch import optim
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.parallel.sharding import Rules, make_rules
 
-__all__ = ["train_step", "prefill_step", "serve_step"]
+__all__ = ["train_step", "prefill_step", "serve_step", "cell_rules"]
+
+
+def cell_rules(mesh, cfg: ModelConfig, shape: ShapeConfig,
+               strategy: str = "baseline", **overrides) -> Rules:
+    """The strategy's rules adapted to the cell's divisibility: a batch
+    that does not divide the data-parallel axes is not sharded, and a
+    decode cell then spreads the KV cache's sequence over every axis
+    ("virtual mesh" over the whole edge); inference rematerialises
+    nothing."""
+    rules = make_rules(mesh, strategy, **overrides)
+    dp = rules.axis_size(rules.batch)
+    if shape.global_batch % max(dp, 1) != 0:
+        kv = tuple(a for a in ("data", "model") if rules.has_axis(a))
+        rules = dataclasses.replace(rules, batch=None, zero1=None,
+                                    kv_seq=kv if shape.kind == "decode"
+                                    else rules.kv_seq)
+    if shape.kind != "train":
+        rules = dataclasses.replace(rules, remat="none")
+    return rules
 
 
 def train_step(model, opt_cfg: optim.OptConfig, opt_state: Dict[str, Any],
@@ -60,22 +87,27 @@ def train_step(model, opt_cfg: optim.OptConfig, opt_state: Dict[str, Any],
 
 
 @torch.no_grad()
-def prefill_step(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def prefill_step(model, batch: Dict[str, torch.Tensor],
+                 rules: Optional[Rules] = None) -> torch.Tensor:
     """(B, V) next-token logits of ``batch["tokens"]`` (B, S) (optional
     ``batch["positions"]``, (B, S) or (3, B, S); ``batch["frames"]`` for
-    the audio family)."""
+    the audio family); on a mesh under ``rules``."""
     kwargs = {}
     if model.cfg.family == "audio":
         kwargs["frames"] = batch["frames"]
+    if rules is not None:
+        kwargs["rules"] = rules
     logits, _aux = model(batch["tokens"], positions=batch.get("positions"),
                          last_only=True, **kwargs)
     return logits[:, 0]
 
 
 @torch.no_grad()
-def serve_step(model, cache: Dict[str, torch.Tensor], tokens: torch.Tensor
+def serve_step(model, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+               rules: Optional[Rules] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step, then the argmax of the logits: (next_tokens (B,)
-    int32, cache)."""
-    logits, cache = model.decode_step(cache, tokens)
+    int32, cache); on a mesh under ``rules``."""
+    kwargs = {} if rules is None else {"rules": rules}
+    logits, cache = model.decode_step(cache, tokens, **kwargs)
     return logits.argmax(-1).to(torch.int32), cache

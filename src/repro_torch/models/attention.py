@@ -1,21 +1,29 @@
-"""Attention (the port's counterpart of ``repro.models.attention``, one
-card): the materialised reference and single-shard decode attention
-against a KV cache.  The forward's attention is the flash kernel,
-``repro_torch.kernels.ops.flash_attention_op``, called by the attention
-block; the reference's ``attention(impl=...)`` dispatch has no
-counterpart.
+"""Attention (the port's counterpart of ``repro.models.attention``): the
+materialised reference and decode attention against a KV cache, on one
+card or with the cache sharded over the sequence.  The forward's
+attention is the flash kernel, ``repro_torch.kernels.ops.
+flash_attention_op``, called by the attention block; the reference's
+``attention(impl=...)`` dispatch has no counterpart (its ``chunked``,
+``ref`` and ``flash`` compute one function).
 
-The reference's ``chunked`` implementation and its sequence-sharded
-``decode_attention`` (a ``shard_map`` island combining partial softmax
-statistics across the ``model`` axis) belong to the SPMD slice; on one
-card decode attention is the reference's single-shard path,
-:func:`_local_decode`.
+Decode is the paper-C7 "virtual mesh" layout: the KV cache is
+sequence-sharded over ``rules.kv_seq`` (each rank owns a contiguous slab
+of the context, like a bank of the distributed DRAM), every rank computes
+partial attention for all heads over its slab, and the partials combine
+with a numerically exact log-sum-exp on the reverse path:
+``all_reduce(MAX)`` of the running maxima, then ``all_reduce(SUM)`` of
+the rescaled numerators and denominators over the ``kv_seq`` group (the
+reference's ``pmax`` / ``psum`` inside a ``shard_map`` island), including
+the two-axis ``("data", "model")`` group ``cell_rules`` builds when the
+batch does not divide.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.parallel import comm
 
 __all__ = ["repeat_kv", "reference_attention", "decode_attention"]
 
@@ -64,10 +72,26 @@ def reference_attention(q, k, v, *, causal: bool = True,
 
 
 def decode_attention(q, k_cache, v_cache, cache_len,
-                     window: Optional[int] = None) -> torch.Tensor:
-    """One-token attention against a KV cache on one card.  q: (B, H, hd);
-    k/v_cache: (B, S, K, hd); cache_len: (B,) valid prefix length."""
-    return _local_decode(q, k_cache, v_cache, cache_len, 0, window)[0]
+                     window: Optional[int] = None, rules=None) -> torch.Tensor:
+    """One-token attention against a KV cache.  q: (B, H, hd); k/v_cache:
+    (B, S, K, hd); cache_len: (B,) valid prefix length (global positions).
+
+    With ``rules`` whose ``kv_seq`` the mesh has, ``k_cache``/``v_cache``
+    are this rank's slab of the sequence, which starts at ``idx * S``
+    (``idx`` the rank's row-major index over the ``kv_seq`` axes), and
+    the partial statistics combine over the ``kv_seq`` group."""
+    kv_axes = None if rules is None else rules._clean(rules.kv_seq)
+    if kv_axes is None:
+        return _local_decode(q, k_cache, v_cache, cache_len, 0, window)[0]
+    mesh = rules.mesh
+    offset = mesh.index(kv_axes) * k_cache.shape[1]
+    _out, (num, m, den) = _local_decode(q, k_cache, v_cache, cache_len,
+                                        offset, window)
+    m_all = comm.all_reduce(m, mesh, kv_axes, "max")
+    corr = torch.exp(m - m_all)
+    num = comm.all_reduce(num * corr[..., None], mesh, kv_axes)
+    den = comm.all_reduce(den * corr, mesh, kv_axes)
+    return (num / den.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 def _local_decode(q, k, v, cache_len, pos_offset: int,

@@ -50,6 +50,10 @@ class TableModule(nn.Module):
     reference initialises each (``ones``, ``zeros``, ``A_log``, ``dense``).
     Subclasses set the three as static methods.
 
+    With ``rules`` (``repro_torch.parallel.sharding.Rules``) the module
+    holds this rank's block of each parameter, the shapes of
+    ``shard_table(cfg, rules)``.
+
     With ``params`` (a state dict on ``device``, e.g. from
     ``repro_torch.models.convert``) the module holds those tensors
     themselves, without a copy, so several modules can share one set of
@@ -78,12 +82,22 @@ class TableModule(nn.Module):
     def init_rule(name: str) -> str:
         raise NotImplementedError
 
+    @staticmethod
+    def shard_table(cfg: ModelConfig, rules) -> Dict[str, Tuple[int, ...]]:
+        """Name -> shape of this rank's block of every parameter under
+        sharding ``rules``; a family without SPMD islands refuses rules."""
+        raise NotImplementedError(
+            f"the {cfg.family} family does not run on a mesh yet")
+
     def __init__(self, cfg: ModelConfig, device=None,
-                 params: Optional[Dict[str, torch.Tensor]] = None):
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 rules=None):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
-        table = self.param_table(cfg)
+        self.rules = rules
+        table = self.param_table(cfg) if rules is None \
+            else self.shard_table(cfg, rules)
         if params is not None and set(params) != set(table):
             raise KeyError(f"parameter names differ from the table: "
                            f"{sorted(set(params) ^ set(table))}")

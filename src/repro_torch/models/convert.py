@@ -18,7 +18,7 @@ from repro_torch.kernels.backend import resolve_device
 from .api import get_model
 from .layers import init_dense
 
-__all__ = ["params_from_jax", "init_params"]
+__all__ = ["params_from_jax", "init_params", "shard_params"]
 
 
 def params_from_jax(cfg: ModelConfig, params: Mapping[str, np.ndarray],
@@ -45,17 +45,36 @@ def params_from_jax(cfg: ModelConfig, params: Mapping[str, np.ndarray],
     return out
 
 
+def shard_params(cfg: ModelConfig, params: Dict[str, torch.Tensor],
+                 rules) -> Dict[str, torch.Tensor]:
+    """This rank's blocks of full parameters (a state dict from
+    :func:`params_from_jax` or :func:`init_params`) under sharding
+    ``rules``: the shapes of the family's ``shard_table``
+    (``transformer.shard_params``; the families without SPMD islands
+    refuse rules)."""
+    get_model(cfg).shard_table(cfg, rules)
+    from .transformer import shard_params as cut
+    return cut(cfg, params, rules)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> Dict[str, torch.Tensor]:
+                device=None, rules=None) -> Dict[str, torch.Tensor]:
     """Random parameters by the reference's rules for the config's family
     (``init_rule``: ``ones``, ``zeros``, ``A_log`` the log of
     ``linspace(1, 16)`` over the heads, ``dense`` truncated-normal fan-in),
     in the dtypes of ``param_dtype`` (the router and the SSM's ``A_log``
     and ``dt_bias`` in fp32).  Drawn from ``generator`` (which must live
     on ``device``) in sorted name order; the reference's JAX keys give
-    other numbers."""
+    other numbers.  With sharding ``rules``, each tensor is cut to this
+    rank's block as soon as it is drawn (the same numbers as
+    :func:`shard_params` of the full draw, without holding the whole)."""
     model = get_model(cfg)
     device = resolve_device(device)
+    specs = None
+    if rules is not None:
+        model.shard_table(cfg, rules)     # families without islands refuse
+        from .transformer import _cut, param_specs
+        specs = param_specs(cfg, rules)
     out = {}
     for name, shape in sorted(model.param_table(cfg).items()):
         dtype = model.param_dtype(cfg, name)
@@ -70,4 +89,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             out[name] = a.expand(shape).to(dtype).contiguous()
         else:
             out[name] = init_dense(shape, dtype, generator, device)
+        if specs is not None:
+            out[name] = _cut(out[name], specs[name], rules)
     return out

@@ -1,5 +1,6 @@
 """Decoder-only transformer: the dense, MoE and VLM backbones (the port's
-counterpart of ``repro.models.transformer``, for serving on one card).
+counterpart of ``repro.models.transformer``), on one card or on a mesh of
+ranks.
 
 Covers qwen2-72b, yi-34b, qwen1.5-32b, stablelm-3b, mixtral-8x7b,
 moonshot-v1-16b-a3b and qwen2-vl-72b, and lends its attention block and
@@ -22,13 +23,41 @@ which is the same for text positions (``ROADMAP.md`` C-5).
 
 :meth:`Transformer.loss` is the reference's ``loss_fn`` and the forward's
 ``remat="full"`` its ``Rules.remat`` (each layer rematerialised in the
-backward).  The reference's SPMD islands (``_attn_manual``,
-``_mlp_manual``, ``_resolve_axis``, ``param_specs``, ``cache_specs``)
-belong to the SPMD slice; without sharding rules its ``_decode_rules``
-has nothing to rewrite, so it has no counterpart here.
+backward).
+
+**On a mesh** (``Transformer(cfg, device, params, rules=rules)``, every
+rank running the same code on its own block; ``rules`` from
+``repro_torch.parallel.sharding``).  :func:`param_specs` is the
+reference's table of parameter shardings and :func:`shard_params` cuts a
+rank's block out of full parameters (``convert.init_params(...,
+rules=)`` draws them so).  The forward and ``decode_step`` take the
+global tokens on every rank and return the global logits on every rank.
+Inside, the activations are the reference's layout: rows over
+``rules.batch``, the sequence over ``model`` (Megatron SP), and
+
+* the embedding is vocab-sharded: each rank looks up the tokens of its
+  vocabulary block and the blocks are reduce-scattered straight to the
+  sequence-sharded layout; the LM head's vocab blocks are all-gathered;
+* attention is the reference's Megatron island (:func:`_attn_manual`,
+  where :func:`_manual_tp_ok`): the normed input all-gathered once, this
+  column's q heads and GQA KV slice, RoPE or M-RoPE, the flash kernel at
+  the local heads, ``wo``, then a reduce-scatter back to
+  sequence-sharded (a sum where the sequence does not divide);
+* the dense MLP is its SwiGLU island (:func:`_mlp_manual`); the MoE FFN
+  is ``moe.moe_block``'s dispatch mode;
+* where the reference leaves a layer to GSPMD (``manual_tp=False``, or
+  heads that do not land whole on each column), the port gathers that
+  layer's weight blocks over their axes and computes the single-card
+  layer on the gathered sequence, keeping its own sequence block: the
+  same function in a layout of the port's own choosing;
+* decode keeps the KV cache sharded over ``batch`` and ``kv_seq``
+  (:func:`cache_specs`): the new token's K/V are written by the rank that
+  owns its slot, and attention combines the slabs' partial softmax
+  statistics (``attention.decode_attention``).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -36,13 +65,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_attention_op
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import Layout, Rules
 from . import moe as moe_mod
 from .attention import decode_attention
 from .base import TableModule, run_layer
 from .layers import embed_lookup, mrope, rms_norm, rope, swiglu
 
 __all__ = ["param_table", "param_dtype", "init_rule", "attn_block",
-           "scatter_kv", "scatter_pos", "Transformer"]
+           "scatter_kv", "scatter_pos", "Transformer", "param_specs",
+           "shard_table", "shard_params", "gather_params", "cache_specs"]
 
 F32 = torch.float32
 
@@ -90,6 +122,121 @@ def init_rule(name: str) -> str:
     return "dense"
 
 
+# ---------------------------------------------------------------------------
+# sharding of the parameters (the reference's ``param_table`` axes,
+# ``_resolve_axis`` and ``param_specs``)
+# ---------------------------------------------------------------------------
+
+def param_labels(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Name -> the logical axis of each dimension, the reference table's:
+    "vocab" | "heads" | "kv_heads" | "ff" | "experts" | "ff_expert" |
+    None (the leading layer dimension included)."""
+    t = {"embed": ("vocab", None), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        t["lm_head"] = (None, "vocab")
+    lt = {"attn_norm": (None, None), "wq": (None, None, "heads"),
+          "wk": (None, None, "kv_heads"), "wv": (None, None, "kv_heads"),
+          "wo": (None, "heads", None), "mlp_norm": (None, None)}
+    if cfg.qkv_bias:
+        lt.update(bq=(None, "heads"), bk=(None, "kv_heads"),
+                  bv=(None, "kv_heads"))
+    if cfg.d_ff > 0:
+        lt.update(w_gate=(None, None, "ff"), w_up=(None, None, "ff"),
+                  w_down=(None, "ff", None))
+    if cfg.moe is not None:
+        exp = (None, "experts", None, "ff_expert")
+        lt.update(router=(None, None, None), moe_gate=exp, moe_up=exp,
+                  moe_down=(None, "experts", "ff_expert", None))
+    t.update({f"layers/{k}": v for k, v in lt.items()})
+    return t
+
+
+def _resolve_axis(cfg: ModelConfig, rules: Rules, label, size: int):
+    """The mesh axes a dimension labelled ``label`` of ``size`` is laid
+    over (the reference's ``_resolve_axis``; divisibility is checked on the
+    flat weight dimension).  Expert weights are sharded over ``experts``
+    (EP) where E divides it, else their FFN width over ``ff``.  One
+    difference: under ``dispatch="local"`` they are held FFN-sharded, as
+    ``_moe_local`` reads them, where the reference's table shards them
+    over experts and GSPMD reshards them inside every layer."""
+    if label is None:
+        return None
+    if label in ("heads", "kv_heads"):
+        return rules.dim_axis(rules.heads, size)
+    if label in ("vocab", "ff"):
+        return rules.dim_axis(getattr(rules, label), size)
+    ep = rules.axis_size(rules.experts)
+    use_ep = cfg.moe is not None and ep > 1 and \
+        cfg.moe.num_experts % ep == 0 and rules.dispatch not in ("tp",
+                                                                 "local")
+    if label == "experts":
+        return rules._clean(rules.experts) if use_ep else None
+    if label == "ff_expert":
+        return None if use_ep else rules.dim_axis(rules.ff, size)
+    raise KeyError(label)
+
+
+def param_specs(cfg: ModelConfig, rules: Rules) -> Dict[str, Tuple]:
+    """Name -> the mesh axes of each dimension (None: whole on every
+    rank); the counterpart of the reference's ``param_specs`` /
+    ``out_shardings``."""
+    table = param_table(cfg)
+    return {name: tuple(_resolve_axis(cfg, rules, a, table[name][d])
+                        for d, a in enumerate(labels))
+            for name, labels in param_labels(cfg).items()}
+
+
+def shard_table(cfg: ModelConfig, rules: Rules) -> Dict[str, Tuple]:
+    """Name -> the shape of this rank's block of each parameter."""
+    table = param_table(cfg)
+    return {name: tuple(n // rules.axis_size(a)
+                        for n, a in zip(table[name], axes))
+            for name, axes in param_specs(cfg, rules).items()}
+
+
+def _cut(t: torch.Tensor, axes, rules: Rules) -> torch.Tensor:
+    """This rank's block of ``t``, dimension ``d`` cut over ``axes[d]``."""
+    for d, a in enumerate(axes):
+        if a is not None:
+            n = t.shape[d] // rules.axis_size(a)
+            t = t.narrow(d, rules.mesh.index(a) * n, n)
+    return t.contiguous()
+
+
+def _join(t: torch.Tensor, axes, rules: Rules) -> torch.Tensor:
+    """The whole of a blocked tensor: each dimension all-gathered over its
+    axes (collective over every rank that holds a block)."""
+    for d, a in enumerate(axes):
+        if a is not None:
+            t = comm.all_gather(t, rules.mesh, a, d)
+    return t
+
+
+def shard_params(cfg: ModelConfig, params: Dict[str, torch.Tensor],
+                 rules: Rules) -> Dict[str, torch.Tensor]:
+    """Full parameters (every rank holding the same) -> this rank's
+    blocks, the shapes of :func:`shard_table`."""
+    return {name: _cut(params[name], axes, rules)
+            for name, axes in param_specs(cfg, rules).items()}
+
+
+def gather_params(cfg: ModelConfig, shards: Dict[str, torch.Tensor],
+                  rules: Rules) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_params` (collective; for tests and the
+    smoke)."""
+    return {name: _join(shards[name], axes, rules)
+            for name, axes in param_specs(cfg, rules).items()}
+
+
+def cache_specs(cfg: ModelConfig, rules: Rules) -> Dict[str, Tuple]:
+    """The decode cache's sharding: KV (L, B, S, K, hd) over ``batch``
+    and ``kv_seq``, ``pos`` (B, S) likewise, ``len`` (B,) over
+    ``batch``."""
+    b, s = rules._clean(rules.batch), rules._clean(rules.kv_seq)
+    return {"k": (None, b, s, None, None), "v": (None, b, s, None, None),
+            "pos": (b, s), "len": (b,)}
+
+
 def _rotate(t: torch.Tensor, cfg: ModelConfig,
             positions: torch.Tensor) -> torch.Tensor:
     """RoPE, or M-RoPE when the config has ``mrope_sections``.
@@ -121,6 +268,105 @@ def attn_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
     return x + out.reshape(B, S, H * hd) @ lp["wo"]
 
 
+# ---------------------------------------------------------------------------
+# the SPMD islands (each runs on this rank's block)
+# ---------------------------------------------------------------------------
+
+def _manual_tp_ok(cfg: ModelConfig, rules: Optional[Rules]) -> bool:
+    """Explicit-island Megatron TP applies when whole q heads land on
+    each column and the per-column heads align with GQA groups."""
+    if rules is None or not rules.manual_tp or rules.heads != "model" \
+            or not rules.has_axis("model"):
+        return False
+    tp = rules.axis_size("model")
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    if tp <= 1 or H % tp:
+        return False
+    hq, g = H // tp, H // K
+    return hq % g == 0 or g % hq == 0
+
+
+def _seq_gather(h: torch.Tensor, rules: Rules, lay: Layout) -> torch.Tensor:
+    return comm.all_gather(h, rules.mesh, "model", 1) if lay.seq else h
+
+
+def _seq_return(out: torch.Tensor, rules: Rules, lay: Layout):
+    """A partial (b, S, D) sum over ``model`` back to this rank's block:
+    reduce-scattered over the sequence, or summed."""
+    if lay.seq:
+        return comm.reduce_scatter(out, rules.mesh, "model", 1)
+    return comm.all_reduce(out, rules.mesh, "model")
+
+
+def _attn_manual(x, lp, cfg: ModelConfig, rules: Rules, positions,
+                 lay: Layout):
+    """Megatron TP attention (the reference's ``shard_map`` island over
+    ``model``): all-gather the normed block input once, project into this
+    column's q heads and its GQA KV slice, attend with the flash kernel at
+    the local heads, and reduce-scatter the ``wo`` product straight back
+    to the sequence-sharded layout.  Collectives per layer: 1 AG(h) + 2
+    AG(k, v) + 1 RS(out).  ``positions``: this rank's rows, the whole
+    sequence."""
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp = rules.axis_size("model")
+    hq, g = H // tp, H // K
+    kv_w = max(hq // g, 1)                       # KV heads per column
+    col = rules.mesh.index("model")
+    h = _seq_gather(rms_norm(x, lp["attn_norm"], cfg.norm_eps), rules, lay)
+    bl, sl, _ = h.shape
+    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    # k/v columns hold K*hd/tp lanes: gather whole KV heads, take this
+    # column's GQA slice
+    kv0 = (col * hq) // g
+    k = comm.all_gather(k, rules.mesh, "model", 2).reshape(bl, sl, K, hd)
+    v = comm.all_gather(v, rules.mesh, "model", 2).reshape(bl, sl, K, hd)
+    k, v = k[:, :, kv0:kv0 + kv_w], v[:, :, kv0:kv0 + kv_w]
+    q = _rotate(q.reshape(bl, sl, hq, hd), cfg, positions)
+    k = _rotate(k, cfg, positions)
+    out = flash_attention_op(q, k, v, causal=True,
+                             window=cfg.sliding_window)
+    out = (out.reshape(bl, sl, hq * hd) @ lp["wo"]).to(x.dtype)
+    return x + _seq_return(out, rules, lay)
+
+
+def _mlp_manual(x, lp, cfg: ModelConfig, rules: Rules, lay: Layout):
+    """Megatron TP SwiGLU island: AG(h) -> local F/tp -> RS(out)."""
+    h = _seq_gather(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), rules, lay)
+    out = swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]).to(x.dtype)
+    return x + _seq_return(out, rules, lay)
+
+
+def _whole(lp, specs, names, rules: Rules):
+    """The named layer parameters with their blocks gathered (the layer
+    dimension of ``specs`` dropped)."""
+    return {k: _join(lp[k], specs["layers/" + k][1:], rules) for k in names
+            if k in lp}
+
+
+def _attn_gathered(x, lp, cfg: ModelConfig, rules: Rules, positions,
+                   lay: Layout, specs):
+    """Attention where the reference lets GSPMD place the layer: the port
+    gathers the weights and the sequence and runs the single-card block,
+    keeping this rank's sequence block."""
+    w = _whole(lp, specs, ("attn_norm", "wq", "wk", "wv", "wo", "bq",
+                           "bk", "bv"), rules)
+    y = attn_block(_seq_gather(x, rules, lay), w, cfg, positions)
+    return y[:, lay.positions(rules, y.shape[1])]
+
+
+def _decode_rules(rules: Optional[Rules]) -> Optional[Rules]:
+    """Decode's MoE rules: tokens replicated over the sequence, and the
+    ``xy`` dispatch (which needs a sharded sequence) left to divisibility
+    (``auto``)."""
+    if rules is None:
+        return None
+    return dataclasses.replace(rules, seq=None,
+                               dispatch="auto" if rules.dispatch == "xy"
+                               else rules.dispatch)
+
+
 def scatter_kv(cache: torch.Tensor, new: torch.Tensor,
                slot: torch.Tensor) -> torch.Tensor:
     """Write ``new`` (B, 1, K, hd) into ``cache`` (B, S, K, hd) at
@@ -148,6 +394,20 @@ class Transformer(TableModule):
     param_table = staticmethod(param_table)
     param_dtype = staticmethod(param_dtype)
     init_rule = staticmethod(init_rule)
+    shard_table = staticmethod(shard_table)
+
+    def _rules(self, rules: Optional[Rules]) -> Optional[Rules]:
+        """The rules of a call: ``rules``, else the model's own.  Rules
+        that lay the parameters out otherwise than the model holds them
+        are refused."""
+        if rules is None or rules is self.rules:
+            return self.rules
+        held = self.param_table(self.cfg) if self.rules is None \
+            else shard_table(self.cfg, self.rules)
+        if shard_table(self.cfg, rules) != held:
+            raise ValueError("these rules shard the parameters otherwise "
+                             "than the model holds them")
+        return rules
 
     @functools.cached_property
     def _layer_names(self) -> Tuple[str, ...]:
@@ -184,12 +444,16 @@ class Transformer(TableModule):
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                last_only: bool = False, remat: str = "none"
+                last_only: bool = False, remat: str = "none",
+                rules: Optional[Rules] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (logits (B, S or 1, V), MoE aux loss summed
         over layers).  ``positions``: (B, S), or (3, B, S) for M-RoPE;
         ``last_only`` computes the last position's logits only;
-        ``remat="full"`` rematerialises each layer in the backward."""
+        ``remat="full"`` rematerialises each layer in the backward.  On a
+        mesh (the model's ``rules``, or ``rules`` laying the parameters
+        out alike) every rank passes the global tokens and positions and
+        gets the global logits."""
         cfg = self.cfg
         B, S = tokens.shape
         if positions is None:
@@ -197,6 +461,12 @@ class Transformer(TableModule):
                                      device=tokens.device).expand(B, S)
             if cfg.mrope_sections is not None:
                 positions = positions.expand(3, B, S)
+        rules = self._rules(rules)
+        if rules is not None:
+            if remat != "none":
+                raise ValueError("training on a mesh is not ported yet: "
+                                 "remat must be 'none' with rules")
+            return self._spmd_forward(tokens, positions, last_only, rules)
         x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
         aux = torch.zeros((), dtype=F32, device=x.device)
         for i in range(cfg.num_layers):
@@ -206,6 +476,100 @@ class Transformer(TableModule):
             x = x[:, -1:]
         x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)
         return x @ self._head(), aux
+
+    # -- on a mesh ---------------------------------------------------------
+    def _embed(self, tokens: torch.Tensor, rules: Rules, lay: Layout,
+               specs) -> torch.Tensor:
+        """This rank's block (b, s, D) of the embedding of its rows'
+        ``tokens`` (b, S).  A vocab-sharded table: each rank looks up the
+        tokens of its block (zeros elsewhere) and the blocks are summed
+        (one non-zero term: exact), reduce-scattered straight to the
+        sequence block where the sequence is sharded over the same
+        axis."""
+        table, va = self._p("embed"), specs["embed"][0]
+        S = tokens.shape[1]
+        if va is None:
+            x = embed_lookup(table, tokens)[:, lay.positions(rules, S)]
+            return x.to(self.cfg.param_dtype)
+        n = table.shape[0]
+        local = tokens - rules.mesh.index(va) * n
+        ok = (local >= 0) & (local < n)
+        x = torch.where(ok[..., None], embed_lookup(table,
+                                                    local.clamp(0, n - 1)),
+                        0)
+        if lay.seq and rules.mesh.names(va) == ("model",):
+            x = comm.reduce_scatter(x, rules.mesh, "model", 1)
+        else:
+            x = comm.all_reduce(x, rules.mesh, va)
+            x = x[:, lay.positions(rules, S)]
+        return x.to(self.cfg.param_dtype)
+
+    def _logits(self, x: torch.Tensor, rules: Rules, lay: Layout,
+                specs) -> torch.Tensor:
+        """The global logits (B, s, V) of this rank's final hidden rows x
+        (b, s, D) (every column holding the same rows): the vocab blocks
+        all-gathered, then the batch rows."""
+        x = rms_norm(x, self._p("final_norm"), self.cfg.norm_eps)
+        if self.cfg.tie_embeddings:
+            head, va = self._p("embed").T, specs["embed"][0]
+        else:
+            head, va = self._p("lm_head"), specs["lm_head"][1]
+        logits = x @ head
+        if va is not None:
+            logits = comm.all_gather(logits, rules.mesh, va, logits.dim() - 1)
+        if lay.batch is not None:
+            logits = comm.all_gather(logits, rules.mesh, lay.batch, 0)
+        return logits
+
+    def _spmd_mlp(self, x: torch.Tensor, lp, rules: Rules, lay: Layout,
+                  specs, decode: bool = False):
+        """The MLP with its residual on this rank's block; (x, aux)."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=F32, device=x.device)
+        ff = specs["layers/w_gate"][2] if cfg.d_ff > 0 else None
+        if cfg.moe is None and ff == "model" and (rules.manual_tp or decode):
+            return _mlp_manual(x, lp, cfg, rules, lay), aux
+        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        out = 0
+        if cfg.moe is not None:
+            out, aux = moe_mod.moe_block(
+                h, {"router": lp["router"], "w_gate": lp["moe_gate"],
+                    "w_up": lp["moe_up"], "w_down": lp["moe_down"]}, cfg,
+                _decode_rules(rules) if decode else rules, lay)
+        if cfg.d_ff > 0:
+            w = _whole(lp, specs, ("w_gate", "w_up", "w_down"), rules)
+            out = out + swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
+        return x + out, aux
+
+    def _spmd_forward(self, tokens, positions, last_only: bool,
+                      rules: Rules):
+        cfg = self.cfg
+        B, S = tokens.shape
+        lay = Layout.of(rules, B, S)
+        rows = lay.rows(rules, B)
+        pos = positions[..., rows, :]
+        specs = param_specs(cfg, rules)
+        x = self._embed(tokens[rows], rules, lay, specs)
+        aux = torch.zeros((), dtype=F32, device=x.device)
+        manual = _manual_tp_ok(cfg, rules)
+        for i in range(cfg.num_layers):
+            lp = self._layer(i)
+            if manual:
+                x = _attn_manual(x, lp, cfg, rules, pos, lay)
+            else:
+                x = _attn_gathered(x, lp, cfg, rules, pos, lay, specs)
+            x, a = self._spmd_mlp(x, lp, rules, lay, specs)
+            aux = aux + a
+        if last_only:
+            x = x[:, -1:]
+            if lay.seq:       # the last position lives on the last column
+                last = rules.mesh.index("model") == \
+                    rules.axis_size("model") - 1
+                x = comm.all_reduce(x if last else torch.zeros_like(x),
+                                    rules.mesh, "model")
+        else:
+            x = _seq_gather(x, rules, lay)
+        return self._logits(x, rules, lay, specs), aux
 
     def loss(self, batch: Dict[str, torch.Tensor], remat: str = "none"
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -226,31 +590,61 @@ class Transformer(TableModule):
                    filled: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Decode cache on the model's device: KV (L, B, S_cache, K, hd),
         the position held in each cache row ``pos`` (B, S_cache) (-1 where
-        empty) and the filled length ``len`` (B,)."""
-        cfg, dev = self.cfg, self.device
+        empty) and the filled length ``len`` (B,).  On a mesh, this rank's
+        block of it (:func:`cache_specs`): its rows and its slab of the
+        sequence."""
+        cfg, dev, rules = self.cfg, self.device, self.rules
         S = self.cache_len(max_seq)
         filled = 0 if filled is None else filled
-        shape = (cfg.num_layers, batch, S, cfg.num_kv_heads, cfg.head_dim)
         idx = torch.arange(S, dtype=torch.int32, device=dev)
+        if rules is not None:
+            kv = rules._clean(rules.kv_seq)
+            if S % rules.axis_size(kv):
+                raise ValueError(f"a cache of {S} positions does not "
+                                 f"divide over kv_seq {kv}")
+            n = S // rules.axis_size(kv)
+            idx = idx[rules.mesh.index(kv) * n:][:n] if kv else idx
+            lay = Layout(rules.dim_axis(rules.batch, batch), False)
+            self._cache_rows = lay.rows(rules, batch)
+            batch = len(range(batch)[self._cache_rows])
+        shape = (cfg.num_layers, batch, len(idx), cfg.num_kv_heads,
+                 cfg.head_dim)
         pos = torch.where(idx < filled, idx, -1)
         return {
             "k": torch.zeros(shape, dtype=cfg.param_dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.param_dtype, device=dev),
-            "pos": pos.expand(batch, S).contiguous(),
+            "pos": pos.expand(batch, len(idx)).contiguous(),
             "len": torch.full((batch,), filled, dtype=torch.int32,
                               device=dev),
         }
 
+    def reset_slot(self, cache: Dict[str, torch.Tensor], s: int) -> None:
+        """Start slot ``s`` (a global row) afresh; on a mesh only the
+        ranks holding that row of the cache of :meth:`init_cache` touch
+        it."""
+        if self.rules is not None:
+            rows = self._cache_rows          # of the last init_cache
+            if not rows.start <= s < rows.stop:
+                return
+            s -= rows.start
+        super().reset_slot(cache, s)
+
     @torch.no_grad()
     def decode_step(self, cache: Dict[str, torch.Tensor],
                     tokens: torch.Tensor,
-                    positions: Optional[torch.Tensor] = None
+                    positions: Optional[torch.Tensor] = None,
+                    rules: Optional[Rules] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Append ``tokens`` (B,) to every sequence of the cache and return
         (logits (B, V), cache).  ``positions`` defaults to ``len`` (for
         M-RoPE broadcast to (3, B)).  The K, V and ``pos`` tensors of
         ``cache`` are updated in place (the reference returns new arrays);
-        ``len`` is a new tensor."""
+        ``len`` is a new tensor.  On a mesh every rank passes the global
+        tokens (and positions) with its own cache block and gets the
+        global logits."""
+        rules = self._rules(rules)
+        if rules is not None:
+            return self._spmd_decode(cache, tokens, positions, rules)
         cfg = self.cfg
         B = tokens.shape[0]
         H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -280,3 +674,74 @@ class Transformer(TableModule):
         x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)
         scatter_pos(cache["pos"], cur_len, slot)
         return x @ self._head(), {**cache, "len": cur_len + 1}
+
+    def _spmd_decode(self, cache, tokens, positions, rules: Rules):
+        """``decode_step`` on a mesh: this rank's rows (``rules.batch``,
+        where the batch divides) against its slab of the cache
+        (``kv_seq``).  The projections run on this rank's weight blocks
+        and gather their head blocks; the slot's owner writes the new K/V
+        (a remote store to the owning shard); attention partials combine
+        over ``kv_seq``; ``wo`` and the dense MLP are row-parallel sums;
+        the MoE FFN runs under ``_decode_rules``."""
+        cfg, mesh = self.cfg, rules.mesh
+        B = tokens.shape[0]
+        H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        lay = Layout(rules.dim_axis(rules.batch, B), False)
+        rows = lay.rows(rules, B)
+        specs = param_specs(cfg, rules)
+        cur_len = cache["len"]
+        b = cur_len.shape[0]
+        if positions is None:
+            positions = cur_len.to(torch.int32)
+            if cfg.mrope_sections is not None:
+                positions = positions.expand(3, b)
+        else:
+            positions = positions[..., rows]
+        pos = positions[..., None]
+        kv = rules._clean(rules.kv_seq)
+        s_l = cache["k"].shape[2]
+        slot = cur_len % (s_l * rules.axis_size(kv))     # a window wraps
+        here = slot - (mesh.index(kv) * s_l if kv else 0)
+        mine = (here >= 0) & (here < s_l)                # this slab's slot
+        here = here.clamp(0, s_l - 1)
+        brow = torch.arange(b, device=slot.device)
+        x = self._embed(tokens[rows][:, None], rules, lay, specs)[:, 0]
+
+        def cols(h, lp, w, bias):
+            y = h @ lp[w]
+            if cfg.qkv_bias:
+                y = y + lp[bias]
+            a = specs["layers/" + w][2]
+            return y if a is None else comm.all_gather(y, mesh, a, 1)
+
+        def write(c, new):
+            c[brow, here] = torch.where(mine[:, None, None],
+                                        new.to(c.dtype), c[brow, here])
+            return c
+
+        for i in range(cfg.num_layers):
+            lp = self._layer(i)
+            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+            q = _rotate(cols(h, lp, "wq", "bq").reshape(b, 1, H, hd), cfg,
+                        pos)[:, 0]
+            k = _rotate(cols(h, lp, "wk", "bk").reshape(b, 1, K, hd), cfg,
+                        pos)[:, 0]
+            v = cols(h, lp, "wv", "bv").reshape(b, K, hd)
+            k_c, v_c = write(cache["k"][i], k), write(cache["v"][i], v)
+            att = decode_attention(q, k_c, v_c, cur_len + 1, rules=rules)
+            att = att.reshape(b, H * hd)
+            ha = specs["layers/wo"][1]
+            if ha is None:
+                x = x + att @ lp["wo"]
+            else:
+                n = H * hd // rules.axis_size(ha)
+                part = att[:, mesh.index(ha) * n:][:, :n] @ lp["wo"]
+                x = x + comm.all_reduce(part, mesh, ha)
+            x2, _aux = self._spmd_mlp(x[:, None], lp, rules, lay, specs,
+                                      decode=True)
+            x = x2[:, 0]
+        cur = cache["pos"][brow, here]
+        cache["pos"][brow, here] = torch.where(mine, cur_len.to(cur.dtype),
+                                               cur)
+        return self._logits(x, rules, lay, specs), \
+            {**cache, "len": cur_len + 1}

@@ -23,7 +23,7 @@ the reference does (``ROADMAP.md`` C-7).  :meth:`Whisper.loss` is the
 reference's ``loss_fn`` (the encoder run on ``batch["frames"]``);
 ``remat="full"`` rematerialises each encoder and each decoder layer in
 the backward.  The reference's ``param_specs`` and ``cache_specs`` belong
-to the SPMD slice.
+to a later slice (Whisper on a mesh, ``ROADMAP.md`` item 13c).
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@ calls ``apply``: a step that fails before then leaves parameters and
 state as they were, so it can be retried.
 
 The reference's ZeRO-1 banking of the state (``state_specs``,
-``state_shapes``, ``_zero1_spec``) belongs to the SPMD slice.
+``state_shapes``, ``_zero1_spec``) belongs to the SPMD training slice.
 """
 from __future__ import annotations
 

@@ -1,0 +1,279 @@
+"""The collective substrate of the port's SPMD code: a named device mesh
+over ``torch.distributed`` and the collectives the JAX package writes as
+``lax`` primitives inside ``shard_map``.
+
+Each JAX named axis becomes a process group of a
+``torch.distributed.device_mesh.DeviceMesh`` with ``mesh_dim_names``:
+
+* a JAX axis name -> ``mesh.get_group(name)`` (:meth:`Mesh.group`; a tuple
+  of axes -> one group over their product, ranks in row-major order);
+* ``lax.axis_index`` -> ``mesh.get_local_rank(name)`` (:meth:`Mesh.index`,
+  row-major over a tuple of axes);
+* ``lax.all_gather(tiled=True)`` / ``psum_scatter(tiled=True)`` /
+  ``psum`` / ``pmax`` / ``all_to_all(tiled=True)`` / ``ppermute`` ->
+  :func:`all_gather`, :func:`reduce_scatter`, :func:`all_reduce`,
+  :func:`all_to_all`, :func:`ppermute` (``batch_isend_irecv`` within the
+  group).
+
+Every function runs inside a rank, on the rank's local tensor, as the
+reference's run inside ``shard_map``; a group of one rank returns its
+input unchanged (a copy where the reference's result is a new array).
+
+**Backends.**  The process group's backend is chosen by whoever starts the
+ranks (:func:`repro_torch.launch.mesh.spawn`), never guessed here: ``gloo``
+on the CPU; on the card ``nccl`` when each rank has a card of its own,
+else ``gloo`` over CUDA tensors (ranks sharing one card: NCCL refuses two
+ranks of one communicator on one device).  Where gloo takes no CUDA
+tensor for an op, the op is staged through the host: :data:`HOST_STAGED`
+names those ops per backend, and :func:`staged` answers for a tensor.
+That table is the one place the decision is made, per op, from what the
+backend does, not from a failure.
+
+**Counting.**  Each call adds one to its op's ``calls`` and the bytes of
+its input to ``bytes`` in :data:`STATS` (read with :func:`comm_stats`,
+zeroed with :func:`reset_comm_stats`).  A call on a group of one rank
+moves nothing and is not counted.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Dict, Iterable, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["Mesh", "Axes", "HOST_STAGED", "staged", "all_gather",
+           "reduce_scatter", "all_reduce", "all_to_all", "ppermute",
+           "STATS", "comm_stats", "reset_comm_stats"]
+
+Axes = Union[str, Sequence[str], None]
+
+# Ops run through the host for CUDA tensors.  gloo (torch 2.11 on the H100
+# machine, 4 ranks sharing the card) takes CUDA tensors for all_gather,
+# reduce_scatter, all_reduce (sum, max) and all_to_all, and aborts on
+# them in point-to-point sends ("writev ... Bad address"): ppermute goes
+# through the host.  ``chip_smoke.py`` prints this table.
+HOST_STAGED: Dict[str, frozenset] = {
+    "gloo": frozenset({"ppermute"}),
+    "nccl": frozenset(),
+}
+
+STATS: Dict[str, Dict[str, int]] = {}
+
+
+def comm_stats() -> Dict[str, Dict[str, int]]:
+    """{op: {"calls": n, "bytes": b}} since the last reset, this rank."""
+    return {k: dict(v) for k, v in STATS.items()}
+
+
+def reset_comm_stats() -> None:
+    STATS.clear()
+
+
+def _count(op: str, x: torch.Tensor) -> None:
+    s = STATS.setdefault(op, {"calls": 0, "bytes": 0})
+    s["calls"] += 1
+    s["bytes"] += x.numel() * x.element_size()
+
+
+class Mesh:
+    """A named mesh of the ranks of the initialised default process group.
+
+    ``shape`` and ``axis_names`` as a JAX mesh's: ``Mesh((2, 4), ("data",
+    "model"))`` puts rank ``r`` at row ``r // 4``, column ``r % 4``.
+    ``device`` is where this rank's tensors live (``cpu`` or its card).
+    Collective: every rank constructs it, in the same order as its other
+    groups."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 device=None):
+        from torch.distributed.device_mesh import DeviceMesh
+        shape, axis_names = tuple(shape), tuple(axis_names)
+        n = 1
+        for s in shape:
+            n *= s
+        if n != dist.get_world_size():
+            raise ValueError(f"mesh {shape} needs {n} ranks, the process "
+                             f"group has {dist.get_world_size()}")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+        self.device = torch.device("cpu" if device is None else device)
+        self.backend = dist.get_backend()
+        ranks = torch.arange(n).reshape(shape)
+        self.device_mesh = DeviceMesh(self.device.type, ranks,
+                                      mesh_dim_names=axis_names)
+        # groups over two or more axes, ranks in row-major order
+        self._groups = {}
+        for k in range(2, len(axis_names) + 1):
+            for combo in itertools.combinations(range(len(axis_names)), k):
+                rest = [d for d in range(len(axis_names)) if d not in combo]
+                sub = ranks.permute(*rest, *combo).reshape(
+                    -1, *[shape[d] for d in combo])
+                names = tuple(axis_names[d] for d in combo)
+                for row in sub.reshape(sub.shape[0], -1).tolist():
+                    g = dist.new_group(ranks=row)
+                    if dist.get_rank() in row:
+                        self._groups[names] = g
+
+    @property
+    def size(self) -> int:
+        return dist.get_world_size()
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank()
+
+    def names(self, axes: Axes) -> Tuple[str, ...]:
+        """``axes`` as a tuple of this mesh's axis names, in mesh order.
+        Raises on an axis the mesh lacks or on a tuple out of mesh
+        order (the row-major index and the group order would differ)."""
+        if axes is None:
+            return ()
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in names:
+            if a not in self.shape:
+                raise ValueError(f"mesh {self.axis_names} has no axis {a!r}")
+        if list(names) != sorted(names, key=self.axis_names.index):
+            raise ValueError(f"axes {names} are not in mesh order "
+                             f"{self.axis_names}")
+        return names
+
+    def axis_size(self, axes: Axes) -> int:
+        n = 1
+        for a in self.names(axes):
+            n *= self.shape[a]
+        return n
+
+    def index(self, axes: Axes) -> int:
+        """This rank's index along ``axes`` (``lax.axis_index``; row-major
+        over a tuple)."""
+        idx = 0
+        for a in self.names(axes):
+            idx = idx * self.shape[a] + self.device_mesh.get_local_rank(a)
+        return idx
+
+    def group(self, axes: Axes):
+        names = self.names(axes)
+        if len(names) == 1:
+            return self.device_mesh.get_group(names[0])
+        return self._groups[names]
+
+
+def staged(mesh: Mesh, op: str, x: torch.Tensor) -> bool:
+    """Whether ``op`` on ``x`` goes through the host on ``mesh``'s
+    backend (:data:`HOST_STAGED`)."""
+    return x.device.type == "cuda" and op in HOST_STAGED.get(mesh.backend,
+                                                             ())
+
+
+def _wire(x: torch.Tensor, host: bool) -> torch.Tensor:
+    """The tensor a collective sends: contiguous, on the host if staged,
+    bool as uint8 (gloo has no bool)."""
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
+    if host:
+        x = x.cpu()
+    return x.contiguous()
+
+
+def _back(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return y.to(device=like.device, dtype=like.dtype)
+
+
+_GATHER = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0
+               ) -> torch.Tensor:
+    """``lax.all_gather(x, axes, axis=dim, tiled=True)``: the group's
+    blocks concatenated along ``dim`` in group order."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return x
+    _count("all_gather", x)
+    w = _wire(x.movedim(dim, 0), staged(mesh, "all_gather", x))
+    out = torch.empty((n * w.shape[0],) + tuple(w.shape[1:]),
+                      dtype=w.dtype, device=w.device)
+    _GATHER(out, w, group=mesh.group(axes))
+    return _back(out, x).movedim(0, dim)
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0
+                   ) -> torch.Tensor:
+    """``lax.psum_scatter(x, axes, scatter_dimension=dim, tiled=True)``:
+    the group's sum, block ``i`` of ``dim`` left on group rank ``i``."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not divide into {n}")
+    _count("reduce_scatter", x)
+    w = _wire(x.movedim(dim, 0), staged(mesh, "reduce_scatter", x))
+    out = torch.empty((w.shape[0] // n,) + tuple(w.shape[1:]),
+                      dtype=w.dtype, device=w.device)
+    _SCATTER(out, w, group=mesh.group(axes))
+    return _back(out, x).movedim(0, dim)
+
+
+def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes, op: str = "sum"
+               ) -> torch.Tensor:
+    """``lax.psum`` (``op="sum"``) or ``lax.pmax`` (``op="max"``) over
+    ``axes``; a new tensor."""
+    if mesh.axis_size(axes) == 1:
+        return x.clone()
+    _count(f"all_reduce_{op}", x)
+    w = _wire(x, staged(mesh, f"all_reduce_{op}", x))
+    if w is x:
+        w = x.clone()
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    dist.all_reduce(w, op=red, group=mesh.group(axes))
+    return _back(w, x)
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0
+               ) -> torch.Tensor:
+    """``lax.all_to_all(x, axes, split_axis=dim, concat_axis=dim,
+    tiled=True)``: block ``i`` of ``dim`` goes to group rank ``i``, the
+    received blocks concatenated along ``dim`` in source order."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"all_to_all: dim {dim} of {tuple(x.shape)} does "
+                         f"not divide into {n}")
+    _count("all_to_all", x)
+    w = _wire(x.movedim(dim, 0), staged(mesh, "all_to_all", x))
+    out = torch.empty_like(w)
+    dist.all_to_all_single(out, w, group=mesh.group(axes))
+    return _back(out, x).movedim(0, dim)
+
+
+def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
+             perm: Iterable[Tuple[int, int]]) -> torch.Tensor:
+    """``lax.ppermute(x, axis, perm)``: ``perm`` holds (source, dest)
+    pairs of indices along ``axis``; a rank no pair sends to gets
+    zeros."""
+    n = mesh.axis_size(axis)
+    perm = list(perm)
+    me = mesh.index(axis)
+    if n == 1:
+        return x.clone() if (0, 0) in perm else torch.zeros_like(x)
+    _count("ppermute", x)
+    host = staged(mesh, "ppermute", x)
+    w = _wire(x, host)
+    out = w.clone() if (me, me) in perm else torch.zeros_like(w)
+    group = mesh.group(axis)
+    ranks = dist.get_process_group_ranks(group)
+    ops = [dist.P2POp(dist.isend, w, ranks[d], group)
+           for s, d in perm if s == me != d]
+    ops += [dist.P2POp(dist.irecv, out, ranks[s], group)
+            for s, d in perm if d == me != s]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return _back(out, x)
+

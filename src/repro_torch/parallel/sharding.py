@@ -1,0 +1,191 @@
+"""Logical-axis sharding rules (DP / TP / EP / SP / ZeRO-1; the port's
+counterpart of ``repro.parallel.sharding``).
+
+The model code never names mesh axes directly; it asks :class:`Rules`
+which mesh axes a *logical* axis (batch, sequence, heads, FFN width,
+vocabulary, experts, the KV cache's sequence) is laid over.  One Rules
+object describes one parallelism strategy; :func:`make_rules` names the
+reference's strategies.
+
+Mapping to the paper: rows of the device grid (the ``data`` axis) are the
+mesh's Y dimension, columns (``model``) the X dimension; ``pod`` is the
+off-chip link to the next pod.  Weight-stationary TP traffic flows along
+rows, gradient reduction along columns then pods — dimension-ordered,
+like the XY router.
+
+**No automatic placement.**  The reference hands activations to GSPMD
+with ``with_sharding_constraint`` (``cs``, ``sharding``, ``act_btd``,
+``act_bthd``, ``act_btf``, ``logits``) and lets it insert the
+collectives.  The port has no such pass: each rank holds its block of
+every tensor explicitly and the model code calls the collectives itself
+(``repro_torch.parallel.comm``).  So those methods have no counterpart
+here.  What they decide survives as :meth:`Rules.dim_axis`, ``cs``'s
+safety rail (an axis that does not divide the dimension is dropped, e.g.
+Whisper's vocabulary of 51,866), which the models ask before they cut or
+gather a dimension.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple, Union
+
+import torch
+
+from repro_torch.parallel import comm
+from repro_torch.parallel.comm import Mesh
+
+Axis = Union[str, Tuple[str, ...], None]
+
+__all__ = ["Rules", "make_rules", "Axis", "Layout"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Rules:
+    mesh: Mesh
+    batch: Axis = ("pod", "data")   # DP over pods and data rows
+    seq: Axis = "model"             # SP: activation sequence sharding
+    heads: Axis = "model"           # TP: attention heads
+    ff: Axis = "model"              # TP: FFN hidden
+    vocab: Axis = "model"           # "virtual mesh" embedding shard (C7)
+    experts: Axis = "model"         # EP: MoE expert homes (sub-mesh, C7)
+    kv_seq: Axis = "model"          # decode: KV cache sequence shard (C7)
+    # optimizer-state shard axis (ZeRO-1); read by SPMD training, a later
+    # slice: serving holds no optimizer state
+    zero1: Axis = "data"
+    # how the MoE dispatch travels: "xy" = dimension-ordered two-phase
+    # (paper C4), "x" = the column phase only, "flat" = single-axis, "ep"
+    # / "local" / "tp" as in models/moe.py, "auto" = by divisibility
+    dispatch: str = "xy"
+    # remat policy of a training step ("full", "dots", "none"); serving
+    # rematerialises nothing (``cell_rules`` sets "none" for inference)
+    remat: str = "full"
+    # the reference's attention implementation: "chunked", "ref" and
+    # "flash" compute one function, and the port runs each through the
+    # flash kernel (its plain version on the CPU); the reference's
+    # cost-isolation stub "noattn" has no counterpart and is refused
+    attn_impl: str = "chunked"
+    # GQA: the reference's ablation keeping k/v at K heads; the flash
+    # kernel always reads the K KV heads natively, so both values compute
+    # the same function the same way here
+    gqa_grouped: bool = False
+    # Megatron TP as explicit islands (gather once -> local heads ->
+    # reduce-scatter); without it, or where whole heads do not land on
+    # each column, the port gathers the layer's weights instead (see
+    # models/transformer.py)
+    manual_tp: bool = True
+    # FSDP / ZeRO-3 banking of parameters over zero1; read by SPMD
+    # training, a later slice
+    fsdp: bool = False
+
+    def __post_init__(self):
+        if self.attn_impl not in ("chunked", "ref", "flash"):
+            raise ValueError(f"attn_impl {self.attn_impl!r}: the port "
+                             f"computes attention with the flash kernel "
+                             f"('chunked', 'ref' and 'flash' all mean it)")
+
+    # ------------------------------------------------------------------
+    def has_axis(self, name: str) -> bool:
+        return name in self.mesh.axis_names
+
+    def axis_size(self, axis: Axis) -> int:
+        if axis is None:
+            return 1
+        names = (axis,) if isinstance(axis, str) else axis
+        n = 1
+        for a in names:
+            if a in self.mesh.axis_names:
+                n *= self.mesh.shape[a]
+        return n
+
+    def _clean(self, axis: Axis) -> Axis:
+        """Drop axes this mesh doesn't have (e.g. 'pod' on a single pod)."""
+        if axis is None or isinstance(axis, str):
+            return axis if (axis is None or self.has_axis(axis)) else None
+        kept = tuple(a for a in axis if self.has_axis(a))
+        return kept if kept else None
+
+    def overlaps(self, a: Axis, b: Axis) -> bool:
+        names = lambda ax: set((ax,) if isinstance(ax, str) else (ax or ()))  # noqa: E731
+        return bool(names(self._clean(a)) & names(self._clean(b)))
+
+    def dim_axis(self, axis: Axis, size: int) -> Axis:
+        """The mesh axes a dimension of ``size`` is laid over: ``axis``
+        cleaned, or None when it does not divide ``size`` (``cs``'s
+        safety rail)."""
+        axis = self._clean(axis)
+        if axis is None or size % self.axis_size(axis):
+            return None
+        return axis
+
+
+def make_rules(mesh: Mesh, strategy: str = "baseline", **overrides) -> Rules:
+    """Named strategies (the reference's):
+
+    baseline    — production defaults (TP rows, DP columns+pods, Megatron
+                  SP for activations, xy MoE dispatch, full remat)
+    fsdp        — parameters banked over zero1 too (training)
+    no_sp       — activations replicated over seq (ablation)
+    flat_a2a    — MoE dispatch as a single flat all-to-all (ablation)
+    no_zero1    — optimizer states replicated (ablation)
+    """
+    base = dict()
+    if strategy == "baseline":
+        pass
+    elif strategy == "fsdp":
+        base["fsdp"] = True
+    elif strategy == "no_sp":
+        base["seq"] = None
+    elif strategy == "flat_a2a":
+        base["dispatch"] = "flat"
+    elif strategy == "no_zero1":
+        base["zero1"] = None
+    else:
+        raise ValueError(f"unknown strategy {strategy!r}")
+    base.update(overrides)
+    return Rules(mesh=mesh, **base)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where a rank's activation block (b, s, D) sits in the global (B, S,
+    D): its rows are the ``batch`` axes' block (None: every rank holds
+    every row), and with ``seq`` its positions are the ``model`` axis'
+    block (Megatron sequence parallelism, the reference's
+    ``act_btd``)."""
+
+    batch: Axis
+    seq: bool
+
+    @staticmethod
+    def of(rules: Rules, batch: int, seq_len: int) -> "Layout":
+        """The reference's activation layout for a (batch, seq_len)
+        input: the batch over ``rules.batch`` where it divides, the
+        sequence over ``model`` where ``rules.seq`` names it and it
+        divides (the islands' ``seq_sharded``)."""
+        seq = rules.overlaps(rules.seq, "model") and \
+            seq_len % rules.axis_size("model") == 0
+        return Layout(rules.dim_axis(rules.batch, batch), seq)
+
+    def rows(self, rules: Rules, batch: int) -> slice:
+        """This rank's rows of a global batch of ``batch``."""
+        n = rules.axis_size(self.batch)
+        b = batch // n
+        i = rules.mesh.index(self.batch) if self.batch else 0
+        return slice(i * b, (i + 1) * b)
+
+    def positions(self, rules: Rules, seq_len: int) -> slice:
+        """This rank's positions of a global sequence of ``seq_len``."""
+        if not self.seq:
+            return slice(0, seq_len)
+        n = rules.axis_size("model")
+        s = seq_len // n
+        i = rules.mesh.index("model")
+        return slice(i * s, (i + 1) * s)
+
+    def gather(self, x: torch.Tensor, rules: Rules) -> torch.Tensor:
+        """The global (B, S, ...) tensor of every rank's block."""
+        if self.seq:
+            x = comm.all_gather(x, rules.mesh, "model", 1)
+        if self.batch:
+            x = comm.all_gather(x, rules.mesh, self.batch, 0)
+        return x

@@ -22,7 +22,8 @@ The loop is the reference's, with the host-side control plane explicit:
   it is recorded as an event.
 
 One device, given explicitly (the card unless ``device="cpu"``), so there
-is no mesh; the reference's elastic ``reshard`` belongs to the SPMD slice.
+is no mesh; the reference's elastic ``reshard`` belongs to the SPMD
+training slice.
 """
 from __future__ import annotations
 

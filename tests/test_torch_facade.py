@@ -119,9 +119,11 @@ def test_facade_rejects_endpoints_and_bad_input():
 
 def test_port_imports_nothing_of_jax_or_repro():
     """A fresh interpreter imports the port and all its submodules (the
-    workload library, the DSE, the simulation service and the training
-    path among them); no ``jax*``, no ``ml_dtypes`` and no ``repro`` /
-    ``repro.*`` module may be loaded."""
+    workload library, the DSE, the simulation service, the training path
+    and the SPMD mechanisms, sharding rules and mesh launcher among
+    them); no ``jax*``, no ``ml_dtypes`` and no ``repro`` / ``repro.*``
+    module may be loaded.  (A spawned rank's modules are checked in
+    ``tests/test_torch_spmd_models.py``.)"""
     code = (
         "import pkgutil, importlib, sys\n"
         "import repro_torch\n"
@@ -141,11 +143,15 @@ def test_port_imports_nothing_of_jax_or_repro():
         "          'sim_service.metrics', 'sim_service.streaming',\n"
         "          'sim_service.server', 'optim.adamw', 'data.pipeline',\n"
         "          'checkpoint.store', 'runtime.trainer', 'launch.step',\n"
-        "          'launch.train', 'kernels.ops'):\n"
+        "          'launch.train', 'kernels.ops', 'core.coords',\n"
+        "          'core.routing', 'core.credits', 'core.pgas',\n"
+        "          'core.token_queue', 'core.endpoint', 'core.sync',\n"
+        "          'parallel.comm', 'parallel.sharding', 'launch.mesh',\n"
+        "          'launch.serve', 'models.transformer', 'models.moe'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 72
+    assert int(out.stdout.split()[-1]) >= 84

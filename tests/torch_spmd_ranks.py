@@ -1,0 +1,296 @@
+"""Rank programs of the port's SPMD tests (``tests/test_torch_spmd_*.py``).
+
+Each function runs inside one rank started by
+``repro_torch.launch.mesh.spawn``: it builds the mesh, runs a group of
+cases on its rank's inputs and returns numpy results per case.  This
+module imports torch, numpy and ``repro_torch`` only, so a rank never
+loads JAX; the tests compare the results with the JAX package in the
+pytest process.
+"""
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.launch.mesh import make_test_mesh
+
+T, S, MEM = 8, 2, 16
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def loaded_modules(rank):
+    """The ``jax*`` and ``repro`` / ``repro.*`` modules a rank holds."""
+    return sorted(n for n in sys.modules
+                  if n == "jax" or n.startswith(("jax.", "jaxlib"))
+                  or n == "repro" or n.startswith("repro."))
+
+
+# ---------------------------------------------------------------------------
+# core: routing, pgas + endpoint, token queue channel, sync
+# ---------------------------------------------------------------------------
+
+def core_routing(rank, inputs):
+    from repro_torch.core import routing
+    mesh = make_test_mesh((2, 4), ("y", "x"))
+    t = lambda name: torch.from_numpy(inputs[name][rank])   # noqa: E731
+    out = {
+        "a2a_flat_transpose": routing.xy_all_to_all(
+            t("a2a_flat_transpose"), mesh, "x", "y", split_axis=0),
+        "a2a_split_axis_1": routing.xy_all_to_all(
+            t("a2a_split_axis_1"), mesh, "x", "y", split_axis=1),
+        "a2a_two_blocks_per_tile": routing.xy_all_to_all(
+            t("a2a_two_blocks_per_tile"), mesh, "x", "y", split_axis=0),
+        "all_reduce": routing.xy_all_reduce(t("all_reduce"), mesh, "x", "y"),
+        "reduce_scatter": routing.xy_reduce_scatter(
+            t("reduce_scatter_gather"), mesh, "x", "y", 0),
+        "reduce_scatter_gather": routing.xy_all_gather(
+            routing.xy_reduce_scatter(t("reduce_scatter_gather"), mesh,
+                                      "x", "y", 0), mesh, "x", "y", 0),
+        "shift": routing.shift(t("shift"), mesh, "x", 1),
+        "shift_y_back": routing.shift(t("shift"), mesh, "y", -1),
+        "axis_all_to_all": routing.axis_all_to_all(
+            t("axis_all_to_all"), mesh, "x", 0, 1),
+    }
+    out = {k: _np(v) for k, v in out.items()}
+    try:
+        routing.xy_all_to_all(torch.zeros(7), mesh, "x", "y")
+        out["bad_split_raises"] = np.array(False)
+    except ValueError:
+        out["bad_split_raises"] = np.array(True)
+    return out
+
+
+def core_pgas(rank, inputs):
+    from repro_torch.core import endpoint as ep
+    from repro_torch.core import pgas
+    mesh = make_test_mesh((2, 4), ("y", "x"))
+    me = pgas.tile_linear_index(mesh, "x", "y")
+    assert me == rank
+    zeros = torch.zeros(MEM)
+    out = {}
+
+    # every tile stores its id + 1 into every tile at addr = its id
+    pk = pgas.PacketBatch(
+        addr=torch.full((T, S), me, dtype=torch.int32),
+        data=torch.full((T, S), me + 1.0),
+        mask=torch.ones((T, S), dtype=torch.bool).index_fill(
+            1, torch.tensor([1]), False))
+    mem, credits = pgas.remote_store(zeros, pk, mesh, "x", "y")
+    out["store_delivers_and_credits"] = (_np(mem), _np(credits))
+
+    pk = pgas.PacketBatch(
+        addr=torch.zeros((T, S), dtype=torch.int32),
+        data=torch.stack([torch.full((T,), 10.0), torch.full((T,), 20.0)],
+                         1),
+        mask=torch.ones((T, S), dtype=torch.bool))
+    out["store_slot_order"] = _np(pgas.remote_store(zeros, pk, mesh, "x",
+                                                    "y")[0])
+
+    r = inputs["store_random"]
+    pk = pgas.PacketBatch(addr=torch.from_numpy(r["addr"][rank]),
+                          data=torch.from_numpy(r["data"][rank]),
+                          mask=torch.from_numpy(r["mask"][rank]))
+    mem, credits = pgas.remote_store(torch.from_numpy(r["mem"][rank]), pk,
+                                     mesh, "x", "y")
+    out["store_random"] = (_np(mem), _np(credits))
+
+    mem = zeros.clone()
+    mem[0], mem[1] = me * 100.0, me * 100.0 + 1
+    pk = pgas.PacketBatch(
+        addr=torch.tensor([0, 1], dtype=torch.int32).expand(T, S),
+        data=torch.zeros((T, S)), mask=torch.ones((T, S), dtype=torch.bool))
+    data, valid = pgas.remote_load(mem, pk, mesh, "x", "y")
+    out["load_request_order"] = (_np(data), _np(valid))
+
+    r = inputs["load_random"]
+    pk = pgas.PacketBatch(addr=torch.from_numpy(r["addr"][rank]),
+                          data=torch.zeros(r["addr"][rank].shape),
+                          mask=torch.from_numpy(r["mask"][rank]))
+    data, valid = pgas.remote_load(torch.from_numpy(r["mem"][rank]), pk,
+                                   mesh, "x", "y")
+    out["load_random"] = (_np(data), _np(valid))
+
+    pk = pgas.PacketBatch(
+        addr=torch.zeros((T, 1), dtype=torch.int32),
+        data=torch.full((T, 1), me + 1.0),
+        mask=(torch.arange(T) == 3)[:, None])
+    mem, old = pgas.remote_cas(zeros, pk, torch.zeros((T, 1)), mesh, "x",
+                               "y")
+    out["cas_single_winner"] = (_np(mem), _np(old[3, 0] == 0.0))
+
+    state = ep.make_endpoint(MEM, max_out_credits=3)
+    pk = pgas.PacketBatch(
+        addr=torch.arange(5, dtype=torch.int32).expand(T, 5).contiguous(),
+        data=torch.ones((T, 5)),
+        mask=(torch.arange(T) == 0)[:, None] & torch.ones((T, 5),
+                                                          dtype=torch.bool))
+    state, sent = ep.master_store(state, pk, mesh, "x", "y")
+    out["endpoint_credit_limit_and_fence"] = (_np(sent.sum()),
+                                              _np(ep.fence(state)),
+                                              _np(state.mem))
+
+    state = ep.freeze(ep.make_endpoint(MEM, max_out_credits=8))
+    pk = pgas.PacketBatch(addr=torch.zeros((T, 1), dtype=torch.int32),
+                          data=torch.ones((T, 1)),
+                          mask=torch.ones((T, 1), dtype=torch.bool))
+    state, sent = ep.master_store(state, pk, mesh, "x", "y")
+    out["frozen_endpoint_sends_nothing"] = (_np(sent.sum()), _np(state.mem))
+    unfrozen = ep.unfreeze(state)
+    out["unfreeze"] = _np(unfrozen.frozen)
+    return out
+
+
+def core_channel(rank, inputs):
+    from repro_torch.core import token_queue as tq
+    mesh = make_test_mesh((2, 4), ("y", "x"))
+    local = torch.from_numpy(inputs[rank])
+    fwd = tq.channel_send(local, mesh, "x")
+    back = tq.channel_recv(fwd, mesh, "x")
+    return {"channel_ring": (_np(fwd), _np(back))}
+
+
+def core_sync(rank, inputs):
+    from repro_torch.core import sync
+    mesh = make_test_mesh((2, 4), ("y", "x"))
+    zeros = torch.zeros(MEM)
+    m1, acquired = sync.mutex_try_acquire(zeros, 5, 0, mesh, "x", "y", T)
+    m2 = sync.mutex_release(m1, 5, 0, acquired, mesh, "x", "y", T)
+    mem = sync.barrier_arrive(zeros, 0, 0, mesh, "x", "y", T)
+    return {"mutex": (_np(m1), _np(m2), _np(acquired)),
+            "barrier": (_np(mem), _np(sync.barrier_done(mem, 0, T))),
+            "spmd_barrier": _np(sync.spmd_barrier(mesh, "x", "y"))}
+
+
+# ---------------------------------------------------------------------------
+# models: forward, decode and the Server on a (data 2, model 4) mesh
+# ---------------------------------------------------------------------------
+
+def _model(cfg, params, rules):
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import params_from_jax, shard_params
+    full = params_from_jax(cfg, params, device="cpu")
+    return get_model(cfg)(cfg, device="cpu",
+                          params=shard_params(cfg, full, rules), rules=rules)
+
+
+def model_forwards(rank, cases, shape=(2, 4)):
+    """{name: (logits, aux)} of each case (name, cfg, params, tokens,
+    positions or None, rule overrides) through the sharded forward."""
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import Rules
+    mesh = make_test_mesh(shape, ("data", "model"))
+    out = {}
+    for name, cfg, params, tokens, positions, overrides in cases:
+        rules = Rules(mesh=mesh, **overrides)
+        model = _model(cfg, params, rules)
+        pos = None if positions is None else torch.from_numpy(positions)
+        with torch.no_grad(), moe.counting_drops() as drops:
+            logits, aux = model(torch.from_numpy(tokens), positions=pos)
+            last, _ = model(torch.from_numpy(tokens), positions=pos,
+                            last_only=True)
+        out[name] = (_np(logits), _np(aux), _np(last),
+                     int(sum(int(d) for d in drops)))
+    out["modules"] = loaded_modules(rank)
+    out["round trip"] = _round_trip(cases, mesh)
+    return out
+
+
+def _round_trip(cases, mesh):
+    """Per case: this rank's blocks have ``shard_table``'s shapes,
+    ``gather_params`` of them is the full parameters, exactly, and
+    ``init_params(..., rules=)`` draws the blocks of the full draw."""
+    from repro_torch.models.convert import (init_params, params_from_jax,
+                                            shard_params)
+    from repro_torch.models.transformer import gather_params, shard_table
+    from repro_torch.parallel.sharding import Rules
+    ok = {}
+    for name, cfg, params, _tokens, _positions, overrides in cases:
+        rules = Rules(mesh=mesh, **overrides)
+        full = params_from_jax(cfg, params, device="cpu")
+        shard = shard_params(cfg, full, rules)
+        table = shard_table(cfg, rules)
+        back = gather_params(cfg, shard, rules)
+        drawn = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                            rules=rules)
+        whole = shard_params(cfg, init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu"), rules)
+        ok[name] = all(tuple(shard[k].shape) == table[k]
+                       and torch.equal(back[k], full[k])
+                       and torch.equal(drawn[k], whole[k]) for k in full)
+    return ok
+
+
+def model_decodes(rank, cases, shape=(2, 4)):
+    """{name: [(logits, cache leaves gathered), ...] per step} of each case
+    (name, cfg, params, per-step tokens (steps, B), max_seq, rule
+    overrides) under ``cell_rules`` of a decode cell, as the ``Server``
+    builds them."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.step import cell_rules
+    from repro_torch.models.transformer import cache_specs, _join
+    mesh = make_test_mesh(shape, ("data", "model"))
+    out = {}
+    for name, cfg, params, steps, max_seq, overrides in cases:
+        B = steps.shape[1]
+        rules = cell_rules(mesh, cfg, ShapeConfig("d", max_seq, B,
+                                                  "decode"), **overrides)
+        model = _model(cfg, params, rules)
+        cache = model.init_cache(B, max_seq)
+        specs = cache_specs(cfg, rules)
+        got = []
+        for tok in steps:
+            logits, cache = model.decode_step(cache, torch.from_numpy(tok))
+            whole = {k: _np(_join(v, specs[k], rules))
+                     for k, v in cache.items()}
+            got.append((_np(logits), whole))
+        out[name] = (got, rules._clean(rules.batch),
+                     rules._clean(rules.kv_seq))
+    return out
+
+
+def servers(rank, cases, shape=(2, 4)):
+    """{name: (outputs per request, ticks)} of each case (name, cfg,
+    params, prompts, slots, max_new, max_seq) through the mesh
+    ``Server``."""
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models.convert import params_from_jax
+    mesh = make_test_mesh(shape, ("data", "model"))
+    out = {}
+    for name, cfg, params, prompts, slots, max_new, max_seq in cases:
+        server = Server(cfg, slots=slots, max_seq=max_seq, device="cpu",
+                        params=params_from_jax(cfg, params, device="cpu"),
+                        mesh=mesh)
+        for i, p in enumerate(prompts):
+            server.submit(Request(rid=i, prompt=p, max_new=max_new))
+        server.run(tick_limit=500)
+        done = sorted(server.completed, key=lambda r: r.rid)
+        out[name] = ([r.out for r in done], server.ticks)
+    return out
+
+
+def one_rank(rank, cfg, params, tokens, steps, max_seq):
+    """A world of one rank (mesh 1 x 1): forward logits, and greedy decode
+    steps through ``serve_step`` under ``cell_rules``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.step import cell_rules, prefill_step, serve_step
+    from repro_torch.parallel.sharding import Rules
+    mesh = make_test_mesh((1, 1), ("data", "model"))
+    model = _model(cfg, params, Rules(mesh=mesh))
+    with torch.no_grad():
+        logits, _ = model(torch.from_numpy(tokens))
+    last = prefill_step(model, {"tokens": torch.from_numpy(tokens)},
+                        model.rules)
+    rules = cell_rules(mesh, cfg, ShapeConfig("d", max_seq, steps.shape[1],
+                                              "decode"))
+    model = _model(cfg, params, rules)
+    cache = model.init_cache(steps.shape[1], max_seq)
+    toks = []
+    for tok in steps:
+        nxt, cache = serve_step(model, cache, torch.from_numpy(tok), rules)
+        toks.append(_np(nxt))
+    return _np(logits), _np(last), np.stack(toks)
