@@ -194,6 +194,27 @@ Phases (any failure raises and exits nonzero):
    of each local shape's kernel, plain version, library call and bound on
    the card alone, and the per-rank launches in the ``kernels`` line.
    Every time is labelled as 4 ranks time-sharing one card.
+13. ``[spmd train]``, training on a mesh: (1) the yardstick on one card
+   first: ``make_trainer`` of Moonshot's widths (2 of 48 layers), 2 x
+   4096 tokens, full remat, 3 steps on the pipeline's batch 0 from
+   ``init(seed=0)``; its step-1 gradients and step-3 parameters to the
+   host, the card freed; (2) 4 ranks (data 2 x model 2) sharing the card
+   over gloo, each ``make_trainer(..., mesh=mesh)`` under
+   ``cell_rules``' ``baseline`` (ZeRO-1 over ``data``, full remat), the
+   same 3 steps from the same seed, once with its ``xy`` dispatch (the
+   main path) and once with ``ep`` (which runs one card's global FIFO):
+   on every rank each step's launches by variant and by forward, remat
+   and backward (4 ``wgmma_tma`` flash, 24 ``tma`` GMM: 6 forward, 6
+   remat, 12 backward), the collectives a step by phase (loss, backward,
+   optimizer), ms a step, peak memory, each loss within 2e-2 of one
+   card's; on both runs each parameter's step-3 block within 3e-2
+   relative L2 of its cut of one card's (every error finite), on the
+   ``ep`` run each step-1 gradient bank too (``xy`` drops other
+   assignments than one card's FIFO: its gradient errors are printed);
+   each rank's kernel calls and its flash and GMM ops (forward
+   and backward) at its local shapes against plain, one rank at a time;
+   (3) the kernel times at those shapes on the card alone, and the
+   per-rank training launches in the ``kernels`` line.
 
 It needs a card: without one it prints the reason to stderr and exits 1.
 """
@@ -3596,6 +3617,559 @@ def spmd_entries(spmd, replaces):
     return out
 
 
+# ----------------------------------------------------------------------
+# [spmd train]: training on a mesh of ranks sharing the card
+# ----------------------------------------------------------------------
+SPMD_TRAIN_BATCH, SPMD_TRAIN_STEPS = 2, 3
+SPMD_TRAIN_BAR = 3e-2        # relative L2 a parameter, bf16
+# the dispatch modes run: xy (baseline) is the main path; ep runs the
+# global FIFO, one card's, so it drops nearly the assignments one card
+# drops (the bf16 router inputs differ in their last bits on a mesh, so a
+# few near-tied choices differ) and is the run whose step-1 gradients are
+# held to one card's too (xy's own FIFOs drop other assignments: at this
+# random initialisation about 45% of them drop at the published capacity
+# factor, in either layout); both runs' step-3 parameters are held
+SPMD_TRAIN_MODES = ("xy", "ep")
+
+
+def _spmd_train_cfg():
+    """Moonshot's published widths, 2 of 48 layers (as phase 11)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOONSHOT),
+                               num_layers=MOONSHOT_TRAIN_LAYERS)
+
+
+def _tap_adam(taps, step_of):
+    """Wrap ``optim.adamw._adam`` so that on step 1 (``step_of()``) each
+    gradient it is handed (the clipped, reduced gradient of a parameter
+    or of this rank's bank of it, fp32) is kept in ``taps`` as bf16 on
+    the host; returns the restore function."""
+    import torch
+    from repro_torch.optim import adamw
+    real = adamw._adam
+
+    def tapped(cfg, name, g, state, lr, b1c, b2c):
+        if step_of() == 0:
+            taps[name] = g.to(torch.bfloat16).cpu()
+        return real(cfg, name, g, state, lr, b1c, b2c)
+    adamw._adam = tapped
+    return lambda: setattr(adamw, "_adam", real)
+
+
+def _leaf_file(path, t):
+    """A tensor to ``path`` (.npy) in its own dtype: bf16 as its uint16
+    bits, fp32 as float32."""
+    import numpy as np
+    import torch
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        np.save(path, t.view(torch.int16).numpy().view(np.uint16))
+    else:
+        np.save(path, t.float().numpy())
+
+
+def _leaf_block(path, where):
+    """``where`` of the array of ``path`` (written by :func:`_leaf_file`),
+    as fp32 (torch)."""
+    import numpy as np
+    import torch
+    raw = np.array(np.load(path, mmap_mode="r")[where])
+    if raw.dtype == np.uint16:
+        return torch.from_numpy(raw.view(np.int16)).view(
+            torch.bfloat16).float()
+    return torch.from_numpy(raw).float()
+
+
+def _worst(errs):
+    """(name, error) of the largest of ``errs``, a non-finite one first."""
+    import numpy as np
+    name = max(errs, key=lambda k: errs[k] if np.isfinite(errs[k]) else np.inf)
+    return name, errs[name]
+
+
+def _all_within(errs, bar):
+    """Every error of ``errs`` finite and at most ``bar``."""
+    import numpy as np
+    return all(np.isfinite(v) and v <= bar for v in errs.values())
+
+
+def spmd_train_yardstick(device, out):
+    """[spmd train] (1): the yardstick on one card, first, in this
+    process: ``make_trainer`` of Moonshot's widths (2 layers), 2 x 4096
+    tokens, full remat, 3 steps on the pipeline's batch 0 from
+    ``init(seed=0)``.  The step-1 gradients (clipped, as AdamW takes
+    them, and unclipped again by the step's norm, as bf16) and the step-3
+    parameters (each in its own dtype: the router fp32, the rest bf16) go
+    to ``out`` as ``.npy``; the card is freed.
+    Returns (losses, grad norms, wall per step)."""
+    import os
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.models import moe
+    cfg = _spmd_train_cfg()
+    tr = make_trainer(cfg, TRAIN_SEQ, SPMD_TRAIN_BATCH, SPMD_TRAIN_STEPS,
+                      device=device, remat="full", ckpt_dir=None)
+    tr.init(seed=0)
+    data = synthetic_batch(cfg, tr.shape, 0)
+    taps, losses, norms, stamps = {}, [], [], []
+    restore = _tap_adam(taps, lambda: len(losses))
+
+    def on_step(step, m):
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with moe.counting_drops() as dropped:
+            _run_on(tr, data, on_step)
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    drops = int(sum(int(d) for d in dropped))
+    scale = min(1.0, tr.opt_cfg.clip_norm / max(norms[0], 1e-12))
+    os.makedirs(os.path.join(out, "grads"))
+    os.makedirs(os.path.join(out, "params"))
+    for name, g in taps.items():
+        _leaf_file(os.path.join(out, "grads", name.replace("/", "@")),
+                   (g.float() / scale).to(torch.bfloat16))
+    for name, p in tr.model.named_parameters():
+        _leaf_file(os.path.join(out, "params", name.replace("/", "@")), p)
+    tr.close()
+    del tr, taps
+    torch.cuda.empty_cache()
+    return dict(losses=losses, norms=norms, peak=peak, drops=drops,
+                step_s=list(np.diff([t0] + stamps)))
+
+
+def _spmd_train_rank(rank, plan):
+    """The [spmd train] program of one rank (4 ranks sharing the card over
+    gloo): ``make_trainer(..., mesh=mesh)`` of the yardstick's config and
+    batch, 3 steps; the launches by forward, remat and backward, the
+    collectives by phase and the wall of every step; its step-1
+    gradient banks and step-3 parameter blocks against its cut of the
+    yardstick's; then, one rank at a time, each distinct kernel call it
+    made and its flash and GMM ops (forward and backward) at its local
+    shapes against the plain versions."""
+    import os
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.backend import resolve_device
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.models import moe
+    from repro_torch.models.convert import state_layout
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.sharding import block_of
+    device = str(resolve_device(plan["device"]))
+    mesh = make_test_mesh(SPMD_MESH, ("data", "model"), device)
+    cfg = _spmd_train_cfg()
+    t0 = time.perf_counter()
+    tr = make_trainer(cfg, TRAIN_SEQ, SPMD_TRAIN_BATCH, SPMD_TRAIN_STEPS,
+                      device=device, ckpt_dir=None, mesh=mesh,
+                      dispatch=plan["dispatch"])
+    tr.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rules = tr.rules
+    data = synthetic_batch(cfg, tr.shape, 0)
+    calls, fwd_calls, in_fwd = [], set(), [False]
+
+    def log(call):
+        calls.append(call)
+        if in_fwd[0]:
+            fwd_calls.add(call)
+
+    def flash_log(q, k, v, **kw):
+        log(("flash", (tuple(q.shape), tuple(k.shape), tuple(v.shape)),
+             kw.get("window")))
+        return real_flash(q, k, v, **kw)
+
+    def gmm_log(lhs, rhs):
+        log(("gmm", (tuple(lhs.shape), tuple(rhs.shape)), None))
+        return real_gmm(lhs, rhs)
+    real_flash, real_gmm = ops.flash_attention, ops._gmm_kernel
+    ops.flash_attention, ops._gmm_kernel = flash_log, gmm_log
+    # launches in the forward (the loss) and in the GMM's backward
+    fwd, bwd = [], []
+    real_loss, real_bwd = tr.model.loss, ops._GMM.backward
+
+    def loss(*a, **kw):
+        before = read_variants()
+        in_fwd[0] = True
+        try:
+            out = real_loss(*a, **kw)
+        finally:
+            in_fwd[0] = False
+        fwd.append({k: {v: n - before[k][v] for v, n in d.items()}
+                    for k, d in read_variants().items()})
+        return out
+
+    def gmm_backward(ctx, g):
+        before = _wrappers()["moe_gmm"].launches
+        out = real_bwd(ctx, g)
+        bwd.append(_wrappers()["moe_gmm"].launches - before)
+        return out
+    tr.model.loss = loss
+    ops._GMM.backward = staticmethod(gmm_backward)
+    taps, losses, variants, phases, stamps = {}, [], [], [], []
+    restore = _tap_adam(taps, lambda: len(losses))
+
+    def on_step(step, m):
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+        variants.append(read_variants())
+        phases.append(comm.phase_stats())
+        zero_counts()
+        comm.reset_comm_stats()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    zero_counts()
+    comm.reset_comm_stats()
+    t1 = time.perf_counter()
+    try:
+        with moe.counting_drops() as dropped:
+            _run_on(tr, data, on_step)
+    finally:
+        restore()
+        ops.flash_attention, ops._gmm_kernel = real_flash, real_gmm
+        ops._GMM.backward = staticmethod(real_bwd)
+    peak = torch.cuda.max_memory_allocated()
+    drops = int(sum(int(d) for d in dropped))
+    step_s = list(np.diff([t1] + stamps))
+    # against the yardstick: this rank's banks / blocks of its arrays
+    scale = min(1.0, tr.opt_cfg.clip_norm / max(losses[0][1], 1e-12))
+    banks = state_layout(cfg, rules)
+    specs = tr.model.param_specs(cfg, rules)
+    grad_err, param_err = {}, {}
+    for name, p in tr.model.named_parameters():
+        f = name.replace("/", "@") + ".npy"
+        g = taps[name].float() / scale
+        want = _leaf_block(os.path.join(plan["dir"], "grads", f),
+                           block_of(mesh, banks[name], tuple(g.shape))[1])
+        grad_err[name] = float((g - want).norm() / want.norm().clamp_min(
+            1e-30))
+        got = p.detach().float().cpu()
+        want = _leaf_block(os.path.join(plan["dir"], "params", f),
+                           block_of(mesh, specs[name], tuple(got.shape))[1])
+        param_err[name] = float((got - want).norm() / want.norm().clamp_min(
+            1e-30))
+    held = sum(p.numel() for p in tr.model.parameters())
+    state_n = sum(t.numel() for q in ("master", "m", "v")
+                  for t in tr.opt_state[q].values())
+    tr.close()
+    del tr, taps
+    torch.cuda.empty_cache()
+    # one rank at a time: each distinct kernel call, then the ops'
+    # forward and backward at the local shapes, against plain
+    seen = sorted(set(calls))
+    errs, op_errs = {}, {}
+    for turn in range(mesh.size):
+        if turn == rank:
+            errs = _spmd_kernel_checks(seen, device, 20 + rank)
+            op_errs = _spmd_train_op_checks(sorted(fwd_calls), device,
+                                            30 + rank)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return dict(
+        rules=dict(dispatch=rules.dispatch, zero1=rules.zero1,
+                   remat=rules.remat, batch=rules._clean(rules.batch)),
+        losses=losses, step_s=step_s, init_s=init_s, variants=variants,
+        drops=drops,
+        fwd=fwd, bwd=bwd, phases=phases, peak=peak, held=held, state_n=state_n,
+        grad_err=grad_err, param_err=param_err, calls=seen,
+        fwd_calls=sorted(fwd_calls),
+        kernel_errs=errs, op_errs=op_errs)
+
+
+def _spmd_train_op_checks(seen, device, seed):
+    """The flash and GMM autograd ops at each local forward call of
+    ``seen`` (kernel layouts), forward and backward against the plain
+    versions by autograd (bf16; the output and each gradient within 2e-2
+    of its largest magnitude, the bar of ``[train ops]``): {(kind,
+    shapes): worst relative error}."""
+    import torch
+    from repro_torch.kernels import ops
+    out = {}
+    rnd, g = _rnd(device, torch.bfloat16, seed)
+    for kind, shapes, window in seen:
+        if kind == "flash":
+            (B, H, S, hd), (_, K, _, _) = shapes[0], shapes[1]
+            args = [rnd(B, S, H, hd).requires_grad_(),
+                    rnd(B, S, K, hd).requires_grad_(),
+                    rnd(B, S, K, hd).requires_grad_()]
+            kw = dict(causal=True, window=window)
+            got = ops.flash_attention_op(*args, **kw)
+        else:
+            (E, m, k), (_, _, n) = shapes
+            args = [rnd(E, m, k).requires_grad_(),
+                    rnd(E, k, n, scale=k ** -0.5).requires_grad_()]
+            kw = {}
+            got = ops.grouped_matmul(*args)
+        proj = torch.randn(got.shape, generator=g, device=device)
+        dg = torch.autograd.grad((got.float() * proj).sum(), args)
+        want = _plain_op(kind, args, kw)
+        dw = torch.autograd.grad((want.float() * proj).sum(), args)
+        got, want = got.detach().float(), want.detach().float()
+        worst = float((got - want).abs().max()
+                      / want.abs().max().clamp_min(1e-30))
+        for a, b in zip(dg, dw):
+            worst = max(worst, float((a.float() - b.float()).abs().max()
+                                     / b.float().abs().max().clamp_min(
+                                         1e-30)))
+        print(f"[spmd train rank] {kind} op at the local shape {shapes}: "
+              f"forward and backward vs plain, max error {worst:.3e} of "
+              f"the largest magnitude (tolerance 2e-2)")
+        check(worst <= 2e-2 and bool(torch.isfinite(got).all()),
+              f"[spmd train] {kind} op at {shapes} differs from plain")
+        out[(kind, shapes)] = worst
+        del args, got, want, dg, dw, proj
+    return out
+
+
+# what each counted collective runs on the wire (a backward is its
+# forward's transpose), for the staging table
+_WIRE_OP = {"all_gather": "all_gather", "all_gather.bwd": "reduce_scatter",
+            "reduce_scatter": "reduce_scatter",
+            "reduce_scatter.bwd": "all_gather",
+            "all_reduce_sum": "all_reduce_sum",
+            "all_reduce_sum.bwd": "all_reduce_sum",
+            "all_reduce_max": "all_reduce_max", "all_to_all": "all_to_all",
+            "all_to_all.bwd": "all_to_all", "ppermute": "ppermute",
+            "ppermute.bwd": "ppermute"}
+
+
+def spmd_train_phase(device):
+    """Phase 13, ``[spmd train]``: training on a mesh.  The yardstick runs
+    first on one card (:func:`spmd_train_yardstick`) and frees it; then 4
+    ranks (data 2 x model 2) share the card over gloo, each a
+    ``make_trainer(..., mesh=mesh)`` under ``cell_rules``' ``baseline``
+    (ZeRO-1 over ``data``, full remat), 3 steps on the same batch from the
+    same seed: with its ``xy`` dispatch (the main path), then with ``ep``
+    (:data:`SPMD_TRAIN_MODES`).  Checks on every rank of both runs: the
+    rules; each step's launches by variant (flash 2 ``wgmma_tma`` a
+    layer, forward and remat; GMM 12 ``tma`` a layer: 3 forward, 3 remat,
+    6 backward); each step's loss within 2e-2 relative of one card's;
+    each kernel call and each op's forward and backward at its local
+    shapes against plain; each parameter's step-3 block within 3e-2
+    relative L2 of its cut of one card's, finite.  On the ``ep`` run,
+    whose global FIFO drops nearly what one card's drops, each
+    parameter's step-1 gradient bank too.  Returns its records."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.parallel import comm
+    card = card_line()
+    L = MOONSHOT_TRAIN_LAYERS
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="spmd_train_")
+    runs, walls = {}, {}
+    try:
+        yard = spmd_train_yardstick(device, out)
+        print(f"[spmd train] {card}: yardstick, one card alone: {MOONSHOT} "
+              f"widths, {L} of 48 layers, {SPMD_TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"tokens, full remat, {SPMD_TRAIN_STEPS} steps on batch 0: "
+              f"losses {yard['losses']}, grad norms {yard['norms']}; "
+              f"{' '.join(f'{t * 1e3:.1f}' for t in yard['step_s'])} ms a "
+              f"step; peak memory {yard['peak'] / 2**30:.2f} GiB; "
+              f"{yard['drops']} assignments dropped over the 3 steps' 12 "
+              f"MoE calls (forward and remat) of "
+              f"{12 * SPMD_TRAIN_BATCH * TRAIN_SEQ * 6}")
+        print(f"[spmd train] {SPMD_LABEL}: backend gloo (chosen "
+              f"explicitly: NCCL refuses two ranks of one communicator on "
+              f"one device); ops staged through the host on it: "
+              f"{sorted(comm.HOST_STAGED['gloo'])}")
+        torch.cuda.empty_cache()
+        kind = torch.device(device).type
+        for mode in SPMD_TRAIN_MODES:
+            t0 = time.perf_counter()
+            runs[mode] = spawn(_spmd_train_rank, SPMD_WORLD, "gloo",
+                               device=kind, args=({"device": kind, "dir": out,
+                                                   "dispatch": mode},),
+                               timeout=900)
+            walls[mode] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    want = {"flash_attention": {"wgmma_tma": 2 * L},
+            "moe_gmm": {"tma": 12 * L}, "ssd_scan": {}}
+    fwd_want = {"flash_attention": {"wgmma_tma": L},
+                "moe_gmm": {"tma": 3 * L}}
+    for mode, ranks in runs.items():
+        for r, rec in enumerate(ranks):
+            _spmd_train_checks(mode, r, rec, yard, want, fwd_want, card, L)
+        print(f"[spmd train] {mode}: assignments dropped over the 3 steps a "
+              f"rank {[rec['drops'] for rec in ranks]} (one card "
+              f"{yard['drops']}; ep runs one card's global FIFO on every "
+              f"rank, xy a FIFO a rank at each of its three stages)")
+    ops_seen = sorted({op for ranks in runs.values() for rec in ranks
+                       for st in rec["phases"] for d in st.values()
+                       for op in d})
+    print(f"[spmd train] collectives run, each with what it runs on the "
+          f"wire and whether gloo stages it through the host for CUDA "
+          f"tensors: " + ", ".join(
+              f"{op} ({_WIRE_OP[op]}, "
+              f"{'staged' if _WIRE_OP[op] in comm.HOST_STAGED['gloo'] else 'on the CUDA tensors'})"
+              for op in ops_seen))
+    calls = sorted({c for ranks in runs.values() for rec in ranks
+                    for c in rec["calls"]})
+    times = _spmd_times(device, calls)
+    for key, t in times.items():
+        print(f"[spmd train times] {card}: {key[0]} at a rank's local "
+              f"training shape {key[1]} (the card alone): kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"{t['library']} {t['library_ms']:.4f} ms, bound "
+              f"{t['bound'][0]:.4f} ms by {t['bound'][1]}")
+    print(f"[spmd train] phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"(the ranks: {', '.join(f'{m} {w:.1f} s' for m, w in walls.items())})")
+    return {"runs": runs, "times": times, "yard": yard}
+
+
+def _spmd_train_checks(mode, r, rec, yard, want, fwd_want, card, L):
+    """[spmd train]'s checks and lines for rank ``r``'s record of the run
+    in dispatch ``mode``."""
+    import numpy as np
+    check(rec["rules"]["dispatch"] == mode and rec["rules"]["remat"]
+          == "full" and rec["rules"]["zero1"] == "data",
+          f"[spmd train] {mode} rank {r} rules {rec['rules']}")
+    for i, v in enumerate(rec["variants"]):
+        for k, d in v.items():
+            for var, n in d.items():
+                check(n == want[k].get(var, 0),
+                      f"[spmd train] {mode} rank {r} step {i + 1}: {k} "
+                      f"launched {d}, expected {want[k]}")
+        for k, d in fwd_want.items():
+            check({a: b for a, b in rec["fwd"][i][k].items() if b} == d,
+                  f"[spmd train] {mode} rank {r} step {i + 1} forward "
+                  f"launched {rec['fwd'][i]}, expected {fwd_want}")
+    check(len(rec["bwd"]) == 3 * L * SPMD_TRAIN_STEPS
+          and all(n == 2 for n in rec["bwd"]),
+          f"[spmd train] {mode} rank {r}: backward GMM launches {rec['bwd']}")
+    for i, ((loss, _n), ref) in enumerate(zip(rec["losses"],
+                                              yard["losses"])):
+        rel = abs(loss - ref) / abs(ref)
+        check(np.isfinite(loss) and rel <= 2e-2,
+              f"[spmd train] {mode} rank {r} step {i + 1} loss {loss} vs "
+              f"one card's {ref}")
+    worst_g, g = _worst(rec["grad_err"])
+    worst_p, p = _worst(rec["param_err"])
+    per_step = {f"step {i + 1}": {
+        ph: {op: f"{d['calls']} calls, {d['bytes'] / 2**20:.1f} MiB"
+             for op, d in sorted(ops_.items())}
+        for ph, ops_ in st.items()} for i, st in enumerate(rec["phases"])}
+    grads_held = mode == "ep"
+    print(f"[spmd train] {card}: {MOONSHOT} widths, {L} layers, "
+          f"{SPMD_TRAIN_BATCH} x {TRAIN_SEQ} tokens, dispatch {mode}, rank "
+          f"{r} ({SPMD_LABEL}; rows over {rec['rules']['batch']}, ZeRO-1 "
+          f"over data, remat full): {rec['held'] / 1e9:.3f} B parameters "
+          f"held, {rec['state_n'] / 1e9:.3f} B optimizer elements a rank "
+          f"(init {rec['init_s']:.1f} s); losses "
+          f"{[round(x[0], 6) for x in rec['losses']]} (one card "
+          f"{[round(x, 6) for x in yard['losses']]}); ms a step "
+          f"{' '.join(f'{t * 1e3:.1f}' for t in rec['step_s'])}; peak "
+          f"memory {rec['peak'] / 2**30:.2f} GiB; launches a step "
+          f"{rec['variants'][0]} (forward {rec['fwd'][0]}, backward GMM "
+          f"{sum(rec['bwd']) // SPMD_TRAIN_STEPS}, the rest the remat); "
+          f"{rec['drops']} assignments dropped; step-1 gradient banks vs "
+          f"one card's: worst relative L2 {g:.3e} ({worst_g}) "
+          + (f"(tolerance {SPMD_TRAIN_BAR})" if grads_held else
+             "(not held: this layout drops other assignments than one "
+             "card's FIFO)")
+          + f"; step-3 parameter blocks: worst {p:.3e} ({worst_p}) "
+          f"(tolerance {SPMD_TRAIN_BAR})")
+    print(f"[spmd train] {mode} rank {r} relative L2 a parameter vs one "
+          f"card's: step-1 gradients "
+          f"{ {k: float(f'{v:.3e}') for k, v in rec['grad_err'].items()} }"
+          f"; step-3 parameters "
+          f"{ {k: float(f'{v:.3e}') for k, v in rec['param_err'].items()} }")
+    print(f"[spmd train] {mode} rank {r} collectives by phase: {per_step}")
+    check(_all_within(rec["param_err"], SPMD_TRAIN_BAR),
+          f"[spmd train] {mode} rank {r}: step-3 parameters "
+          f"{rec['param_err']} not all within {SPMD_TRAIN_BAR} of one card's")
+    if grads_held:
+        check(_all_within(rec["grad_err"], SPMD_TRAIN_BAR),
+              f"[spmd train] {mode} rank {r}: step-1 gradients "
+              f"{rec['grad_err']} not all within {SPMD_TRAIN_BAR} of one "
+              f"card's")
+
+
+def spmd_train_entries(st, replaces):
+    """The ``kernels`` entries of [spmd train]: flash at the ranks' local
+    training shape (forward and remat launches of both runs), and per run
+    the GMM's forward (gate/up, with down beside; forward and remat
+    launches) and its backward products (the first shape, the others
+    beside), each with its launches summed over the ranks and steps (by
+    rank beside), its error the worst rank's against plain, its times on
+    the card alone."""
+    times = st["times"]
+    out = []
+    for mode, ranks in st["runs"].items():
+        fwd = sorted({c for rec in ranks for c in rec["fwd_calls"]})
+        bwd = sorted({c for rec in ranks for c in rec["calls"]} - set(fwd))
+        label = (f"[spmd train] {MOONSHOT} widths, dispatch {mode}, "
+                 f"{SPMD_LABEL}")
+        rows = [
+            (f"moe_gmm_spmd_train_{mode}", "gmm",
+             [c for c in fwd if c[0] == "gmm"],
+             lambda r: sum(v["moe_gmm"]["tma"] for v in ranks[r]["variants"])
+             - sum(ranks[r]["bwd"])),
+            (f"moe_gmm_spmd_train_{mode}_backward", "gmm", bwd,
+             lambda r: sum(ranks[r]["bwd"]))]
+        if mode == SPMD_TRAIN_MODES[0]:          # both runs' flash shape
+            rows.insert(0, (
+                "flash_attention_spmd_train", "flash",
+                [c for c in fwd if c[0] == "flash"],
+                lambda r: sum(v["flash_attention"]["wgmma_tma"]
+                              for rs in st["runs"].values()
+                              for v in rs[r]["variants"])))
+        for name, kind, mine, n_of in rows:
+            check(bool(mine), f"{name}: no kernel call logged")
+            key = mine[0]
+            t = times[key]
+            by_rank = [n_of(r) for r in range(len(ranks))]
+            kernel = "flash_attention" if kind == "flash" else "moe_gmm"
+            entry = {
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{kernel}.cu",
+                "replaces": replaces[kernel], "launches": sum(by_rank),
+                "launches_by_rank": by_rank,
+                "max_abs_err": max(rec["kernel_errs"][key[:2]]
+                                   for rec in ranks),
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "library_ms": t["library_ms"], "library": t["library"],
+                "checked_against_plain": True,
+                "variant": "wgmma_tma" if kind == "flash" else "tma",
+                "path": label, "shape": f"local {key[1]}"}
+            if not name.endswith("_backward"):
+                entry["op_grad_rel_err_vs_plain"] = max(
+                    rec["op_errs"].get(key[:2], 0.0) for rec in ranks)
+            if len(mine) > 1:
+                entry["other_shapes"] = {
+                    str(c[1]): {"ms": times[c]["ms"],
+                                "plain_ms": times[c]["plain_ms"],
+                                "library_ms": times[c]["library_ms"],
+                                "bound_ms": times[c]["bound"][0],
+                                "bound_by": times[c]["bound"][1],
+                                "max_abs_err": max(rec["kernel_errs"][c[:2]]
+                                                   for rec in ranks)}
+                    for c in mine[1:]}
+            check(entry["launches"] > 0, f"{name} never launched")
+            out.append(entry)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3700,6 +4274,7 @@ def main() -> int:
     trains = train_paths("cuda")
     bwd_times = train_kernel_timings("cuda")
     spmd = spmd_phase("cuda")
+    spmd_train = spmd_train_phase("cuda")
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:86",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
                 "moe_gmm": "src/repro/kernels/moe_gmm.py:44"}
@@ -3805,6 +4380,7 @@ def main() -> int:
                      "max_abs_err": d["err"],
                      "transposed_copy_ms": d["copy_ms"]}})
     kernels += spmd_entries(spmd, replaces)
+    kernels += spmd_train_entries(spmd_train, replaces)
     for arch, r in trains.items():
         print(f"[summary] {card_line()}: {arch} training {r['tokens']} tokens "
               f"a step: warm step {r['warm'] * 1e3:.1f} ms, "

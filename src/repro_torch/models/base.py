@@ -6,9 +6,9 @@ family's table, so ``state_dict()`` keys equal the reference's parameter
 names and the two packages run on the same weights.
 
 What the families' training shares is here too: the loss
-(:meth:`TableModule._loss`, the reference's ``loss_fn`` tail) and the
-rematerialisation of a layer (:func:`run_layer`, the reference's
-``Rules.remat``).
+(:meth:`TableModule._loss`, the reference's ``loss_fn`` tail; on a mesh
+:meth:`TableModule._mesh_loss`) and the rematerialisation of a layer
+(:func:`run_layer`, the reference's ``Rules.remat``).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.parallel import comm
 from .layers import cross_entropy
 
 __all__ = ["TableModule", "run_layer", "AUX_COEF", "REMAT"]
@@ -34,13 +35,35 @@ def run_layer(fn, remat: str, *args):
     ``torch.utils.checkpoint`` (non-reentrant): the layer keeps only its
     inputs for the backward, which runs its forward again first, as the
     reference's ``jax.checkpoint`` does.  No layer draws random numbers,
-    so the RNG state is not kept."""
+    so the RNG state is not kept.
+
+    On a mesh ``fn`` is a layer's islands, collectives included.  The
+    recompute reruns them, and every rank reaches it at the same node of
+    the same backward graph, so every rank reruns the same collectives in
+    the same order (a layer whose islands differed by rank would hang
+    here).  The reference's ``"dots"`` (save the matmuls' outputs) is a
+    JAX save policy, not ported yet (ROADMAP item 13b-2)."""
     if remat == "none":
         return fn(*args)
     if remat == "full":
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False)
+    if remat == "dots":
+        raise ValueError("remat 'dots' is not ported yet (ROADMAP item "
+                         "13b-2); use 'none' or 'full'")
     raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+
+
+class _Reported(torch.autograd.Function):
+    """The global loss's value with this rank's share's gradient."""
+
+    @staticmethod
+    def forward(ctx, local, total):
+        return total.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class TableModule(nn.Module):
@@ -86,6 +109,15 @@ class TableModule(nn.Module):
     def shard_table(cfg: ModelConfig, rules) -> Dict[str, Tuple[int, ...]]:
         """Name -> shape of this rank's block of every parameter under
         sharding ``rules``; a family without SPMD islands refuses rules."""
+        raise NotImplementedError(
+            f"the {cfg.family} family does not run on a mesh yet")
+
+    @staticmethod
+    def param_specs(cfg: ModelConfig, rules) -> Dict[str, Tuple]:
+        """Name -> the mesh axes of each dimension of this rank's block of
+        every parameter under sharding ``rules`` (the layouts a mesh
+        training step, its optimizer banks and its checkpoints read); a
+        family without SPMD islands refuses rules."""
         raise NotImplementedError(
             f"the {cfg.family} family does not run on a mesh yet")
 
@@ -138,6 +170,30 @@ class TableModule(nn.Module):
         if moe:
             return ce + AUX_COEF * aux, {"ce": ce, "moe_aux": aux}
         return ce, {"ce": ce}
+
+    def _mesh_loss(self, nll_sum: torch.Tensor, count: torch.Tensor,
+                   aux: torch.Tensor, rules, moe: bool
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """:meth:`_loss` on a mesh, from this rank's masked cross-entropy
+        sum ``nll_sum`` over the tokens it counts and their mask's sum
+        ``count`` (each token on exactly one rank) and the MoE aux loss
+        ``aux`` (held alike by every rank).  The rank's local loss is
+        ``nll_sum`` over the global count (all-reduced) plus ``AUX_COEF``
+        times ``aux`` over the world size, so the local losses sum to the
+        reference's loss; the reported loss is that sum (all-reduced,
+        equal on every rank), carrying the local loss's gradient."""
+        mesh = rules.mesh
+        everyone = mesh.axis_names
+        n = comm.all_reduce(count.detach(), mesh, everyone).clamp_min(1)
+        local = nll_sum / n
+        ce = comm.all_reduce(local.detach(), mesh, everyone)
+        if moe:
+            local = local + AUX_COEF * aux / mesh.size
+            total = ce + AUX_COEF * aux.detach()
+            metrics = {"ce": ce, "moe_aux": aux.detach()}
+        else:
+            total, metrics = ce, {"ce": ce}
+        return _Reported.apply(local, total), metrics
 
     def _p(self, name: str) -> torch.Tensor:
         return getattr(self, name)

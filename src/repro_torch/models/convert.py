@@ -5,6 +5,12 @@ Both return a ``state_dict`` keyed by the reference's names, for the
 model class of the config's family (``get_model(cfg)``, whose
 ``param_table``, ``param_dtype`` and ``init_rule`` they follow); the
 arrays come in as numpy, so nothing here imports JAX.
+
+On a mesh, :func:`shard_params` cuts a rank's blocks out of full
+parameters (under FSDP its banks), :func:`opt_state_from_jax` carries the
+reference's ``optim.init`` state (numpy ``master``, ``m``, ``v``,
+``step``) into a rank's ZeRO-1 banks, and :func:`gather_opt_state` joins
+banks back to full arrays (collective; for tests and the smoke).
 """
 from __future__ import annotations
 
@@ -15,10 +21,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.parallel.sharding import cut_block, join_blocks
 from .api import get_model
 from .layers import init_dense
 
-__all__ = ["params_from_jax", "init_params", "shard_params"]
+__all__ = ["params_from_jax", "init_params", "shard_params",
+           "opt_state_from_jax", "gather_opt_state", "state_layout"]
 
 
 def params_from_jax(cfg: ModelConfig, params: Mapping[str, np.ndarray],
@@ -52,9 +60,49 @@ def shard_params(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     ``rules``: the shapes of the family's ``shard_table``
     (``transformer.shard_params``; the families without SPMD islands
     refuse rules)."""
-    get_model(cfg).shard_table(cfg, rules)
-    from .transformer import shard_params as cut
-    return cut(cfg, params, rules)
+    return {name: cut_block(params[name], spec, rules)
+            for name, spec in get_model(cfg).param_specs(cfg, rules).items()}
+
+
+def state_layout(cfg: ModelConfig, rules) -> Dict[str, tuple]:
+    """Name -> the mesh axes of each dimension of a rank's bank of the
+    optimizer state (``optim.state_specs`` of the family's
+    ``param_specs``)."""
+    from repro_torch.optim import state_specs
+    model = get_model(cfg)
+    return state_specs(model.param_specs(cfg, rules), model.param_table(cfg),
+                       rules)["master"]
+
+
+def opt_state_from_jax(cfg: ModelConfig, state: Mapping, device=None,
+                       rules=None) -> Dict:
+    """The reference's optimizer state (``{"master", "m", "v": {name:
+    array}, "step"}``, numpy) -> the port's (fp32 leaves, int32 ``step``
+    on ``device``); with ``rules``, this rank's banks of it (the layout
+    ``optim.init(params, rules=, specs=)`` makes)."""
+    device = resolve_device(device)
+    layout = None if rules is None else state_layout(cfg, rules)
+    out = {"step": torch.tensor(int(np.asarray(state["step"])),
+                                dtype=torch.int32, device=device)}
+    for part in ("master", "m", "v"):
+        out[part] = {}
+        for name, a in state[part].items():
+            t = torch.tensor(np.asarray(a, np.float32))
+            if layout is not None:
+                t = cut_block(t, layout[name], rules)
+            out[part][name] = t.to(device)
+    return out
+
+
+def gather_opt_state(cfg: ModelConfig, state: Dict, rules) -> Dict:
+    """Every rank's banks of ``state`` joined to full tensors (collective:
+    every rank calls it)."""
+    layout = state_layout(cfg, rules)
+    out = {"step": state["step"].clone()}
+    for part in ("master", "m", "v"):
+        out[part] = {k: join_blocks(v, layout[k], rules)
+                     for k, v in state[part].items()}
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -72,9 +120,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     device = resolve_device(device)
     specs = None
     if rules is not None:
-        model.shard_table(cfg, rules)     # families without islands refuse
-        from .transformer import _cut, param_specs
-        specs = param_specs(cfg, rules)
+        specs = model.param_specs(cfg, rules)
     out = {}
     for name, shape in sorted(model.param_table(cfg).items()):
         dtype = model.param_dtype(cfg, name)
@@ -90,5 +136,5 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         else:
             out[name] = init_dense(shape, dtype, generator, device)
         if specs is not None:
-            out[name] = _cut(out[name], specs[name], rules)
+            out[name] = cut_block(out[name], specs[name], rules)
     return out

@@ -35,7 +35,14 @@ mode by divisibility, and each rank runs its part on its activation block
               the Y phase), with the reference's ``cap1``/``cap2``/``cap3``.
 
 The aux loss comes out replicated on every rank (the reference's
-``_pmean_all`` over the island's axes).  Drops differ by layout at low
+``_pmean_all`` over the island's axes); a training loss on a mesh counts
+it once, as a value every rank holds alike (``TableModule._mesh_loss``).
+Every mode trains: its collectives are ``repro_torch.parallel.comm``'s
+autograd functions, so the backward runs each phase's transpose (``xy``'s
+two ``all_to_all`` phases over ``data`` and ``model`` each in reverse,
+``ep``'s gathers as reduce-scatters), the integer routing metadata
+passes with no gradient, and the GMM's backward runs at each rank's
+local experts and capacity rows.  Drops differ by layout at low
 capacity, as in the reference (each FIFO sees other tokens); with a
 capacity that drops nothing every mode computes the same function.
 :func:`counting_drops` collects the dropped assignments of each call.

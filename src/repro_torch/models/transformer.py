@@ -66,7 +66,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.parallel import comm
-from repro_torch.parallel.sharding import Layout, Rules
+from repro_torch.parallel.sharding import (Layout, Rules, cut_block,
+                                           entry_index, entry_names,
+                                           join_blocks, spec_axes,
+                                           zero1_spec)
 from . import moe as moe_mod
 from .attention import decode_attention
 from .base import TableModule, run_layer
@@ -74,7 +77,8 @@ from .layers import embed_lookup, mrope, rms_norm, rope, swiglu
 
 __all__ = ["param_table", "param_dtype", "init_rule", "attn_block",
            "scatter_kv", "scatter_pos", "Transformer", "param_specs",
-           "shard_table", "shard_params", "gather_params", "cache_specs"]
+           "layout_specs", "shard_table", "shard_params", "gather_params",
+           "cache_specs"]
 
 F32 = torch.float32
 
@@ -176,14 +180,28 @@ def _resolve_axis(cfg: ModelConfig, rules: Rules, label, size: int):
     raise KeyError(label)
 
 
-def param_specs(cfg: ModelConfig, rules: Rules) -> Dict[str, Tuple]:
+def layout_specs(cfg: ModelConfig, rules: Rules) -> Dict[str, Tuple]:
     """Name -> the mesh axes of each dimension (None: whole on every
-    rank); the counterpart of the reference's ``param_specs`` /
-    ``out_shardings``."""
+    rank) as the islands read the parameters: the reference's
+    ``param_specs``."""
     table = param_table(cfg)
     return {name: tuple(_resolve_axis(cfg, rules, a, table[name][d])
                         for d, a in enumerate(labels))
             for name, labels in param_labels(cfg).items()}
+
+
+def param_specs(cfg: ModelConfig, rules: Rules) -> Dict[str, Tuple]:
+    """Name -> the mesh axes of each dimension of the blocks a rank
+    holds: :func:`layout_specs`, and under ``rules.fsdp`` each banked over
+    ``zero1`` as the reference's ``build_cell`` banks a training cell's
+    parameters (``parallel.sharding.zero1_spec``; ZeRO-3).  The forward
+    all-gathers a banked weight over ``zero1`` before it is used
+    (:meth:`Transformer._use`)."""
+    specs = layout_specs(cfg, rules)
+    if not rules.fsdp:
+        return specs
+    table = param_table(cfg)
+    return {k: zero1_spec(v, table[k], rules) for k, v in specs.items()}
 
 
 def shard_table(cfg: ModelConfig, rules: Rules) -> Dict[str, Tuple]:
@@ -194,29 +212,11 @@ def shard_table(cfg: ModelConfig, rules: Rules) -> Dict[str, Tuple]:
             for name, axes in param_specs(cfg, rules).items()}
 
 
-def _cut(t: torch.Tensor, axes, rules: Rules) -> torch.Tensor:
-    """This rank's block of ``t``, dimension ``d`` cut over ``axes[d]``."""
-    for d, a in enumerate(axes):
-        if a is not None:
-            n = t.shape[d] // rules.axis_size(a)
-            t = t.narrow(d, rules.mesh.index(a) * n, n)
-    return t.contiguous()
-
-
-def _join(t: torch.Tensor, axes, rules: Rules) -> torch.Tensor:
-    """The whole of a blocked tensor: each dimension all-gathered over its
-    axes (collective over every rank that holds a block)."""
-    for d, a in enumerate(axes):
-        if a is not None:
-            t = comm.all_gather(t, rules.mesh, a, d)
-    return t
-
-
 def shard_params(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                  rules: Rules) -> Dict[str, torch.Tensor]:
     """Full parameters (every rank holding the same) -> this rank's
     blocks, the shapes of :func:`shard_table`."""
-    return {name: _cut(params[name], axes, rules)
+    return {name: cut_block(params[name], axes, rules)
             for name, axes in param_specs(cfg, rules).items()}
 
 
@@ -224,7 +224,7 @@ def gather_params(cfg: ModelConfig, shards: Dict[str, torch.Tensor],
                   rules: Rules) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`shard_params` (collective; for tests and the
     smoke)."""
-    return {name: _join(shards[name], axes, rules)
+    return {name: join_blocks(shards[name], axes, rules)
             for name, axes in param_specs(cfg, rules).items()}
 
 
@@ -341,8 +341,8 @@ def _mlp_manual(x, lp, cfg: ModelConfig, rules: Rules, lay: Layout):
 def _whole(lp, specs, names, rules: Rules):
     """The named layer parameters with their blocks gathered (the layer
     dimension of ``specs`` dropped)."""
-    return {k: _join(lp[k], specs["layers/" + k][1:], rules) for k in names
-            if k in lp}
+    return {k: join_blocks(lp[k], specs["layers/" + k][1:], rules)
+            for k in names if k in lp}
 
 
 def _attn_gathered(x, lp, cfg: ModelConfig, rules: Rules, positions,
@@ -395,6 +395,7 @@ class Transformer(TableModule):
     param_dtype = staticmethod(param_dtype)
     init_rule = staticmethod(init_rule)
     shard_table = staticmethod(shard_table)
+    param_specs = staticmethod(param_specs)
 
     def _rules(self, rules: Optional[Rules]) -> Optional[Rules]:
         """The rules of a call: ``rules``, else the model's own.  Rules
@@ -414,8 +415,51 @@ class Transformer(TableModule):
         return tuple(k.split("/", 1)[1] for k in param_table(self.cfg)
                      if k.startswith("layers/"))
 
+    @functools.cached_property
+    def _banked(self) -> Dict[str, Tuple[int, Tuple[str, ...]]]:
+        """Under FSDP, name -> (the dimension banked over ``zero1``, the
+        ``zero1`` axes) of each parameter held as a bank."""
+        if self.rules is None or not self.rules.fsdp:
+            return {}
+        held = param_specs(self.cfg, self.rules)
+        out = {}
+        for k, spec in layout_specs(self.cfg, self.rules).items():
+            for d, (a, b) in enumerate(zip(held[k], spec)):
+                if a != b:
+                    out[k] = (d, entry_names(a)[len(entry_names(b)):])
+        return out
+
+    def _gather_bank(self, name: str, t: torch.Tensor, dim: int
+                     ) -> torch.Tensor:
+        """``t`` (a bank, or a slice of one whose banked dimension is now
+        ``dim``) all-gathered over ``zero1`` (autograd: the backward
+        reduce-scatters the gradient into the bank)."""
+        for a in reversed(self._banked[name][1]):
+            t = comm.all_gather(t, self.rules.mesh, a, dim)
+        return t
+
+    def _use(self, name: str) -> torch.Tensor:
+        """Parameter ``name`` as the islands read it: this rank's block,
+        a bank all-gathered first under FSDP."""
+        t = self._p(name)
+        if name in self._banked:
+            t = self._gather_bank(name, t, self._banked[name][0])
+        return t
+
     def _layer(self, i: int) -> Dict[str, torch.Tensor]:
-        return self._stack("layers/", self._layer_names, i)
+        if not self._banked:
+            return self._stack("layers/", self._layer_names, i)
+        out = {}
+        for k in self._layer_names:
+            name = "layers/" + k
+            if name not in self._banked:
+                out[k] = self._p(name)[i]
+            elif self._banked[name][0] == 0:       # the layer dim: whole
+                out[k] = self._use(name)[i]
+            else:
+                out[k] = self._gather_bank(name, self._p(name)[i],
+                                           self._banked[name][0] - 1)
+        return out
 
     def _head(self) -> torch.Tensor:
         return self._p("embed").T if self.cfg.tie_embeddings \
@@ -463,10 +507,8 @@ class Transformer(TableModule):
                 positions = positions.expand(3, B, S)
         rules = self._rules(rules)
         if rules is not None:
-            if remat != "none":
-                raise ValueError("training on a mesh is not ported yet: "
-                                 "remat must be 'none' with rules")
-            return self._spmd_forward(tokens, positions, last_only, rules)
+            return self._spmd_forward(tokens, positions, last_only, rules,
+                                      remat)
         x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
         aux = torch.zeros((), dtype=F32, device=x.device)
         for i in range(cfg.num_layers):
@@ -486,13 +528,13 @@ class Transformer(TableModule):
         (one non-zero term: exact), reduce-scattered straight to the
         sequence block where the sequence is sharded over the same
         axis."""
-        table, va = self._p("embed"), specs["embed"][0]
+        table, va = self._use("embed"), specs["embed"][0]
         S = tokens.shape[1]
         if va is None:
             x = embed_lookup(table, tokens)[:, lay.positions(rules, S)]
             return x.to(self.cfg.param_dtype)
         n = table.shape[0]
-        local = tokens - rules.mesh.index(va) * n
+        local = tokens - entry_index(rules.mesh, va) * n
         ok = (local >= 0) & (local < n)
         x = torch.where(ok[..., None], embed_lookup(table,
                                                     local.clamp(0, n - 1)),
@@ -504,16 +546,20 @@ class Transformer(TableModule):
             x = x[:, lay.positions(rules, S)]
         return x.to(self.cfg.param_dtype)
 
+    def _spmd_head(self, specs) -> Tuple[torch.Tensor, object]:
+        """(this rank's block of the LM head (D, V / n), the axes of its
+        vocabulary)."""
+        if self.cfg.tie_embeddings:
+            return self._use("embed").T, specs["embed"][0]
+        return self._use("lm_head"), specs["lm_head"][1]
+
     def _logits(self, x: torch.Tensor, rules: Rules, lay: Layout,
                 specs) -> torch.Tensor:
         """The global logits (B, s, V) of this rank's final hidden rows x
         (b, s, D) (every column holding the same rows): the vocab blocks
         all-gathered, then the batch rows."""
-        x = rms_norm(x, self._p("final_norm"), self.cfg.norm_eps)
-        if self.cfg.tie_embeddings:
-            head, va = self._p("embed").T, specs["embed"][0]
-        else:
-            head, va = self._p("lm_head"), specs["lm_head"][1]
+        x = rms_norm(x, self._use("final_norm"), self.cfg.norm_eps)
+        head, va = self._spmd_head(specs)
         logits = x @ head
         if va is not None:
             logits = comm.all_gather(logits, rules.mesh, va, logits.dim() - 1)
@@ -541,25 +587,44 @@ class Transformer(TableModule):
             out = out + swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
         return x + out, aux
 
-    def _spmd_forward(self, tokens, positions, last_only: bool,
-                      rules: Rules):
+    def _spmd_layer(self, x, i: int, pos, rules: Rules, lay: Layout, specs,
+                    manual: bool):
+        """Layer ``i`` on this rank's block: its attention island, then
+        its MLP; (x, aux).  Under FSDP the layer's banked weights are
+        all-gathered first (inside: ``remat="full"`` gathers them again
+        in the backward)."""
+        lp = self._layer(i)
+        if manual:
+            x = _attn_manual(x, lp, self.cfg, rules, pos, lay)
+        else:
+            x = _attn_gathered(x, lp, self.cfg, rules, pos, lay, specs)
+        return self._spmd_mlp(x, lp, rules, lay, specs)
+
+    def _spmd_trunk(self, tokens, positions, rules: Rules, lay: Layout,
+                    remat: str):
+        """The embedding and every layer on this rank's block of the
+        global ``tokens``: (x (b, s, D), the MoE aux loss summed over
+        layers, the same on every rank)."""
         cfg = self.cfg
-        B, S = tokens.shape
-        lay = Layout.of(rules, B, S)
-        rows = lay.rows(rules, B)
+        rows = lay.rows(rules, tokens.shape[0])
         pos = positions[..., rows, :]
-        specs = param_specs(cfg, rules)
+        specs = layout_specs(cfg, rules)
         x = self._embed(tokens[rows], rules, lay, specs)
         aux = torch.zeros((), dtype=F32, device=x.device)
-        manual = _manual_tp_ok(cfg, rules)
+        body = functools.partial(self._spmd_layer, rules=rules, lay=lay,
+                                 specs=specs,
+                                 manual=_manual_tp_ok(cfg, rules))
         for i in range(cfg.num_layers):
-            lp = self._layer(i)
-            if manual:
-                x = _attn_manual(x, lp, cfg, rules, pos, lay)
-            else:
-                x = _attn_gathered(x, lp, cfg, rules, pos, lay, specs)
-            x, a = self._spmd_mlp(x, lp, rules, lay, specs)
+            x, a = run_layer(body, remat, x, i, pos)
             aux = aux + a
+        return x, aux
+
+    def _spmd_forward(self, tokens, positions, last_only: bool,
+                      rules: Rules, remat: str = "none"):
+        B, S = tokens.shape
+        lay = Layout.of(rules, B, S)
+        specs = layout_specs(self.cfg, rules)
+        x, aux = self._spmd_trunk(tokens, positions, rules, lay, remat)
         if last_only:
             x = x[:, -1:]
             if lay.seq:       # the last position lives on the last column
@@ -571,14 +636,83 @@ class Transformer(TableModule):
             x = _seq_gather(x, rules, lay)
         return self._logits(x, rules, lay, specs), aux
 
-    def loss(self, batch: Dict[str, torch.Tensor], remat: str = "none"
+    def loss(self, batch: Dict[str, torch.Tensor], remat: str = "none",
+             rules: Optional[Rules] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training loss of ``batch`` (``tokens``, ``labels``, optional
         ``mask`` and ``positions``): cross entropy plus ``AUX_COEF`` times
-        the MoE aux loss, and {"ce", "moe_aux"}."""
+        the MoE aux loss, and {"ce", "moe_aux"}.  On a mesh every rank
+        passes the global batch and gets the global loss, whose backward
+        is this rank's share (``TableModule._mesh_loss``; the convention
+        of ``repro_torch.parallel.comm``)."""
+        rules = self._rules(rules)
+        if rules is not None:
+            return self._spmd_loss(batch, remat, rules)
         logits, aux = self(batch["tokens"], positions=batch.get("positions"),
                            remat=remat)
         return self._loss(logits, aux, batch, moe=True)
+
+    def _spmd_loss(self, batch, remat: str, rules: Rules):
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=tokens.device).expand(B, S)
+            if self.cfg.mrope_sections is not None:
+                positions = positions.expand(3, B, S)
+        lay = Layout.of(rules, B, S)
+        x, aux = self._spmd_trunk(tokens, positions, rules, lay, remat)
+        nll, count = self._spmd_ce(x, batch, rules, lay,
+                                   layout_specs(self.cfg, rules))
+        return self._mesh_loss(nll, count, aux, rules, moe=True)
+
+    def _spmd_ce(self, x, batch, rules: Rules, lay: Layout, specs):
+        """(the masked cross-entropy sum of the tokens this rank counts,
+        their mask's sum) from its final hidden block x (b, s, D).  Each
+        token is counted on exactly one rank: its rows' and positions'
+        owner, the first rank along every axis that neither the rows nor
+        the positions are laid over.  A vocab-sharded head takes a
+        vocab-parallel log-sum-exp: the ranks of the vocabulary's axes
+        hold the same tokens (the sequence gathered; the rows too where
+        the vocabulary shares an axis with them), each its logits'
+        vocabulary block, and reduce the shift (max), the exponentials'
+        sum and the label's logit over them; no logits are gathered."""
+        cfg, mesh = self.cfg, rules.mesh
+        labels, mask = batch["labels"], batch.get("mask")
+        B, S = labels.shape
+        if mask is None:
+            mask = torch.ones((B, S), dtype=F32, device=labels.device)
+        rows, cols = lay.rows(rules, B), lay.positions(rules, S)
+        x = rms_norm(x, self._use("final_norm"), cfg.norm_eps)
+        head, va = self._spmd_head(specs)
+        if va is None:
+            logits = (x @ head).to(F32)
+            lab = labels[rows][:, cols].long()
+            nll = torch.logsumexp(logits, -1) - \
+                logits.gather(-1, lab[..., None])[..., 0]
+        else:
+            x = _seq_gather(x, rules, lay)
+            whole = lay.batch is not None and rules.overlaps(va, lay.batch)
+            if whole:
+                x = comm.all_gather(x, mesh, lay.batch, 0)
+            logits = (x @ head).to(F32)
+            n = logits.shape[-1]
+            loc = (labels if whole else labels[rows]).long() - \
+                entry_index(rules.mesh, va) * n
+            top = comm.all_reduce(logits.detach().amax(-1), mesh, va, "max")
+            se = comm.all_reduce(torch.exp(logits - top[..., None]).sum(-1),
+                                 mesh, va)
+            ok = (loc >= 0) & (loc < n)
+            gold = logits.gather(-1, loc.clamp(0, n - 1)[..., None])[..., 0]
+            gold = comm.all_reduce(torch.where(ok, gold, 0), mesh, va)
+            nll = top + torch.log(se) - gold
+            nll = (nll[rows] if whole else nll)[:, cols]
+        held = set(spec_axes((lay.batch, "model" if lay.seq else None)))
+        owner = all(mesh.index(a) == 0 for a in mesh.axis_names
+                    if a not in held)
+        w = mask[rows][:, cols].to(F32) * float(owner)
+        return (nll * w).sum(), w.sum()
 
     def cache_len(self, max_seq: int) -> int:
         """Sequence length of the KV cache: the window, when it is
@@ -688,7 +822,7 @@ class Transformer(TableModule):
         H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         lay = Layout(rules.dim_axis(rules.batch, B), False)
         rows = lay.rows(rules, B)
-        specs = param_specs(cfg, rules)
+        specs = layout_specs(cfg, rules)
         cur_len = cache["len"]
         b = cur_len.shape[0]
         if positions is None:

@@ -19,6 +19,30 @@ Every function runs inside a rank, on the rank's local tensor, as the
 reference's run inside ``shard_map``; a group of one rank returns its
 input unchanged (a copy where the reference's result is a new array).
 
+**Gradients.**  Each collective is a ``torch.autograd.Function`` whose
+backward is its plain transpose, as JAX transposes the ``lax``
+primitive: all-gather <-> reduce-scatter, the sum all-reduce is its own
+transpose, the tiled ``all_to_all`` is its own transpose, ``ppermute``'s
+is ``ppermute`` with the pairs reversed.  Integer tensors pass through
+with no gradient; ``all_reduce(op="max")`` carries none.  The backward
+runs through the same wire format, host staging and counting as the
+forward.  That makes autograd on every rank compute the gradient of one
+function, given one convention for what a rank's loss means:
+
+* the global loss is the **sum of the ranks' local losses**;
+* each token's cross-entropy term is counted on exactly one rank,
+  divided by the global token count (the reported loss is the
+  all-reduced sum, equal on every rank);
+* a value every rank of a group holds alike (the gathered logits, the
+  MoE aux loss after its mean over the island) enters the local losses
+  once per group, not once per rank.
+
+Under it, a parameter's gradient on a rank is that rank's share; the
+sum over the mesh axes the parameter is replicated on is its gradient
+(``repro_torch.optim.adamw``: a reduce-scatter over ``zero1`` into the
+rank's bank where ZeRO-1 banks it, an all-reduce over the rest; under
+FSDP the weight all-gather's backward is that reduce-scatter).
+
 **Backends.**  The process group's backend is chosen by whoever starts the
 ranks (:func:`repro_torch.launch.mesh.spawn`), never guessed here: ``gloo``
 on the CPU; on the card ``nccl`` when each rank has a card of its own,
@@ -31,20 +55,26 @@ backend does, not from a failure.
 
 **Counting.**  Each call adds one to its op's ``calls`` and the bytes of
 its input to ``bytes`` in :data:`STATS` (read with :func:`comm_stats`,
-zeroed with :func:`reset_comm_stats`).  A call on a group of one rank
+zeroed with :func:`reset_comm_stats`); a backward counts under
+``<op>.bwd`` (``all_gather.bwd`` is the reduce-scatter of an
+all-gather's gradient).  Within :func:`counting_phase` each call is also
+counted under the phase's name (:func:`phase_stats`: a training step's
+``loss``, ``backward`` and ``optimizer``).  A call on a group of one rank
 moves nothing and is not counted.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
-from typing import Dict, Iterable, Sequence, Tuple, Union
+from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "Axes", "HOST_STAGED", "staged", "all_gather",
            "reduce_scatter", "all_reduce", "all_to_all", "ppermute",
-           "STATS", "comm_stats", "reset_comm_stats"]
+           "STATS", "comm_stats", "reset_comm_stats", "counting_phase",
+           "phase_stats"]
 
 Axes = Union[str, Sequence[str], None]
 
@@ -59,6 +89,8 @@ HOST_STAGED: Dict[str, frozenset] = {
 }
 
 STATS: Dict[str, Dict[str, int]] = {}
+_PHASES: Dict[str, Dict[str, Dict[str, int]]] = {}
+_PHASE: Optional[str] = None
 
 
 def comm_stats() -> Dict[str, Dict[str, int]]:
@@ -66,14 +98,36 @@ def comm_stats() -> Dict[str, Dict[str, int]]:
     return {k: dict(v) for k, v in STATS.items()}
 
 
+def phase_stats() -> Dict[str, Dict[str, Dict[str, int]]]:
+    """{phase: {op: {"calls": n, "bytes": b}}} of the calls made within
+    :func:`counting_phase` since the last reset, this rank."""
+    return {p: {k: dict(v) for k, v in ops.items()}
+            for p, ops in _PHASES.items()}
+
+
 def reset_comm_stats() -> None:
     STATS.clear()
+    _PHASES.clear()
+
+
+@contextlib.contextmanager
+def counting_phase(name: str):
+    """Count the calls made within the block under phase ``name`` too."""
+    global _PHASE
+    _PHASE, outer = name, _PHASE
+    try:
+        yield
+    finally:
+        _PHASE = outer
 
 
 def _count(op: str, x: torch.Tensor) -> None:
-    s = STATS.setdefault(op, {"calls": 0, "bytes": 0})
-    s["calls"] += 1
-    s["bytes"] += x.numel() * x.element_size()
+    nbytes = x.numel() * x.element_size()
+    for table in (STATS,) if _PHASE is None else \
+            (STATS, _PHASES.setdefault(_PHASE, {})):
+        s = table.setdefault(op, {"calls": 0, "bytes": 0})
+        s["calls"] += 1
+        s["bytes"] += nbytes
 
 
 class Mesh:
@@ -186,14 +240,11 @@ _SCATTER = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0
-               ) -> torch.Tensor:
-    """``lax.all_gather(x, axes, axis=dim, tiled=True)``: the group's
-    blocks concatenated along ``dim`` in group order."""
+# -- the collectives themselves (no autograd; ``name`` is what is counted) --
+
+def _gather(x, mesh: Mesh, axes: Axes, dim: int, name: str):
     n = mesh.axis_size(axes)
-    if n == 1:
-        return x
-    _count("all_gather", x)
+    _count(name, x)
     w = _wire(x.movedim(dim, 0), staged(mesh, "all_gather", x))
     out = torch.empty((n * w.shape[0],) + tuple(w.shape[1:]),
                       dtype=w.dtype, device=w.device)
@@ -201,17 +252,12 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0
     return _back(out, x).movedim(0, dim)
 
 
-def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0
-                   ) -> torch.Tensor:
-    """``lax.psum_scatter(x, axes, scatter_dimension=dim, tiled=True)``:
-    the group's sum, block ``i`` of ``dim`` left on group rank ``i``."""
+def _scatter(x, mesh: Mesh, axes: Axes, dim: int, name: str):
     n = mesh.axis_size(axes)
-    if n == 1:
-        return x
     if x.shape[dim] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
                          f"does not divide into {n}")
-    _count("reduce_scatter", x)
+    _count(name, x)
     w = _wire(x.movedim(dim, 0), staged(mesh, "reduce_scatter", x))
     out = torch.empty((w.shape[0] // n,) + tuple(w.shape[1:]),
                       dtype=w.dtype, device=w.device)
@@ -219,13 +265,8 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0
     return _back(out, x).movedim(0, dim)
 
 
-def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes, op: str = "sum"
-               ) -> torch.Tensor:
-    """``lax.psum`` (``op="sum"``) or ``lax.pmax`` (``op="max"``) over
-    ``axes``; a new tensor."""
-    if mesh.axis_size(axes) == 1:
-        return x.clone()
-    _count(f"all_reduce_{op}", x)
+def _reduce(x, mesh: Mesh, axes: Axes, op: str, name: str):
+    _count(name, x)
     w = _wire(x, staged(mesh, f"all_reduce_{op}", x))
     if w is x:
         w = x.clone()
@@ -234,37 +275,22 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes, op: str = "sum"
     return _back(w, x)
 
 
-def all_to_all(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0
-               ) -> torch.Tensor:
-    """``lax.all_to_all(x, axes, split_axis=dim, concat_axis=dim,
-    tiled=True)``: block ``i`` of ``dim`` goes to group rank ``i``, the
-    received blocks concatenated along ``dim`` in source order."""
+def _a2a(x, mesh: Mesh, axes: Axes, dim: int, name: str):
     n = mesh.axis_size(axes)
-    if n == 1:
-        return x
     if x.shape[dim] % n:
         raise ValueError(f"all_to_all: dim {dim} of {tuple(x.shape)} does "
                          f"not divide into {n}")
-    _count("all_to_all", x)
+    _count(name, x)
     w = _wire(x.movedim(dim, 0), staged(mesh, "all_to_all", x))
     out = torch.empty_like(w)
     dist.all_to_all_single(out, w, group=mesh.group(axes))
     return _back(out, x).movedim(0, dim)
 
 
-def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
-             perm: Iterable[Tuple[int, int]]) -> torch.Tensor:
-    """``lax.ppermute(x, axis, perm)``: ``perm`` holds (source, dest)
-    pairs of indices along ``axis``; a rank no pair sends to gets
-    zeros."""
-    n = mesh.axis_size(axis)
-    perm = list(perm)
+def _permute(x, mesh: Mesh, axis: str, perm, name: str):
     me = mesh.index(axis)
-    if n == 1:
-        return x.clone() if (0, 0) in perm else torch.zeros_like(x)
-    _count("ppermute", x)
-    host = staged(mesh, "ppermute", x)
-    w = _wire(x, host)
+    _count(name, x)
+    w = _wire(x, staged(mesh, "ppermute", x))
     out = w.clone() if (me, me) in perm else torch.zeros_like(w)
     group = mesh.group(axis)
     ranks = dist.get_process_group_ranks(group)
@@ -277,3 +303,118 @@ def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
             work.wait()
     return _back(out, x)
 
+
+# -- their autograd: each backward is the forward's transpose (module
+# docstring), counted as "<op>.bwd" --------------------------------------
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _gather(x, mesh, axes, dim, "all_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, *ctx.args, "all_gather.bwd"), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _scatter(x, mesh, axes, dim, "reduce_scatter")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args, "reduce_scatter.bwd"), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return _reduce(x, mesh, axes, "sum", "all_reduce_sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, *ctx.args, "sum", "all_reduce_sum.bwd"), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _a2a(x, mesh, axes, dim, "all_to_all")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, *ctx.args, "all_to_all.bwd"), None, None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.args = (mesh, axis, [(d, s) for s, d in perm])
+        return _permute(x, mesh, axis, perm, "ppermute")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, *ctx.args, "ppermute.bwd"), None, None, None
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0
+               ) -> torch.Tensor:
+    """``lax.all_gather(x, axes, axis=dim, tiled=True)``: the group's
+    blocks concatenated along ``dim`` in group order.  Backward: the
+    reduce-scatter of the gradient."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _AllGather.apply(x, mesh, axes, dim)
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0
+                   ) -> torch.Tensor:
+    """``lax.psum_scatter(x, axes, scatter_dimension=dim, tiled=True)``:
+    the group's sum, block ``i`` of ``dim`` left on group rank ``i``.
+    Backward: the all-gather of the gradient."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _ReduceScatter.apply(x, mesh, axes, dim)
+
+
+def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes, op: str = "sum"
+               ) -> torch.Tensor:
+    """``lax.psum`` (``op="sum"``) or ``lax.pmax`` (``op="max"``) over
+    ``axes``; a new tensor.  The sum's backward is the sum of the
+    gradient; the max carries no gradient (it serves statistics, e.g. a
+    log-sum-exp's shift, taken of detached values)."""
+    if mesh.axis_size(axes) == 1:
+        return x.clone()
+    if op == "max":
+        return _reduce(x.detach(), mesh, axes, "max", "all_reduce_max")
+    if op != "sum":
+        raise ValueError(f"all_reduce op must be 'sum' or 'max', got {op!r}")
+    return _AllReduce.apply(x, mesh, axes)
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axes: Axes, dim: int = 0
+               ) -> torch.Tensor:
+    """``lax.all_to_all(x, axes, split_axis=dim, concat_axis=dim,
+    tiled=True)``: block ``i`` of ``dim`` goes to group rank ``i``, the
+    received blocks concatenated along ``dim`` in source order.  Its own
+    transpose: the backward is the same call on the gradient.  Integer
+    tensors (routing metadata) pass through with no gradient."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axes, dim)
+
+
+def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
+             perm: Iterable[Tuple[int, int]]) -> torch.Tensor:
+    """``lax.ppermute(x, axis, perm)``: ``perm`` holds (source, dest)
+    pairs of indices along ``axis``; a rank no pair sends to gets zeros.
+    Backward: ``ppermute`` of the gradient with the pairs reversed."""
+    perm = list(perm)
+    if mesh.axis_size(axis) == 1:
+        return x.clone() if (0, 0) in perm else torch.zeros_like(x)
+    return _PPermute.apply(x, mesh, axis, perm)

@@ -36,7 +36,9 @@ from repro_torch.parallel.comm import Mesh
 
 Axis = Union[str, Tuple[str, ...], None]
 
-__all__ = ["Rules", "make_rules", "Axis", "Layout"]
+__all__ = ["Rules", "make_rules", "Axis", "Layout", "entry_names",
+           "entry_index", "spec_axes", "replicated_axes", "block_of",
+           "zero1_spec", "cut_block", "join_blocks"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +51,8 @@ class Rules:
     vocab: Axis = "model"           # "virtual mesh" embedding shard (C7)
     experts: Axis = "model"         # EP: MoE expert homes (sub-mesh, C7)
     kv_seq: Axis = "model"          # decode: KV cache sequence shard (C7)
-    # optimizer-state shard axis (ZeRO-1); read by SPMD training, a later
-    # slice: serving holds no optimizer state
+    # optimizer-state shard axis (ZeRO-1): the state's banks
+    # (``optim.adamw.state_specs``); serving holds no optimizer state
     zero1: Axis = "data"
     # how the MoE dispatch travels: "xy" = dimension-ordered two-phase
     # (paper C4), "x" = the column phase only, "flat" = single-axis, "ep"
@@ -73,8 +75,9 @@ class Rules:
     # each column, the port gathers the layer's weights instead (see
     # models/transformer.py)
     manual_tp: bool = True
-    # FSDP / ZeRO-3 banking of parameters over zero1; read by SPMD
-    # training, a later slice
+    # FSDP / ZeRO-3: a training cell's parameters banked over zero1 too
+    # (``zero1_spec``; the model's ``param_specs``), each layer's weights
+    # all-gathered before use; ``cell_rules`` clears it for inference
     fsdp: bool = False
 
     def __post_init__(self):
@@ -116,6 +119,106 @@ class Rules:
         if axis is None or size % self.axis_size(axis):
             return None
         return axis
+
+
+def entry_names(entry) -> Tuple[str, ...]:
+    """A spec entry (None, an axis name or a tuple of names) as a tuple of
+    names, major first."""
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def entry_index(mesh: Mesh, entry) -> int:
+    """This rank's block index along a spec entry: row-major in the
+    entry's own order (``("model", "data")`` is the data block of the
+    model block)."""
+    idx = 0
+    for a in entry_names(entry):
+        idx = idx * mesh.shape[a] + mesh.index(a)
+    return idx
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis named in ``spec`` (a tuple of per-dimension
+    entries)."""
+    return tuple(a for e in spec for a in entry_names(e))
+
+
+def replicated_axes(rules: Rules, spec) -> Tuple[str, ...]:
+    """The mesh axes a tensor laid out by ``spec`` is replicated on (those
+    its spec does not name), in mesh order: a parameter's gradient is
+    summed over them."""
+    used = set(spec_axes(spec))
+    return tuple(a for a in rules.mesh.axis_names if a not in used)
+
+
+def block_of(mesh: Mesh, spec, block_shape) -> Tuple[Tuple[int, ...],
+                                                    Tuple[slice, ...]]:
+    """(the global shape, this rank's slices of it) of a block laid out
+    by ``spec`` (tuple entries row-major in their own order,
+    :func:`entry_index`)."""
+    spec = tuple(spec) + (None,) * (len(block_shape) - len(tuple(spec)))
+    shape, where = [], []
+    for n, e in zip(block_shape, spec):
+        idx, parts = entry_index(mesh, e), 1
+        for a in entry_names(e):
+            parts *= mesh.shape[a]
+        shape.append(n * parts)
+        where.append(slice(idx * n, (idx + 1) * n))
+    return tuple(shape), tuple(where)
+
+
+def zero1_spec(spec: Tuple, shape: Tuple[int, ...], rules) -> Tuple:
+    """``spec`` (a parameter's per-dimension mesh axes) extended with the
+    ``zero1`` axis on the largest still-divisible dimension: the ZeRO-1
+    bank (the reference's ``optim.adamw._zero1_spec``; the optimizer's
+    state and, under FSDP, the parameters are laid out by it).  An
+    existing entry is extended in place (``"model"`` -> ``("model",
+    "data")``); ``spec`` comes back unchanged where nothing divides or
+    where it already names ``zero1``."""
+    z = rules._clean(rules.zero1)
+    if z is None:
+        return spec
+    z_names = entry_names(z)
+    z_size = rules.axis_size(z)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    if any(n in spec_axes(entries) for n in z_names):
+        return spec
+    best, best_len = -1, 0
+    for d, e in enumerate(entries):
+        here = rules.axis_size(e) if e else 1
+        if shape[d] % (here * z_size) == 0:
+            eff = shape[d] // here
+            if eff > best_len:
+                best, best_len = d, eff
+    if best < 0:
+        return spec
+    e = entries[best]
+    if e is None:
+        entries[best] = z if isinstance(z, str) else z_names
+    else:
+        entries[best] = entry_names(e) + z_names
+    return tuple(entries)
+
+
+def cut_block(t: torch.Tensor, spec, rules: Rules) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t``, dimension ``d`` cut
+    over ``spec[d]`` (a tuple entry row-major in its own order:
+    ``("model", "data")`` is the data block of the model block)."""
+    for d, a in enumerate(spec):
+        n = t.shape[d] // rules.axis_size(a)
+        t = t.narrow(d, entry_index(rules.mesh, a) * n, n)
+    return t.contiguous()
+
+
+def join_blocks(t: torch.Tensor, spec, rules: Rules) -> torch.Tensor:
+    """The whole of a tensor blocked by ``spec``: each dimension
+    all-gathered over its axes, the minor axis of a tuple entry first
+    (collective over every rank that holds a block; its backward
+    reduce-scatters)."""
+    for d, a in enumerate(spec):
+        for name in reversed(entry_names(a)):
+            t = comm.all_gather(t, rules.mesh, name, d)
+    return t
 
 
 def make_rules(mesh: Mesh, strategy: str = "baseline", **overrides) -> Rules:

@@ -1,5 +1,5 @@
-"""Fault-tolerant training runtime on one card (the port's counterpart of
-``repro.runtime.trainer``).
+"""Fault-tolerant training runtime on one card or on a mesh of ranks (the
+port's counterpart of ``repro.runtime.trainer``).
 
 The loop is the reference's, with the host-side control plane explicit:
 
@@ -21,9 +21,27 @@ The loop is the reference's, with the host-side control plane explicit:
   median of the last steps; a step slower than ``straggler_factor`` times
   it is recorded as an event.
 
-One device, given explicitly (the card unless ``device="cpu"``), so there
-is no mesh; the reference's elastic ``reshard`` belongs to the SPMD
-training slice.
+One device, given explicitly (the card unless ``device="cpu"``), or a
+mesh: ``Trainer(..., mesh=mesh, strategy=..., **rule_overrides)`` in
+every rank (the reference's ``_bind_mesh``: the rules are ``cell_rules``
+of the strategy for this cell).  On a mesh each rank holds its blocks of
+the parameters (its banks under FSDP) and its ZeRO-1 banks of the
+optimizer state, drawn by :meth:`Trainer.init` from the same seeded full
+initialisation as one card, or restored by :meth:`resume_or_init` from a
+checkpoint in the one on-disk layout (written on a mesh or on one card);
+every rank reads the same global batch and the model takes its rows.
+``remat`` follows ``rules.remat`` as in the reference: its default
+``"full"`` differs from the single-card ``"none"`` (ROADMAP C-9).
+
+**Agreement before a retry.**  One rank that raised while the others
+entered the step's collectives would hang the mesh.  So everything that
+may fail (the fault check, the batch's copy to the device) runs before
+the step's first collective, and the ranks agree on the outcome with one
+``all_reduce(MAX)`` of a failure flag: all of them run the step, or all
+of them retry (or restore) together.  A fault in the middle of a
+collective (a rank dying inside the step) is out of scope: it raises,
+and the run ends (ROADMAP C-13).  The reference's elastic ``reshard``
+waits for ROADMAP item 13b-2.
 """
 from __future__ import annotations
 
@@ -39,9 +57,10 @@ from repro_torch import optim
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.launch.step import train_step
+from repro_torch.launch.step import cell_rules, train_step
 from repro_torch.models import get_model
-from repro_torch.models.convert import init_params
+from repro_torch.models.convert import init_params, shard_params, state_layout
+from repro_torch.parallel import comm
 
 __all__ = ["TrainerConfig", "Trainer", "FaultInjector"]
 
@@ -73,25 +92,47 @@ class FaultInjector:
 
 
 class Trainer:
-    """Trains ``cfg``'s model on batches of ``shape`` on one device.
-    ``remat`` is the models' ``"none"`` or ``"full"``."""
+    """Trains ``cfg``'s model on batches of ``shape`` on one device, or on
+    ``mesh`` (every rank constructs it alike) under ``cell_rules(mesh,
+    cfg, shape, strategy, **rule_overrides)``.  ``remat``: the models'
+    ``"none"`` or ``"full"``; default ``"none"`` on one device,
+    ``rules.remat`` on a mesh (where a given ``remat`` overrides it)."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
                  opt_cfg: Optional[optim.OptConfig] = None,
                  tcfg: Optional[TrainerConfig] = None,
                  fault_injector: Optional[FaultInjector] = None,
-                 device=None, remat: str = "none"):
+                 device=None, remat: Optional[str] = None, mesh=None,
+                 strategy: str = "baseline", **rule_overrides):
         self.cfg, self.shape = cfg, shape
         self.tcfg = tcfg or TrainerConfig()
         self.opt_cfg = opt_cfg or optim.OptConfig()
         self.fault_injector = fault_injector
-        self.device = resolve_device(device)
-        self.remat = remat
+        self.mesh, self.strategy = mesh, strategy
+        if mesh is None:
+            if rule_overrides or strategy != "baseline":
+                raise ValueError("a strategy and rule overrides need a mesh")
+            self.rules, self.specs = None, None
+            self.device = resolve_device(device)
+            self.remat = remat or "none"
+        else:
+            if remat is not None:
+                rule_overrides["remat"] = remat
+            self.rules = cell_rules(mesh, cfg, shape, strategy,
+                                    **rule_overrides)
+            self.device = resolve_device(mesh.device if device is None
+                                         else device)
+            self.remat = self.rules.remat
+            specs = get_model(cfg).param_specs(cfg, self.rules)
+            banks = state_layout(cfg, self.rules)
+            self.specs = {"params": specs,
+                          "opt": {"master": banks, "m": banks, "v": banks,
+                                  "step": ()}}
         self.events: List[Dict] = []
         self.step_times: List[float] = []
         self.ckpt = None if self.tcfg.ckpt_dir is None else \
             AsyncCheckpointer(self.tcfg.ckpt_dir,
-                              credits=self.tcfg.ckpt_credits)
+                              credits=self.tcfg.ckpt_credits, mesh=mesh)
         self.model = None
         self.opt_state = None
         self.step = 0
@@ -99,36 +140,45 @@ class Trainer:
     # ------------------------------------------------------------------
     def _bind(self, params: Dict[str, torch.Tensor], opt_state) -> None:
         """Build the model around ``params`` (held, not copied), trainable."""
-        self.model = get_model(self.cfg)(self.cfg, self.device, params=params)
+        self.model = get_model(self.cfg)(self.cfg, self.device, params=params,
+                                         rules=self.rules)
         self.model.requires_grad_(True)
         self.opt_state = opt_state
 
     def init(self, seed: int = 0,
              params: Optional[Dict[str, torch.Tensor]] = None):
         """Fresh parameters (``init_params`` from a generator seeded
-        ``seed``, or the state dict ``params`` on the device) and a fresh
-        optimizer state, at step 0."""
+        ``seed``, or the full state dict ``params`` on the device) and a
+        fresh optimizer state, at step 0.  On a mesh, this rank's blocks
+        and banks of them: the same numbers as one card's."""
         if params is None:
             params = init_params(self.cfg, torch.Generator(
-                self.device).manual_seed(seed), self.device)
-        self._bind(params, optim.init(params))
+                self.device).manual_seed(seed), self.device, rules=self.rules)
+        elif self.rules is not None:
+            params = shard_params(self.cfg, params, self.rules)
+        on_mesh = {} if self.rules is None else {
+            "rules": self.rules, "specs": self.specs["params"]}
+        self._bind(params, optim.init(params, **on_mesh))
         self.step = 0
         return self
 
     def resume_or_init(self, seed: int = 0):
         """Restore the newest committed checkpoint (params and optimizer
-        state, onto the device), or :meth:`init` where there is none."""
+        state, onto the device; on a mesh this rank's blocks and banks),
+        or :meth:`init` where there is none."""
         last = None if self.ckpt is None else latest_step(self.tcfg.ckpt_dir)
         if last is None:
             return self.init(seed)
         model = get_model(self.cfg)
+        table = model.param_table(self.cfg)
         like = {k: torch.empty(shape, dtype=model.param_dtype(self.cfg, k),
-                               device="meta")
-                for k, shape in model.param_table(self.cfg).items()}
+                               device="meta") for k, shape in table.items()}
+        on_mesh = {} if self.mesh is None else {"specs": self.specs,
+                                                "mesh": self.mesh}
         tree, step, _extra = restore(
             self.tcfg.ckpt_dir, {"params": like,
-                                 "opt": optim.init(like)},
-            device=self.device)
+                                 "opt": optim.state_shapes(table)},
+            device=self.device, **on_mesh)
         self._bind(tree["params"], tree["opt"])
         self.step = step
         self.events.append({"kind": "resume", "step": step})
@@ -139,6 +189,38 @@ class Trainer:
                    ) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
+
+    def _agree(self, failed: bool) -> bool:
+        """Whether any rank failed (one all-reduce of the flag)."""
+        if self.mesh is None:
+            return failed
+        flag = torch.tensor([int(failed)], dtype=torch.int32,
+                            device=self.device)
+        return bool(comm.all_reduce(flag, self.mesh, self.mesh.axis_names,
+                                    "max").item())
+
+    def _try_step(self, batch):
+        """(metrics, None), or (None, the error) where the step failed on
+        this rank or, on a mesh, on any rank."""
+        err = None
+        try:
+            if self.fault_injector is not None:
+                self.fault_injector.maybe_fail(self.step)
+            tb = self._put_batch(batch)
+        except Exception as e:
+            err = e
+        if self._agree(err is not None):
+            return None, err or RuntimeError("a step failure on another "
+                                             "rank")
+        try:
+            metrics = train_step(self.model, self.opt_cfg, self.opt_state,
+                                 tb, self.remat, self.rules)
+            float(metrics["loss"])                  # wait for the step
+            return metrics, None
+        except Exception as e:
+            if self.mesh is not None:
+                raise        # inside the step's collectives: no agreement
+            return None, e
 
     def run(self, batches: Iterator[Dict[str, np.ndarray]],
             on_step: Optional[Callable[[int, Dict], None]] = None) -> Dict:
@@ -151,27 +233,21 @@ class Trainer:
             retries = 0
             while True:
                 t0 = time.perf_counter()
-                try:
-                    if self.fault_injector is not None:
-                        self.fault_injector.maybe_fail(self.step)
-                    metrics = train_step(self.model, self.opt_cfg,
-                                         self.opt_state,
-                                         self._put_batch(batch), self.remat)
-                    float(metrics["loss"])          # wait for the step
+                metrics, err = self._try_step(batch)
+                if err is None:
                     break
-                except Exception as e:
-                    retries += 1
-                    total_retries += 1
-                    self.events.append({"kind": "step_failure",
-                                        "step": self.step, "error": str(e)})
-                    if total_retries > self.tcfg.max_total_retries:
-                        raise RuntimeError("retry budget exhausted") from e
-                    if retries > self.tcfg.max_retries_per_step:
-                        # fall back to last durable state
-                        if self.ckpt is not None:
-                            self.ckpt.fence()
-                        self.resume_or_init()
-                        retries = 0
+                retries += 1
+                total_retries += 1
+                self.events.append({"kind": "step_failure",
+                                    "step": self.step, "error": str(err)})
+                if total_retries > self.tcfg.max_total_retries:
+                    raise RuntimeError("retry budget exhausted") from err
+                if retries > self.tcfg.max_retries_per_step:
+                    # fall back to last durable state
+                    if self.ckpt is not None:
+                        self.ckpt.fence()
+                    self.resume_or_init()
+                    retries = 0
                 dt = time.perf_counter() - t0
                 self._heartbeat(dt)
             dt = time.perf_counter() - t0
@@ -184,7 +260,8 @@ class Trainer:
                     "params": {k: p.detach() for k, p
                                in self.model.named_parameters()},
                     "opt": self.opt_state},
-                    extra={"loss": float(metrics["loss"])})
+                    extra={"loss": float(metrics["loss"])},
+                    **({} if self.specs is None else {"specs": self.specs}))
             if on_step is not None:
                 on_step(self.step, metrics)
             if self.step % self.tcfg.log_every == 0:

@@ -119,11 +119,14 @@ def test_facade_rejects_endpoints_and_bad_input():
 
 def test_port_imports_nothing_of_jax_or_repro():
     """A fresh interpreter imports the port and all its submodules (the
-    workload library, the DSE, the simulation service, the training path
-    and the SPMD mechanisms, sharding rules and mesh launcher among
-    them); no ``jax*``, no ``ml_dtypes`` and no ``repro`` / ``repro.*``
-    module may be loaded.  (A spawned rank's modules are checked in
-    ``tests/test_torch_spmd_models.py``.)"""
+    workload library, the DSE, the simulation service, the training path,
+    the SPMD mechanisms, sharding rules and mesh launcher, and the mesh
+    training path (the collectives' backward, ZeRO-1 banking, sharded
+    checkpoints, the mesh ``Trainer``) among them); no ``jax*``, no
+    ``ml_dtypes`` and no ``repro`` / ``repro.*`` module may be loaded.
+    (A spawned rank's modules are checked in
+    ``tests/test_torch_spmd_models.py`` and, for the training ranks,
+    ``tests/test_torch_spmd_{grad,trainer}.py``.)"""
     code = (
         "import pkgutil, importlib, sys\n"
         "import repro_torch\n"
@@ -147,7 +150,9 @@ def test_port_imports_nothing_of_jax_or_repro():
         "          'core.routing', 'core.credits', 'core.pgas',\n"
         "          'core.token_queue', 'core.endpoint', 'core.sync',\n"
         "          'parallel.comm', 'parallel.sharding', 'launch.mesh',\n"
-        "          'launch.serve', 'models.transformer', 'models.moe'):\n"
+        "          'launch.serve', 'models.transformer', 'models.moe',\n"
+        "          'models.base', 'models.convert', 'optim', 'checkpoint',\n"
+        "          'runtime', 'parallel'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")

@@ -232,7 +232,8 @@ def model_decodes(rank, cases, shape=(2, 4)):
     builds them."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.step import cell_rules
-    from repro_torch.models.transformer import cache_specs, _join
+    from repro_torch.models.transformer import cache_specs
+    from repro_torch.parallel.sharding import join_blocks
     mesh = make_test_mesh(shape, ("data", "model"))
     out = {}
     for name, cfg, params, steps, max_seq, overrides in cases:
@@ -245,7 +246,7 @@ def model_decodes(rank, cases, shape=(2, 4)):
         got = []
         for tok in steps:
             logits, cache = model.decode_step(cache, torch.from_numpy(tok))
-            whole = {k: _np(_join(v, specs[k], rules))
+            whole = {k: _np(join_blocks(v, specs[k], rules))
                      for k, v in cache.items()}
             got.append((_np(logits), whole))
         out[name] = (got, rules._clean(rules.batch),
@@ -294,3 +295,222 @@ def one_rank(rank, cfg, params, tokens, steps, max_seq):
         nxt, cache = serve_step(model, cache, torch.from_numpy(tok), rules)
         toks.append(_np(nxt))
     return _np(logits), _np(last), np.stack(toks)
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh: collectives' backward, gradients, optimizer, Trainer
+# ---------------------------------------------------------------------------
+
+def full_grads(model, rules):
+    """Every parameter's gradient as the reference's ``value_and_grad``
+    gives it: this rank's share summed over the axes its block is
+    replicated on, then gathered to the full array."""
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.sharding import join_blocks, replicated_axes
+    specs = model.param_specs(model.cfg, rules)
+    out = {}
+    for name, p in model.named_parameters():
+        g = p.grad
+        red = replicated_axes(rules, specs[name])
+        if red:
+            g = comm.all_reduce(g, rules.mesh, red)
+        out[name] = _np(join_blocks(g, specs[name], rules))
+    return out
+
+
+def _rules_of(mesh, cfg, case_rules):
+    """``("rules", overrides)`` -> ``Rules``; ``("cell", shape,
+    overrides)`` -> ``cell_rules`` of a training cell of that shape."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.step import cell_rules
+    from repro_torch.parallel.sharding import Rules
+    if case_rules[0] == "rules":
+        return Rules(mesh=mesh, **case_rules[1])
+    (S, B), overrides = case_rules[1], case_rules[2]
+    return cell_rules(mesh, cfg, ShapeConfig("t", S, B, "train"),
+                      **overrides)
+
+
+def spmd_grads(rank, cases, shape=(2, 4), remats=("none", "full")):
+    """{(name, remat): (loss, metrics, full gradients on rank 0, drops)}
+    of each case (name, cfg, params, batch, rules spec) through the mesh
+    ``loss`` and its backward."""
+    from repro_torch.models import moe
+    from repro_torch.parallel import comm
+    mesh = make_test_mesh(shape, ("data", "model"))
+    out = {}
+    for name, cfg, params, batch, case_rules in cases:
+        rules = _rules_of(mesh, cfg, case_rules)
+        model = _model(cfg, params, rules)
+        model.requires_grad_(True)
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        for remat in remats:
+            for p in model.parameters():
+                p.grad = None
+            comm.reset_comm_stats()
+            with moe.counting_drops() as drops:
+                loss, metrics = model.loss(tb, remat=remat)
+                loss.backward()
+            grads = full_grads(model, rules)
+            out[(name, remat)] = (
+                float(loss), {k: float(v) for k, v in metrics.items()},
+                grads if rank == 0 else None,
+                int(sum(int(d) for d in drops)),
+                sorted(k for k in comm.comm_stats() if k.endswith(".bwd")))
+    out["modules"] = loaded_modules(rank)
+    return out
+
+
+def collective_vjps(rank, inputs):
+    """Each collective's forward and backward on this rank's block of the
+    inputs (``{case: (x, cotangent)}``) on the (y 2, x 4) mesh: {case:
+    (y, x's gradient)}, plus the backward's counts."""
+    from repro_torch.parallel import comm
+    mesh = make_test_mesh((2, 4), ("y", "x"))
+    fns = {
+        "all_gather": lambda t: comm.all_gather(t, mesh, "x", 1),
+        "all_gather yx": lambda t: comm.all_gather(t, mesh, ("y", "x"), 0),
+        "psum_scatter": lambda t: comm.reduce_scatter(t, mesh, "x", 0),
+        "psum": lambda t: comm.all_reduce(t, mesh, ("y", "x")),
+        "psum y": lambda t: comm.all_reduce(t, mesh, "y"),
+        "all_to_all": lambda t: comm.all_to_all(t, mesh, "x", 0),
+        "all_to_all y": lambda t: comm.all_to_all(t, mesh, "y", 1),
+        "ppermute": lambda t: comm.ppermute(t, mesh, "x",
+                                            [(0, 1), (1, 2), (2, 0)]),
+    }
+    out = {}
+    comm.reset_comm_stats()
+    for case, fn in fns.items():
+        x, ct = (torch.from_numpy(a[rank]) for a in inputs[case])
+        x.requires_grad_(True)
+        y = fn(x)
+        (g,) = torch.autograd.grad(y, x, ct)
+        out[case] = (_np(y), _np(g))
+    ints = torch.from_numpy(inputs["ints"][rank])
+    out["ints"] = _np(comm.all_to_all(ints, mesh, "x", 0))
+    out["stats"] = comm.comm_stats()
+    return out
+
+
+def backward_checks(rank, vjp_inputs, grad_cases):
+    """:func:`collective_vjps` on the (y 2, x 4) mesh, then
+    :func:`spmd_grads` on (data 2, model 4), in one spawn."""
+    return {"vjp": collective_vjps(rank, vjp_inputs),
+            "grads": spmd_grads(rank, grad_cases)}
+
+
+def spmd_train_steps(rank, cfg, params, batches, strategies, opt):
+    """{strategy: (per-step metrics, full parameters and optimizer state
+    after the steps (rank 0; None elsewhere), this rank's parameter and
+    state bytes)}: ``train_step`` on the (data 2, model 4) mesh under
+    ``cell_rules`` of each strategy, from the reference's parameters."""
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.step import cell_rules, train_step
+    from repro_torch.models.convert import gather_opt_state
+    from repro_torch.models.transformer import gather_params
+    mesh = make_test_mesh((2, 4), ("data", "model"))
+    B, S = batches[0]["tokens"].shape
+    out = {}
+    for strategy in strategies:
+        rules = cell_rules(mesh, cfg, ShapeConfig("t", S, B, "train"),
+                           strategy)
+        model = _model(cfg, params, rules)
+        model.requires_grad_(True)
+        held = dict(model.named_parameters())
+        state = optim.init(held, rules=rules,
+                           specs=model.param_specs(cfg, rules))
+        metrics = []
+        for b in batches:
+            m = train_step(model, optim.OptConfig(**opt), state,
+                           {k: torch.from_numpy(v) for k, v in b.items()},
+                           rules.remat, rules)
+            metrics.append({k: float(v) for k, v in m.items()})
+        full = gather_params(cfg, {k: p.detach() for k, p in held.items()},
+                             rules)
+        st = gather_opt_state(cfg, state, rules)
+        nbytes = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                                for t in ts)
+        out[strategy] = (
+            metrics,
+            None if rank else ({k: _np(v) for k, v in full.items()},
+                               {p: {k: _np(v) for k, v in st[p].items()}
+                                for p in ("master", "m", "v")},
+                               int(st["step"])),
+            nbytes(held.values()),
+            nbytes([t for p in ("master", "m", "v")
+                    for t in state[p].values()]))
+    return out
+
+
+def spmd_trainers(rank, cfg, p0, opt, dirs, shape=(2, 4)):
+    """The mesh ``Trainer`` (baseline) from the full parameters ``p0`` on
+    the deterministic stream, ``{scenario: ...}``:
+
+    * ``run``: 6 steps, checkpoints at 3 and 6 under ``dirs["run"]``:
+      (losses, events, full parameters and state at 6 on rank 0);
+    * ``resume``: step 3 of that run (copied alone to ``dirs["resume"]``)
+      resumed and run to 6: (losses, full parameters at 6 on rank 0);
+    * ``fault every rank`` / ``fault rank 0``: 4 steps with one fault
+      at step 2 on every rank / at step 1 on rank 0 only: (losses,
+      events);
+    * ``from one card``: ``dirs["one card"]`` (written by the single-card
+      ``Trainer``) restored: (step, full parameters and state on rank 0).
+    """
+    import shutil
+    import torch.distributed as dist
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import batch_iterator
+    from repro_torch.models.convert import gather_opt_state, params_from_jax
+    from repro_torch.models.transformer import gather_params
+    from repro_torch.runtime import FaultInjector, Trainer, TrainerConfig
+    mesh = make_test_mesh(shape, ("data", "model"))
+    SHAPE = ShapeConfig("t", seq_len=32, global_batch=8, kind="train")
+
+    def full():          # fresh tensors: a trainer updates what it holds
+        return params_from_jax(cfg, p0, "cpu")
+
+    def trainer(steps, ckpt_dir, faults=None):
+        return Trainer(cfg, SHAPE, optim.OptConfig(**opt), TrainerConfig(
+            total_steps=steps, ckpt_every=3, ckpt_dir=ckpt_dir,
+            log_every=100), fault_injector=FaultInjector(faults or {}),
+            mesh=mesh)
+
+    def run(tr):
+        losses = []
+        tr.run(batch_iterator(cfg, SHAPE, start_step=tr.step),
+               on_step=lambda s, m: losses.append(float(m["loss"])))
+        tr.close()
+        return losses
+
+    def whole(tr):
+        p = gather_params(cfg, {k: v.detach() for k, v in
+                                tr.model.named_parameters()}, tr.rules)
+        st = gather_opt_state(cfg, tr.opt_state, tr.rules)
+        if rank:
+            return None
+        return ({k: _np(v) for k, v in p.items()},
+                {q: {k: _np(v) for k, v in st[q].items()}
+                 for q in ("master", "m", "v")})
+
+    out = {}
+    tr = trainer(6, dirs["run"]).init(params=full())
+    losses = run(tr)
+    out["run"] = (losses, tr.events, whole(tr))
+    if rank == 0:
+        shutil.copytree(f"{dirs['run']}/step_00000003",
+                        f"{dirs['resume']}/step_00000003")
+    dist.barrier()
+    tr = trainer(6, dirs["resume"]).resume_or_init()
+    step = tr.step
+    out["resume"] = (step, run(tr), whole(tr))
+    tr = trainer(4, None, {2: 1}).init(params=full())
+    out["fault every rank"] = (run(tr), tr.events)
+    tr = trainer(4, None, {1: 1} if rank == 0 else {}).init(params=full())
+    out["fault rank 0"] = (run(tr), tr.events)
+    tr = trainer(6, dirs["one card"]).resume_or_init()
+    out["from one card"] = (tr.step, whole(tr))
+    tr.close()
+    out["modules"] = loaded_modules(rank)
+    return out
