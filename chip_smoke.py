@@ -158,14 +158,18 @@ Phases (any failure raises and exits nonzero):
    ``train_step`` on the card equal to the CPU's; (3) through ``Trainer``
    and ``launch/train.py``'s code, bf16 weights drawn on the card, full
    remat, each model freed before the next: Mamba-2 370M whole, 8 x 4096
-   tokens, 20 steps (96 ``tensor_core`` SSD launches a step: 48 forward
-   and 48 rematerialised; an injected fault at step 3 retried), and
-   Moonshot's widths, 2 of 48 layers, 1 x 4096, 10 steps (4
-   ``wgmma_tma`` flash and 24 ``tma`` GMM a step: 6 forward, 6
-   rematerialised, 12 in the backward), the launches asserted at every
-   step and the loss falling; (4) Mamba-2's checkpoint of step 10
-   restored by a fresh ``Trainer``, whose next step's loss equals the
-   uninterrupted run's step 11; (5) times, not gated: ms per warm step,
+   tokens, 10 steps, checkpoints at 5 and 10 (96 ``tensor_core`` SSD
+   launches a step: 48 forward and 48 rematerialised; an injected fault
+   at step 3 retried), and Moonshot's widths, 2 of 48 layers, 1 x 4096,
+   10 steps (4 ``wgmma_tma`` flash and 24 ``tma`` GMM a step: 6 forward,
+   6 rematerialised, 12 in the backward), the launches asserted at every
+   step and the loss falling; then Moonshot again from the same weights
+   and batch for 3 steps under ``remat="dots"`` (the launches of full
+   remat; the losses equal the full run's bit for bit) and ``"none"``
+   (2 flash and 18 GMM a step), with the peak memory and the cuBLAS
+   matmuls' device time a step of all three; (4) Mamba-2's checkpoint of
+   step 5 restored by a fresh ``Trainer``, whose next step's loss equals
+   the uninterrupted run's step 6; (5) times, not gated: ms per warm step,
    tokens/s, model FLOP/s, peak memory, the profiler's device time by
    category over 3 warm steps and the idle share, and the GMM's backward
    products beside ``torch.bmm`` with their transposed copies;
@@ -215,6 +219,32 @@ Phases (any failure raises and exits nonzero):
    and backward) at its local shapes against plain, one rank at a time;
    (3) the kernel times at those shapes on the card alone, and the
    per-rank training launches in the ``kernels`` line.
+14. ``[spmd pipeline]``, the rest of SPMD training, one spawn of 4 ranks
+   (data 2 x model 2) sharing the card over gloo after a one-card
+   yardstick: (1) ``parallel/pipeline.py::pipeline_apply`` at Moonshot's
+   widths, 4 layers in 2 stages of 2 on ``model`` (the stage body the
+   port's transformer layer, ``layer_apply``: flash, then the MoE at the
+   published capacity factor through the GMM, each layer under full
+   remat: without it four ranks' activations do not fit the card), rows
+   over ``data``, 4 microbatches of 1 x 4096 a data rank; forward, then
+   the backward of a fixed random projection of the outputs: on every
+   rank 10 flash and 30 GMM launches forward (2 layers x 5 ticks, the
+   bubble ticks included), as many again in the remat and 60 GMM in the
+   backward wave, one ``ppermute`` a tick and one
+   ``ppermute.bwd`` a tick but the last, the bubble fraction, the peak
+   memory (at most 18 GiB a rank), the outputs bit-identical to the
+   same 4 layers run microbatch by microbatch on one card (at most 1
+   bf16 ulp), each stage gradient summed over ``data`` within 1e-2
+   relative L2 of one card's; (2) ``optim/compress.py::cross_pod_psum``
+   over ``data`` on those gradients (the attention, norms and router
+   whole, 4 of each expert weight's 64 experts) in int8 and bf16 with
+   error feedback over two rounds, each round within its codec's bound
+   of the exact all-reduce, the wire's bytes the fp32 bytes; (3)
+   ``Trainer.reshard`` on CUDA tensors: the reduced Moonshot at capacity
+   factor 8 (``ep``), 2 steps on (2, 2), re-sharded to (1, 2) on ranks
+   0-1, 2 more steps (ranks 2-3 idle): the 4 losses within 1e-3 of one
+   card's, the move's time and bytes; the phase's entries in the
+   ``kernels`` line.
 
 It needs a card: without one it prints the reason to stderr and exits 1.
 """
@@ -1551,8 +1581,12 @@ BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core rate, SXM data sheet
 # The training paths (phase 11): Mamba-2 370M whole at 8 x 4096 tokens,
 # Moonshot's widths (2 of 48 layers) at 1 x 4096, both with full remat.
 TRAIN_SEQ = 4096
-MAMBA2_TRAIN_BATCH, MAMBA2_TRAIN_STEPS = 8, 20
+MAMBA2_TRAIN_BATCH, MAMBA2_TRAIN_STEPS = 8, 10
+MAMBA2_CKPT_EVERY = 5          # checkpoints at 5 and 10; step 5 resumed
 MOONSHOT_TRAIN_LAYERS, MOONSHOT_TRAIN_STEPS = 2, 10
+# Moonshot again under each other remat policy, 3 steps from the same
+# weights on the same batch: losses against the full-remat run's first 3
+MOONSHOT_REMAT_STEPS = 3
 # The model kernels' shapes on the main paths: (name, arch, batch, Sq, Sk,
 # causal) of each flash call of a prefill or a training step, (name, arch,
 # tokens) of each expert FFN's GMM pair (gate/up and down at the capacity
@@ -2749,7 +2783,7 @@ def _run_on(trainer, batch, on_step):
 
 
 def train_path(device, cfg, label, batch, steps, per_step, ckpt_dir=None,
-               fault_at=None):
+               fault_at=None, ckpt_every=10):
     """Phase 11 (3): train ``cfg`` at full width through ``Trainer`` and
     ``launch/train.py``'s ``make_trainer`` (AdamW at the launcher's 3e-4
     peak after 10 warmup steps), bf16 weights drawn on the card, full
@@ -2774,7 +2808,7 @@ def train_path(device, cfg, label, batch, steps, per_step, ckpt_dir=None,
     nparams = sum(p.numel() for p in params.values())
     trainer = make_trainer(
         cfg, TRAIN_SEQ, batch, steps, device=device, remat="full",
-        ckpt_dir=ckpt_dir, ckpt_every=10,
+        ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
         fault_injector=None if fault_at is None else FaultInjector(
             {fault_at: 1}))
     trainer.init(params=params)
@@ -2875,7 +2909,8 @@ def train_path(device, cfg, label, batch, steps, per_step, ckpt_dir=None,
     return trainer, rec
 
 
-def checkpoint_resume(device, cfg, ckpt_dir, losses, data, at=10):
+def checkpoint_resume(device, cfg, ckpt_dir, losses, data,
+                      at=MAMBA2_CKPT_EVERY):
     """Phase 11 (4): the Mamba-2 run's checkpoint of step ``at`` (written
     by its ``AsyncCheckpointer``; the later step's directory is removed)
     restored by a fresh ``Trainer`` (``resume_or_init``), which takes the
@@ -2895,7 +2930,7 @@ def checkpoint_resume(device, cfg, ckpt_dir, losses, data, at=10):
     t0 = time.perf_counter()
     tr = make_trainer(cfg, TRAIN_SEQ, MAMBA2_TRAIN_BATCH, at + 1,
                       device=device, remat="full", ckpt_dir=ckpt_dir,
-                      ckpt_every=10)
+                      ckpt_every=MAMBA2_CKPT_EVERY)
     tr.resume_or_init()
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
@@ -2936,7 +2971,7 @@ def train_paths(device):
         trainer, rec = train_path(
             device, cfg, label, MAMBA2_TRAIN_BATCH, MAMBA2_TRAIN_STEPS,
             {"ssd_scan": {"tensor_core": 2 * cfg.num_layers}},
-            ckpt_dir=ckpt_dir, fault_at=3)
+            ckpt_dir=ckpt_dir, fault_at=3, ckpt_every=MAMBA2_CKPT_EVERY)
         trainer.close()
         del trainer
         torch.cuda.empty_cache()
@@ -2956,7 +2991,155 @@ def train_paths(device):
     trainer.close()
     del trainer
     torch.cuda.empty_cache()
+    rec["remat"] = remat_paths(device, cfg, label, rec)
     out[MOONSHOT] = rec
+    return out
+
+
+def remat_paths(device, cfg, label, full):
+    """Phase 11 (3b): Moonshot's widths again under ``remat="dots"`` (the
+    reference's ``checkpoint_dots_with_no_batch_dims``: the backward
+    reruns everything but the products with no batch dimensions) and
+    ``"none"``, each :data:`MOONSHOT_REMAT_STEPS` steps from the same
+    weights (``draw_params``) on the same batch as the full-remat run
+    ``full`` (the launcher's schedule of its 10 steps).  Each step's
+    launches asserted: dots as full (flash 2 a layer: forward and remat;
+    GMM 12: 3 forward, 3 remat, 6 backward), none without the remat
+    (flash 1, GMM 9).  The dots losses must equal the full run's first
+    ones bit for bit (remat changes no arithmetic); none's are printed
+    beside them.  Then 2 warm steps under the profiler: the cuBLAS
+    matmuls' device time a step, and the peak memory, beside full's.
+    Each step's launches are split by forward (within the model's
+    ``loss``), backward (within the GMM's backward) and remat (the rest),
+    each asserted.  Returns {remat: record}."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.step import train_step
+    from repro_torch.launch.train import make_trainer
+    card = card_line()
+    L = cfg.num_layers
+    cublas = _TRAIN_CATEGORIES[6]
+    # a step's launches by (forward, remat, backward): flash, GMM
+    split = {"dots": ((L, 3 * L), (L, 3 * L), (0, 6 * L)),
+             "none": ((L, 3 * L), (0, 0), (0, 6 * L))}
+    n = MOONSHOT_REMAT_STEPS
+    out = {}
+    for remat, parts in split.items():
+        want = {"flash_attention": {"wgmma_tma": sum(p[0] for p in parts)},
+                "moe_gmm": {"tma": sum(p[1] for p in parts)}}
+        params, _nbytes, _init_s = draw_params(device, cfg)
+        tr = make_trainer(cfg, TRAIN_SEQ, 1, MOONSHOT_TRAIN_STEPS,
+                          device=device, remat=remat, ckpt_dir=None)
+        tr.tcfg.total_steps = n            # the 10-step run's schedule
+        tr.init(params=params)
+        del params
+        data = synthetic_batch(cfg, tr.shape, 0)
+        losses, variants, fwd, bwd = [], [], [], []
+        real_loss, real_bwd = tr.model.loss, ops._GMM.backward
+        gmm = _wrappers()["moe_gmm"]
+
+        def loss(*a, **kw):
+            before = read_variants()
+            got = real_loss(*a, **kw)
+            now = read_variants()
+            fwd.append((now["flash_attention"]["wgmma_tma"]
+                        - before["flash_attention"]["wgmma_tma"],
+                        now["moe_gmm"]["tma"] - before["moe_gmm"]["tma"]))
+            return got
+
+        def gmm_backward(ctx, g):
+            before = gmm.launches
+            got = real_bwd(ctx, g)
+            bwd.append(gmm.launches - before)
+            return got
+
+        def on_step(step, m):
+            losses.append(float(m["loss"]))
+            variants.append(read_variants())
+            zero_counts()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        tr.model.loss = loss
+        ops._GMM.backward = staticmethod(gmm_backward)
+        try:
+            _run_on(tr, data, on_step)
+        finally:
+            tr.model.loss = real_loss
+            ops._GMM.backward = staticmethod(real_bwd)
+        peak = torch.cuda.max_memory_allocated()
+        for i, v in enumerate(variants):
+            for k, d in v.items():
+                for var, c in d.items():
+                    check(c == want.get(k, {}).get(var, 0),
+                          f"{label} remat {remat} step {i + 1}: {k} "
+                          f"launched {d}, expected {want.get(k, {})}")
+            b = sum(bwd[i * 3 * L:(i + 1) * 3 * L])
+            got = (fwd[i], (v["flash_attention"]["wgmma_tma"] - fwd[i][0],
+                            v["moe_gmm"]["tma"] - fwd[i][1] - b), (0, b))
+            check(got == parts and len(bwd) == 3 * L * n,
+                  f"{label} remat {remat} step {i + 1}: launches by "
+                  f"forward, remat, backward {got}, expected {parts}")
+        bts = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in data.items()}] * 2
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for b in bts:
+                m = train_step(tr.model, tr.opt_cfg, tr.opt_state, b,
+                               tr.remat)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t1
+        cats, busy, idle, _ = _train_breakdown(prof, pwall)
+        total = {k: sum(v[k].get(var, 0) for v in variants)
+                 for k, var in (("flash_attention", "wgmma_tma"),
+                                ("moe_gmm", "tma"))}
+        out[remat] = dict(losses=losses, peak=peak, launches=total,
+                          split=parts,
+                          cublas_ms=cats[cublas] / 1e3 / 2,
+                          busy_ms=busy * 1e3 / 2, step_ms=pwall * 1e3 / 2,
+                          idle=idle, variants={
+                              k: {a: b for a, b in d.items() if b}
+                              for k, d in variants[0].items() if any(
+                                  d.values())})
+        tr.close()
+        del tr, bts, prof
+        torch.cuda.empty_cache()
+    ref = full["losses"][:n]
+    same = out["dots"]["losses"] == ref
+    none_diff = max(abs(a - b) / abs(b)
+                    for a, b in zip(out["none"]["losses"], ref))
+    rows = {"none": out["none"], "dots": out["dots"],
+            "full": dict(peak=full["peak"], cublas_ms=full["cats"][cublas],
+                         busy_ms=full["busy"] * 1e3,
+                         step_ms=full["pwall"] * 1e3)}
+    print(f"[train remat] {card}: {label}, 1 x {TRAIN_SEQ}, {n} steps from "
+          f"the full-remat run's weights and batch: dots losses "
+          f"{out['dots']['losses']}, full's {ref} "
+          f"({'bit-identical' if same else 'DIFFERENT'}); none's "
+          f"{out['none']['losses']} (largest relative difference "
+          f"{none_diff:.2e}); launches a step dots "
+          f"{out['dots']['variants']}, none {out['none']['variants']}; "
+          f"(flash, GMM) by forward, remat and backward: dots "
+          f"{out['dots']['split']}, none {out['none']['split']} (asserted "
+          f"at every step)")
+    print(f"[train remat] {card}: {label}: peak memory "
+          + ", ".join(f"{k} {r['peak'] / 2**30:.2f} GiB"
+                      for k, r in rows.items())
+          + "; cuBLAS matmuls' device time a step (the profiler) "
+          + ", ".join(f"{k} {r['cublas_ms']:.2f} ms" for k, r in rows.items())
+          + "; device busy a step "
+          + ", ".join(f"{k} {r['busy_ms']:.1f} ms" for k, r in rows.items())
+          + "; profiled step "
+          + ", ".join(f"{k} {r['step_ms']:.1f} ms" for k, r in rows.items()))
+    check(same, f"{label}: remat dots losses {out['dots']['losses']} differ "
+          f"from full remat's {ref}")
     return out
 
 
@@ -4170,6 +4353,480 @@ def spmd_train_entries(st, replaces):
     return out
 
 
+# ----------------------------------------------------------------------
+# [spmd pipeline]: the rest of SPMD training on ranks sharing the card
+# ----------------------------------------------------------------------
+# Moonshot's widths, 4 layers: 2 stages of 2 on ``model``, rows over
+# ``data``, 4 microbatches of 1 x 4096 tokens a data rank
+PIPE_LAYERS, PIPE_MICRO = 4, 4
+# the stage body's remat (each layer): without it four ranks' activations
+# of 10 layer applications each (~19 GiB a rank) do not fit the card
+PIPE_REMAT = "full"
+PIPE_PEAK_GIB = 18.0         # four ranks share the card's 80 GB
+PIPE_GRAD_BAR = 1e-2         # relative L2 a stage gradient vs one card
+# cross_pod_psum over ``data``: every gradient of a stage's attention,
+# norms and router, and this many of the 64 experts of each expert
+# weight (all 64 would send 4.56 GB of fp32 a rank a reduction through
+# gloo, ~0.5-1 GB/s here)
+PIPE_EXPERTS_COMPRESSED = 4
+# Trainer.reshard: the reduced Moonshot at a capacity factor at which
+# nothing drops (the CPU tests' 8), 2 steps on (2, 2), 2 on (1, 2)
+RESHARD_SEQ, RESHARD_BATCH, RESHARD_STEPS, RESHARD_CF = 64, 4, 4, 8.0
+RESHARD_MESH = (1, 2)
+RESHARD_BAR = 1e-3
+# ``ep`` (one card's global FIFO and its load-balance loss over the global
+# tokens): ``xy``'s aux loss is its islands' mean (the reference's
+# ``_pmean_all``), not one card's, so its losses differ from one card's
+# by ~1e-3 relative at this size (its cross entropy by ~4e-6)
+RESHARD_DISPATCH = "ep"
+
+
+def _pipe_cfg():
+    """Moonshot's published widths, :data:`PIPE_LAYERS` layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOONSHOT), num_layers=PIPE_LAYERS)
+
+
+def _reshard_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    cfg = reduced_config(get_config(MOONSHOT))
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=RESHARD_CF))
+
+
+def _pipe_layers(cfg, device, stage=None):
+    """The ``layers/`` parameters of ``draw_params(cfg)`` under their
+    short names, each (L, ...); with ``stage``, that stage's (L / 2, ...)
+    slice (the rest freed)."""
+    import torch
+    params, _nbytes, _s = draw_params(device, cfg)
+    n = cfg.num_layers // SPMD_MESH[1]
+    out = {}
+    for name in sorted(params):
+        t = params.pop(name)
+        if name.startswith("layers/"):
+            out[name.split("/", 1)[1]] = t if stage is None else \
+                t[stage * n:(stage + 1) * n].clone()
+        del t
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pipe_microbatch(device, cfg, g):
+    """Global microbatch ``g``: (its input (1, 4096, D), the fixed random
+    projection its output's loss takes), bf16, seeded by ``g``."""
+    import torch
+    gen = torch.Generator(device).manual_seed(1000 + g)
+    shape = (1, TRAIN_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=device)
+    ct = torch.randn(shape, generator=gen, device=device)
+    return x.to(torch.bfloat16), ct.to(torch.bfloat16)
+
+
+def _pipe_body(cfg, device, remat):
+    """The stage body: the port's transformer layer (``layer_apply``:
+    flash, then the MoE through the GMM) over the stage's layers, each
+    under ``remat``."""
+    import torch
+    from repro_torch.models.base import run_layer
+    from repro_torch.models.transformer import layer_apply
+    pos = torch.arange(TRAIN_SEQ, dtype=torch.int32,
+                       device=device).expand(1, TRAIN_SEQ)
+
+    def layer(h, lp):
+        return layer_apply(h, lp, cfg, pos)[0]
+
+    def body(sp, h):
+        for i in range(next(iter(sp.values())).shape[0]):
+            h = run_layer(layer, remat, h, {k: v[i] for k, v in sp.items()})
+        return h
+    return body
+
+
+def _pipe_loss(y, ct):
+    return (y.float() * ct.float()).sum()
+
+
+def pipeline_yardstick(device, out):
+    """[spmd pipeline] (1a): one card first, in this process: the 4 layers
+    microbatch by microbatch (the 8 global microbatches of the pipeline's
+    two data rows) with the same kernels, each microbatch's loss
+    backward in turn (the gradients summed); the outputs (bf16) and the
+    layer gradients (bf16) to ``out`` as ``.npy``; the card freed.  Also
+    the reshard's one-card reference: the reduced Moonshot's
+    :data:`RESHARD_STEPS` steps."""
+    import os
+    import torch
+    from repro_torch.launch.train import make_trainer, train
+    cfg = _pipe_cfg()
+    layers = _pipe_layers(cfg, device)
+    for t in layers.values():
+        t.requires_grad_(True)
+    body = _pipe_body(cfg, device, PIPE_REMAT)
+    os.makedirs(os.path.join(out, "outs"))
+    os.makedirs(os.path.join(out, "grads"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    for g in range(SPMD_MESH[0] * PIPE_MICRO):
+        x, ct = _pipe_microbatch(device, cfg, g)
+        y = body(layers, x)
+        _pipe_loss(y, ct).backward()
+        _leaf_file(os.path.join(out, "outs", str(g)), y)
+        del x, ct, y
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_variants()
+    peak = torch.cuda.max_memory_allocated()
+    for name, t in layers.items():
+        _leaf_file(os.path.join(out, "grads", name), t.grad)
+    del layers
+    torch.cuda.empty_cache()
+    rcfg = _reshard_cfg()
+    tr = make_trainer(rcfg, RESHARD_SEQ, RESHARD_BATCH, RESHARD_STEPS,
+                      device=device, ckpt_dir=None)
+    tr.init(seed=0)
+    losses = []
+    train(tr, lambda s, m: losses.append(float(m["loss"])))
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+    return dict(wall=wall, peak=peak, variants=counts,
+                reshard_losses=losses)
+
+
+def _bf16_ulps(a, b):
+    """The largest distance between two bf16 tensors in units in the last
+    place (their bits mapped to integers in the floats' order)."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _pipe_rank(rank, plan):
+    """The [spmd pipeline] program of one rank (4 ranks sharing the card
+    over gloo, data 2 x model 2):
+
+    1. ``pipeline_apply`` of the stage body over ``model``, rows over
+       ``data``: this rank's stage's 2 layers, its 4 microbatches of 1 x
+       4096; forward, then the backward of its copy of the loss; the
+       launches by forward and backward, the hops, the peak memory; the
+       outputs against the yardstick's (bit for bit, or in bf16 ulps)
+       and the stage's gradients, summed over ``data``, against its
+       slice of the yardstick's (relative L2);
+    2. ``cross_pod_psum`` over ``data`` of the stage's gradients (fp32;
+       :data:`PIPE_EXPERTS_COMPRESSED` experts of the expert weights) in
+       int8 and bf16, error feedback over two rounds, against the exact
+       all-reduce of what each round compresses: the largest error over
+       its bound (int8: the two ranks' half quantization steps, each its
+       chunk's max / 127 / 2; bf16: 2^-8 of the sum of magnitudes), the
+       bytes on the wire;
+    3. ``Trainer.reshard``: the reduced Moonshot (capacity factor 8) 2
+       steps on (2, 2), re-sharded to (1, 2) on ranks 0-1, 2 more steps
+       (ranks 2-3 idle): the losses, the move's time and bytes."""
+    import os
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import optim
+    from repro_torch.kernels.backend import resolve_device
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import make_trainer, train
+    from repro_torch.models import get_model
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.pipeline import bubble_fraction, pipeline_apply
+    device = str(resolve_device(plan["device"]))
+    mesh = make_test_mesh(SPMD_MESH, ("data", "model"), device)
+    small = make_test_mesh(RESHARD_MESH, ("data", "model"), device,
+                           ranks=range(RESHARD_MESH[0] * RESHARD_MESH[1]))
+    cfg = _pipe_cfg()
+    d, s = mesh.index("data"), mesh.index("model")
+    n_stages, n = mesh.axis_size("model"), cfg.num_layers // SPMD_MESH[1]
+    stage = _pipe_layers(cfg, device, stage=s)
+    for t in stage.values():
+        t.requires_grad_(True)
+    body = _pipe_body(cfg, device, PIPE_REMAT)
+    rows = [m * SPMD_MESH[0] + d for m in range(PIPE_MICRO)]
+    xs, cts = zip(*(_pipe_microbatch(device, cfg, g) for g in rows))
+    x, ct = torch.stack(xs), torch.stack(cts)
+    del xs, cts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    zero_counts()
+    comm.reset_comm_stats()
+    t0 = time.perf_counter()
+    y = pipeline_apply(body, stage, x, mesh, "model", "data")
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd = read_variants()
+    _pipe_loss(y, ct).backward()
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0 - fwd_s
+    total = read_variants()
+    hops = comm.comm_stats()
+    peak = torch.cuda.max_memory_allocated()
+    # the outputs against the yardstick's, microbatch by microbatch
+    same, ulps = 0, 0
+    for m, g in enumerate(rows):
+        want = _leaf_block(os.path.join(plan["dir"], "outs", f"{g}.npy"),
+                           ()).to(device=device, dtype=torch.bfloat16)
+        got = y[m].detach()
+        same += int(torch.equal(got, want))
+        ulps = max(ulps, _bf16_ulps(got, want))
+        del want
+    del y, x, ct
+    torch.cuda.empty_cache()
+    # the stage's gradients, summed over data, against the yardstick's
+    grad_err = {}
+    part = {"wq", "wk", "wv", "wo", "router", "attn_norm", "mlp_norm"}
+    for name in sorted(stage):
+        g = comm.all_reduce(stage[name].grad.float(), mesh, "data")
+        want = _leaf_block(os.path.join(plan["dir"], "grads",
+                                        f"{name}.npy"),
+                           (slice(s * n, (s + 1) * n),)).to(device)
+        grad_err[name] = float((g - want).norm()
+                               / want.norm().clamp_min(1e-30))
+        del g, want
+    # cross_pod_psum on real gradients
+    comp, grads = {}, {}
+    for name in sorted(stage):
+        g = stage[name].grad.float()
+        grads[name] = g if name in part else \
+            g[:, :PIPE_EXPERTS_COMPRESSED].contiguous()
+        del g
+    for t in stage.values():
+        t.grad = None
+    for mode in ("int8", "bf16"):
+        err = optim.init_error_state(grads)
+        worst, wire = 0.0, 0
+        for rnd in range(2):
+            for name, g in grads.items():
+                gf = g + err[name]
+                comm.reset_comm_stats()
+                got, err[name] = optim.cross_pod_psum(g, mesh, "data", mode,
+                                                      err[name])
+                wire += comm.comm_stats()["all_reduce_sum"]["bytes"]
+                want = comm.all_reduce(gf, mesh, "data")
+                # the codec's bound a value, summed over the ranks, with
+                # the fp32 rounding of its arithmetic and of the sum
+                if mode == "int8":
+                    _q, scale = optim.quantize_int8(gf)
+                    half = (scale * (0.5 + 2 ** -12)).expand(
+                        -1, 1024).reshape(-1)[:gf.numel()]
+                    bound = comm.all_reduce(half.reshape(gf.shape), mesh,
+                                            "data")
+                else:
+                    bound = comm.all_reduce(gf.abs(), mesh, "data") * 2 ** -8
+                bound = bound + 2 ** -22 * want.abs()
+                over = (got - want).abs() / bound.clamp_min(1e-30)
+                worst = max(worst, float(over.max()))
+                del gf, got, want, bound, over
+        n_el = sum(g.numel() for g in grads.values())
+        comp[mode] = dict(worst=worst, wire=wire, fp32_bytes=2 * 4 * n_el,
+                          elements=n_el)
+        del err
+    del grads, stage
+    torch.cuda.empty_cache()
+    # Trainer.reshard on CUDA tensors
+    rcfg = _reshard_cfg()
+    tr = make_trainer(rcfg, RESHARD_SEQ, RESHARD_BATCH, RESHARD_STEPS,
+                      device=device, ckpt_dir=None, mesh=mesh,
+                      dispatch=RESHARD_DISPATCH)
+    tr.init(seed=0)
+    tr.tcfg.total_steps = RESHARD_STEPS // 2
+    losses = []
+    train(tr, lambda st, m: losses.append(float(m["loss"])))
+    dist.barrier()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tr.reshard(small)
+    torch.cuda.synchronize()
+    move_s = time.perf_counter() - t1
+    tr.tcfg.total_steps = RESHARD_STEPS
+    train(tr, lambda st, m: losses.append(float(m["loss"])))
+    model = get_model(rcfg)
+    move_bytes = sum(int(np.prod(shape)) * (
+        torch.finfo(model.param_dtype(rcfg, k)).bits // 8 + 12)
+        for k, shape in model.param_table(rcfg).items())
+    active, events = tr.active, tr.events
+    tr.close()
+    return dict(fwd=fwd, total=total, hops={k: v["calls"] for k, v in
+                                            hops.items()},
+                hop_bytes={k: v["bytes"] for k, v in hops.items()},
+                peak=peak, fwd_s=fwd_s, bwd_s=bwd_s, same=same, ulps=ulps,
+                grad_err=grad_err, comp=comp, stage=s, data=d,
+                bubble=bubble_fraction(PIPE_MICRO, n_stages),
+                reshard=dict(losses=losses, move_s=move_s,
+                             move_bytes=move_bytes, active=active,
+                             events=events))
+
+
+def spmd_pipeline_phase(device):
+    """``[spmd pipeline]``: the rest of SPMD training.  The yardstick on
+    one card first (:func:`pipeline_yardstick`), then one spawn of 4
+    ranks (data 2 x model 2) sharing the card over gloo
+    (:func:`_pipe_rank`).  Checks on every rank: the launches (flash 2
+    ``wgmma_tma`` a tick forward and again in the remat, none in the
+    backward; GMM 6 ``tma`` a tick forward, again in the remat, and 2
+    more for each in the backward), one ``ppermute`` a
+    tick and one ``ppermute.bwd`` a tick but the last, the peak memory
+    under :data:`PIPE_PEAK_GIB`; the outputs bit-identical to one card's
+    (or within 1 bf16 ulp); every stage gradient within
+    :data:`PIPE_GRAD_BAR`; ``cross_pod_psum`` within its codec's bound,
+    its wire bytes the fp32 bytes; the re-sharded run's 4 losses within
+    :data:`RESHARD_BAR` of one card's, ranks 2-3 idle after the move.
+    Returns its records."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import spawn
+    card = card_line()
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="spmd_pipeline_")
+    try:
+        yard = pipeline_yardstick(device, out)
+        print(f"[spmd pipeline] {card}: yardstick, one card alone: "
+              f"{MOONSHOT} widths, {PIPE_LAYERS} layers, "
+              f"{SPMD_MESH[0] * PIPE_MICRO} microbatches of 1 x {TRAIN_SEQ} "
+              f"one after another, remat {PIPE_REMAT}: {yard['wall']:.2f} s, "
+              f"peak {yard['peak'] / 2**30:.2f} GiB, launches "
+              f"{ {k: {a: b for a, b in v.items() if b} for k, v in yard['variants'].items()} }")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn(_pipe_rank, SPMD_WORLD, "gloo",
+                      device=torch.device(device).type,
+                      args=({"device": torch.device(device).type,
+                             "dir": out},), timeout=900)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    ticks = PIPE_MICRO + SPMD_MESH[1] - 1
+    n = PIPE_LAYERS // SPMD_MESH[1]
+    remat_runs = 2 if PIPE_REMAT != "none" else 1
+    fwd_want = {"flash_attention": {"wgmma_tma": n * ticks},
+                "moe_gmm": {"tma": 3 * n * ticks}}
+    want = {"flash_attention": {"wgmma_tma": remat_runs * n * ticks},
+            "moe_gmm": {"tma": (remat_runs + 2) * 3 * n * ticks}}
+    for r, rec in enumerate(ranks):
+        fwd = {k: {a: b for a, b in v.items() if b}
+               for k, v in rec["fwd"].items() if k != "ssd_scan"}
+        tot = {k: {a: b for a, b in v.items() if b}
+               for k, v in rec["total"].items() if k != "ssd_scan"}
+        print(f"[spmd pipeline] {card}: rank {r} (data {rec['data']}, stage "
+              f"{rec['stage']}; {SPMD_LABEL}): {n} layers a stage, "
+              f"{PIPE_MICRO} microbatches of 1 x {TRAIN_SEQ}, {ticks} ticks, "
+              f"bubble fraction {rec['bubble']:.3f}; forward {rec['fwd_s']:.2f}"
+              f" s, backward {rec['bwd_s']:.2f} s; launches forward {fwd}, "
+              f"forward and backward {tot}; hops {rec['hops']}; peak memory "
+              f"{rec['peak'] / 2**30:.2f} GiB; outputs bit-identical to one "
+              f"card's in {rec['same']} of {PIPE_MICRO} microbatches (largest "
+              f"difference {rec['ulps']} bf16 ulps); stage gradients (summed "
+              f"over data) vs one card's, worst relative L2 "
+              f"{max(rec['grad_err'].values()):.3e} "
+              f"({max(rec['grad_err'], key=rec['grad_err'].get)}; tolerance "
+              f"{PIPE_GRAD_BAR})")
+        check(fwd == fwd_want, f"[spmd pipeline] rank {r}: forward launches "
+              f"{fwd}, expected {fwd_want}")
+        check(tot == want, f"[spmd pipeline] rank {r}: launches {tot}, "
+              f"expected {want}")
+        check(rec["hops"].get("ppermute") == ticks
+              and rec["hops"].get("ppermute.bwd") == ticks - 1,
+              f"[spmd pipeline] rank {r}: hops {rec['hops']}")
+        check(abs(rec["bubble"] - (SPMD_MESH[1] - 1) / ticks) < 1e-12,
+              "bubble fraction")
+        check(rec["peak"] <= PIPE_PEAK_GIB * 2**30,
+              f"[spmd pipeline] rank {r}: peak {rec['peak'] / 2**30:.2f} GiB")
+        check(rec["ulps"] <= 1, f"[spmd pipeline] rank {r}: outputs "
+              f"{rec['ulps']} bf16 ulps from one card's")
+        check(_all_within(rec["grad_err"], PIPE_GRAD_BAR),
+              f"[spmd pipeline] rank {r}: gradients {rec['grad_err']}")
+        for mode, c in rec["comp"].items():
+            print(f"[spmd pipeline] rank {r}: cross_pod_psum over data, "
+                  f"{mode}, error feedback over 2 rounds, {c['elements']} "
+                  f"gradient elements: the largest error against the exact "
+                  f"all-reduce is {c['worst']:.6f} of the codec's bound; "
+                  f"{c['wire']} bytes on the wire (fp32: {c['fp32_bytes']})")
+            check(c["worst"] <= 1.0, f"[spmd pipeline] rank {r} {mode}: "
+                  f"error {c['worst']} of its bound")
+            check(c["wire"] == c["fp32_bytes"], f"[spmd pipeline] rank {r} "
+                  f"{mode}: wire {c['wire']} bytes, fp32 {c['fp32_bytes']}")
+        rs = rec["reshard"]
+        one = yard["reshard_losses"]
+        small = r < RESHARD_MESH[0] * RESHARD_MESH[1]
+        expect = one if small else one[:RESHARD_STEPS // 2]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(rs["losses"], expect))
+        print(f"[spmd pipeline] {card}: rank {r}: Trainer.reshard of the "
+              f"reduced {MOONSHOT} (capacity factor {RESHARD_CF}, dispatch "
+              f"{RESHARD_DISPATCH}), "
+              f"{SPMD_MESH} -> {RESHARD_MESH} after {RESHARD_STEPS // 2} "
+              f"steps: losses {rs['losses']} against one card's {one} "
+              f"(largest relative difference {rel:.2e}, tolerance "
+              f"{RESHARD_BAR}); the move {rs['move_s'] * 1e3:.1f} ms, "
+              f"{rs['move_bytes']} bytes of parameters and optimizer state "
+              f"sent whole; in the new mesh: {rs['active']}; events "
+              f"{rs['events']}")
+        check(len(rs["losses"]) == len(expect) and rel <= RESHARD_BAR,
+              f"[spmd pipeline] rank {r}: reshard losses {rs['losses']}")
+        check(rs["active"] == small and rs["events"] == [{
+            "kind": "reshard", "step": RESHARD_STEPS // 2,
+            "from_chips": SPMD_WORLD,
+            "to_chips": RESHARD_MESH[0] * RESHARD_MESH[1]}],
+            f"[spmd pipeline] rank {r}: reshard events {rs['events']}")
+    wall = time.perf_counter() - t_phase
+    print(f"[spmd pipeline] phase wall {wall:.1f} s (the ranks {ranks_s:.1f} "
+          f"s)")
+    return {"ranks": ranks, "yard": yard,
+            "bwd_gmm": [sum(rec["total"]["moe_gmm"].values())
+                        - sum(rec["fwd"]["moe_gmm"].values()) * remat_runs
+                        for rec in ranks]}
+
+
+def spmd_pipeline_entries(pipe, times, errs, bwd_times, replaces):
+    """The ``kernels`` entries of [spmd pipeline]: flash and the GMM's
+    forward and backward products at the stage body's shapes (those of
+    Moonshot's 1 x 4096 training step: phase 7 holds them against plain,
+    phase 10 and 11 time them in this run), with the launches summed over
+    the ranks (by rank beside)."""
+    ranks = pipe["ranks"]
+    out = []
+    fwd_gmm = [sum(r["total"]["moe_gmm"].values()) - b
+               for r, b in zip(ranks, pipe["bwd_gmm"])]
+    for name, kernel, t, err, by_rank in (
+            ("flash_attention_spmd_pipeline", "flash_attention",
+             times["flash Moonshot train"], errs["flash Moonshot train"],
+             [sum(r["total"]["flash_attention"].values()) for r in ranks]),
+            ("moe_gmm_spmd_pipeline", "moe_gmm",
+             times["gmm Moonshot prefill gate/up"],
+             errs["gmm Moonshot prefill gate/up"], fwd_gmm),
+            ("moe_gmm_spmd_pipeline_backward", "moe_gmm",
+             bwd_times["gate/up d_lhs"], bwd_times["gate/up d_lhs"]["err"],
+             pipe["bwd_gmm"])):
+        check(sum(by_rank) > 0, f"{name} never launched")
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{kernel}.cu",
+            "replaces": replaces[kernel], "launches": sum(by_rank),
+            "launches_by_rank": by_rank, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"],
+            "library": t.get("library", "torch.bmm"),
+            "checked_against_plain": True,
+            "variant": "wgmma_tma" if kernel == "flash_attention" else "tma",
+            "path": f"[spmd pipeline] {MOONSHOT} widths, {PIPE_LAYERS} "
+                    f"layers in 2 stages, {SPMD_LABEL}",
+            "shape": t["shape"]})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4275,6 +4932,7 @@ def main() -> int:
     bwd_times = train_kernel_timings("cuda")
     spmd = spmd_phase("cuda")
     spmd_train = spmd_train_phase("cuda")
+    pipe = spmd_pipeline_phase("cuda")
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:86",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
                 "moe_gmm": "src/repro/kernels/moe_gmm.py:44"}
@@ -4360,6 +5018,11 @@ def main() -> int:
             "checked_against_plain": True, "variant": variant,
             "path": f"{arch} training", "shape": t["shape"],
             "grad_rel_err_vs_plain": gerr})
+        if arch == MOONSHOT:
+            # every launch (forward, remat, backward) of Moonshot's 3 steps
+            # under remat "dots" and "none" (phase 11 (3b))
+            kernels[-1]["launches_in_remat_runs"] = {
+                r: rec["launches"][name] for r, rec in moon["remat"].items()}
     for prod in ("d_lhs", "d_rhs"):
         t = bwd_times[f"gate/up {prod}"]
         d = bwd_times[f"down {prod}"]
@@ -4381,6 +5044,7 @@ def main() -> int:
                      "transposed_copy_ms": d["copy_ms"]}})
     kernels += spmd_entries(spmd, replaces)
     kernels += spmd_train_entries(spmd_train, replaces)
+    kernels += spmd_pipeline_entries(pipe, times, errs, bwd_times, replaces)
     for arch, r in trains.items():
         print(f"[summary] {card_line()}: {arch} training {r['tokens']} tokens "
               f"a step: warm step {r['warm'] * 1e3:.1f} ms, "

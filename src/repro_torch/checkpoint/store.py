@@ -118,10 +118,11 @@ def save(root: os.PathLike, step: int, tree: Any,
          group=None) -> Path:
     """Atomic synchronous save of ``tree`` at ``step``.  On a mesh
     (``specs`` and ``mesh``; collective over ``group``, default the
-    world) ``tree`` holds this rank's blocks (module docstring)."""
+    world; a mesh on some ranks of the world needs a group over them)
+    ``tree`` holds this rank's blocks (module docstring)."""
     plan = _plan(tree, specs, mesh)
     return _save_blocks(Path(root), step, plan, _snapshot(tree, plan),
-                        extra, mesh is not None, group)
+                        extra, mesh, group)
 
 
 def _plan(tree, specs, mesh) -> List[Dict]:
@@ -159,16 +160,19 @@ def _snapshot(tree, plan) -> Dict[str, np.ndarray]:
 
 
 def _save_blocks(root: Path, step: int, plan, blocks, extra,
-                 collective: bool, group=None) -> Path:
+                 mesh=None, group=None) -> Path:
     """Write ``blocks`` into the leaves' files of ``step_N.tmp`` at their
-    offsets, then checksum, write the manifest and rename (rank 0); on a
-    mesh (``collective``) barriers over ``group`` between the phases."""
+    offsets, then checksum, write the manifest and rename (the mesh's
+    first rank); on a ``mesh`` barriers over ``group`` between the
+    phases."""
+    collective = mesh is not None
+
     def barrier():
         if collective:
             dist.barrier(group=group)
     final = root / f"step_{step:08d}"
     tmp = root / f"step_{step:08d}.tmp"
-    rank0 = not collective or dist.get_rank() == 0
+    rank0 = not collective or dist.get_rank() == mesh.ranks[0]
     if rank0:
         if tmp.exists():
             shutil.rmtree(tmp)
@@ -291,9 +295,10 @@ class AsyncCheckpointer:
     def __init__(self, root: os.PathLike, credits: int = 2, mesh=None):
         self.root = Path(root)
         self.mesh = mesh
-        # collective: every rank builds its checkpointer at the same point
+        # collective over the world: every rank builds its checkpointer at
+        # the same point, a rank outside the mesh too (it submits nothing)
         self._group = None if mesh is None else dist.new_group(
-            backend="gloo")
+            ranks=list(mesh.ranks), backend="gloo")
         self._q: queue.Queue = queue.Queue(maxsize=credits)
         self._errors: list = []
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -308,7 +313,7 @@ class AsyncCheckpointer:
             step, (plan, blocks), extra = item
             try:
                 _save_blocks(self.root, step, plan, blocks, extra,
-                             self.mesh is not None, self._group)
+                             self.mesh, self._group)
             except Exception as e:  # surfaced at next submit/fence
                 self._errors.append(e)
             finally:

@@ -48,9 +48,11 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     return Mesh(shape, axes, device)
 
 
-def make_test_mesh(shape=(2, 4), axes=("data", "model"), device=None) -> Mesh:
-    """A small mesh over the ranks of the process group."""
-    return Mesh(shape, axes, device)
+def make_test_mesh(shape=(2, 4), axes=("data", "model"), device=None,
+                   ranks=None) -> Mesh:
+    """A small mesh over the ranks of the process group (or over
+    ``ranks`` of it; collective over the whole group either way)."""
+    return Mesh(shape, axes, device, ranks)
 
 
 def _rank_main(fn, rank, world, backend, device, store, args_file,

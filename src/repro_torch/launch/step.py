@@ -24,8 +24,10 @@ build no autograd graph, whether or not the parameters require
 gradients.  The reference's jit cells (``build_cell``, shardings,
 ShapeDtypeStruct stand-ins) serve its dry run, which has no counterpart
 here: a mesh training step's layouts are the model's ``param_specs``
-and the optimizer's banks.  SPMD training's pipeline schedule,
-compressed gradients and ``remat="dots"`` wait for ROADMAP item 13b-2.
+and the optimizer's banks.  ``remat`` is ``"none"``, ``"full"`` or
+``"dots"`` (``models/base.py::run_layer``).  The pipeline schedule is
+``parallel/pipeline.py`` and the compressed cross-pod reduction
+``optim/compress.py``; as in the reference, neither is part of this step.
 """
 from __future__ import annotations
 

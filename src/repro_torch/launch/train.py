@@ -20,9 +20,8 @@ optimizer state sharded by the reference's ``cell_rules``:
       --reduced --device cpu --devices 8 --mesh-shape 2,4 --strategy fsdp
 
 The strategies are ``baseline``, ``fsdp``, ``no_sp``, ``flat_a2a`` and
-``no_zero1``; ``--remat`` defaults to the rules' (``full``) on a mesh.
-The reference's pipeline schedule and compressed gradients wait for
-ROADMAP item 13b-2.
+``no_zero1``; ``--remat`` (``none``, ``full`` or ``dots``) defaults to
+the rules' (``full``) on a mesh and to ``none`` on one device.
 
 :func:`make_trainer` and :func:`train` are the launcher's code, for
 callers that build a config themselves (``chip_smoke.py`` cuts depth).
@@ -105,7 +104,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--remat", default=None, choices=("none", "full"),
+    ap.add_argument("--remat", default=None, choices=("none", "full",
+                                                      "dots"),
                     help="default: none on one device, the rules' on a "
                          "mesh")
     ap.add_argument("--ckpt-dir", default="checkpoints/train")

@@ -17,40 +17,83 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 from torch.profiler import record_function
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.parallel import comm
 from .layers import cross_entropy
 
-__all__ = ["TableModule", "run_layer", "AUX_COEF", "REMAT"]
+__all__ = ["TableModule", "run_layer", "dots_policy", "AUX_COEF", "REMAT"]
 
 AUX_COEF = 0.01            # the MoE load-balance loss's weight
-REMAT = ("none", "full")   # the reference's "dots" is a JAX save policy
+REMAT = ("none", "full", "dots")
+
+# The products with no batch dimensions, as the dispatcher sees them: a
+# matrix product of 2-D operands (``x @ w`` with x (B, S, D) and w (D, F)
+# folds x to 2-D and runs ``mm``).  Every product of the port's layers
+# that the reference writes as a ``dot_general`` without batch dimensions
+# is written ``x @ w`` and lowers to one of these; every product with
+# batch dimensions (an ``einsum`` over heads, chunks or experts) lowers
+# to ``bmm``, which is recomputed, as an ``einsum`` with no batch labels
+# would be too (it lowers to ``bmm`` with a batch of one), so the port's
+# layers write none.
+_NO_BATCH_PRODUCTS = frozenset({
+    torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+    torch.ops.aten.mv.default, torch.ops.aten.addmv.default,
+    torch.ops.aten.dot.default})
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """JAX's ``checkpoint_dots_with_no_batch_dims`` as a selective
+    checkpoint policy: save the outputs of the products with no batch
+    dimensions, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_PRODUCTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(dots_policy)
 
 
 def run_layer(fn, remat: str, *args):
-    """``fn(*args)``, under ``remat="full"`` through
-    ``torch.utils.checkpoint`` (non-reentrant): the layer keeps only its
-    inputs for the backward, which runs its forward again first, as the
-    reference's ``jax.checkpoint`` does.  No layer draws random numbers,
-    so the RNG state is not kept.
+    """``fn(*args)`` under the reference's ``Rules.remat``, through
+    ``torch.utils.checkpoint`` (non-reentrant) for the two policies that
+    rematerialise:
+
+    * ``"full"``: the layer keeps only its inputs for the backward, which
+      runs its forward again first, as the reference's ``jax.checkpoint``
+      does;
+    * ``"dots"``: the layer keeps its inputs and the outputs of its
+      products with no batch dimensions (:func:`dots_policy`, the
+      reference's ``checkpoint_dots_with_no_batch_dims``); the backward
+      recomputes everything else from them: the products with batch
+      dimensions, the elementwise work, the collectives and the Hopper
+      kernels (they launch through ``ctypes``, which the dispatcher never
+      sees, so they always rerun, as the reference's Pallas kernels are
+      no ``dot_general``).  One difference: the policy keeps every such
+      product's output, where JAX's partial evaluation keeps only those
+      the backward reads; the recompute stops at the last tensor the
+      backward needs, so a product after it (a layer's last, feeding only
+      the residual sum) is kept and never read.
+
+    No layer draws random numbers, so the RNG state is not kept.
 
     On a mesh ``fn`` is a layer's islands, collectives included.  The
     recompute reruns them, and every rank reaches it at the same node of
     the same backward graph, so every rank reruns the same collectives in
     the same order (a layer whose islands differed by rank would hang
-    here).  The reference's ``"dots"`` (save the matmuls' outputs) is a
-    JAX save policy, not ported yet (ROADMAP item 13b-2)."""
+    here)."""
     if remat == "none":
         return fn(*args)
     if remat == "full":
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False)
     if remat == "dots":
-        raise ValueError("remat 'dots' is not ported yet (ROADMAP item "
-                         "13b-2); use 'none' or 'full'")
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=_dots_context)
     raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
 
 

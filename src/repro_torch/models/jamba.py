@@ -13,8 +13,9 @@ every mixer through the SSD kernel and every expert FFN through the GMM
 kernel; on the CPU through their plain versions.  Decode attention, the
 mixer recurrence of decode, the dense projections and the LM head are
 plain tensor code.  :meth:`Jamba.loss` is the reference's ``loss_fn``;
-``remat="full"`` rematerialises each period in the backward, as the
-reference's ``jax.checkpoint`` of its period body does.
+``remat="full"`` (or ``"dots"``, ``base.run_layer``) rematerialises each
+period in the backward, as the reference's ``jax.checkpoint`` of its
+period body does.
 """
 from __future__ import annotations
 

@@ -22,8 +22,8 @@ reference's ``ref`` path masks by the temporal stream ``positions[0]``,
 which is the same for text positions (``ROADMAP.md`` C-5).
 
 :meth:`Transformer.loss` is the reference's ``loss_fn`` and the forward's
-``remat="full"`` its ``Rules.remat`` (each layer rematerialised in the
-backward).
+``remat="full"`` / ``"dots"`` its ``Rules.remat`` (each layer
+rematerialised in the backward).
 
 **On a mesh** (``Transformer(cfg, device, params, rules=rules)``, every
 rank running the same code on its own block; ``rules`` from
@@ -76,6 +76,7 @@ from .base import TableModule, run_layer
 from .layers import embed_lookup, mrope, rms_norm, rope, swiglu
 
 __all__ = ["param_table", "param_dtype", "init_rule", "attn_block",
+           "mlp_block", "layer_apply",
            "scatter_kv", "scatter_pos", "Transformer", "param_specs",
            "layout_specs", "shard_table", "shard_params", "gather_params",
            "cache_specs"]
@@ -266,6 +267,33 @@ def attn_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
     v = v.reshape(B, S, K, hd)
     out = flash_attention_op(q, k, v, causal=True, window=cfg.sliding_window)
     return x + out.reshape(B, S, H * hd) @ lp["wo"]
+
+
+def mlp_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
+              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MLP (dense SwiGLU, MoE, or both) with its residual, x
+    (B, S, D); returns (x, MoE aux loss)."""
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    if cfg.moe is None:
+        return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), aux
+    out, aux = moe_mod.moe_block(
+        h, {"router": lp["router"], "w_gate": lp["moe_gate"],
+            "w_up": lp["moe_up"], "w_down": lp["moe_down"]}, cfg)
+    if cfg.d_ff > 0:
+        out = out + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return x + out, aux
+
+
+def layer_apply(x: torch.Tensor, lp: Dict[str, torch.Tensor],
+                cfg: ModelConfig, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer on one card (the reference's ``_layer_body`` with
+    ``rules=None``): attention, then the MLP; ``lp`` holds the layer's
+    slice of every ``layers/`` parameter under its short name.  Returns
+    (x, MoE aux loss).  A pipeline stage's body loops it over its
+    layers."""
+    return mlp_block(attn_block(x, lp, cfg, positions), lp, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -465,26 +493,9 @@ class Transformer(TableModule):
         return self._p("embed").T if self.cfg.tie_embeddings \
             else self._p("lm_head")
 
-    def _mlp(self, x: torch.Tensor, lp: Dict[str, torch.Tensor]
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The MLP (dense SwiGLU, MoE, or both) with its residual, x
-        (B, S, D); returns (x, MoE aux loss)."""
-        cfg = self.cfg
-        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        aux = torch.zeros((), dtype=F32, device=x.device)
-        if cfg.moe is None:
-            return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), aux
-        out, aux = moe_mod.moe_block(
-            h, {"router": lp["router"], "w_gate": lp["moe_gate"],
-                "w_up": lp["moe_up"], "w_down": lp["moe_down"]}, cfg)
-        if cfg.d_ff > 0:
-            out = out + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
-        return x + out, aux
-
     def _block(self, x: torch.Tensor, i: int, positions: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        lp = self._layer(i)
-        return self._mlp(attn_block(x, lp, self.cfg, positions), lp)
+        return layer_apply(x, self._layer(i), self.cfg, positions)
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
@@ -803,7 +814,7 @@ class Transformer(TableModule):
             # no window mask: the cache is sized to the window and wraps
             att = decode_attention(q, k_c, v_c, cur_len + 1)
             x = x + att.reshape(B, H * hd) @ lp["wo"]
-            x2, _aux = self._mlp(x[:, None], lp)
+            x2, _aux = mlp_block(x[:, None], lp, self.cfg)
             x = x2[:, 0]
         x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)
         scatter_pos(cache["pos"], cur_len, slot)

@@ -22,7 +22,8 @@ rotated at decoder positions and the cross keys at encoder positions, as
 the reference does (``ROADMAP.md`` C-7).  :meth:`Whisper.loss` is the
 reference's ``loss_fn`` (the encoder run on ``batch["frames"]``);
 ``remat="full"`` rematerialises each encoder and each decoder layer in
-the backward.  The reference's ``param_specs`` and ``cache_specs`` belong
+the backward, and so does ``"dots"``: the reference's Whisper treats it
+as ``"full"``.  The reference's ``param_specs`` and ``cache_specs`` belong
 to a later slice (Whisper on a mesh, ``ROADMAP.md`` item 13c).
 """
 from __future__ import annotations
@@ -94,6 +95,12 @@ def cross_seq(cfg: ModelConfig) -> int:
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=I32, device=device).expand(B, S)
+
+
+def _remat(remat: str) -> str:
+    """The reference's Whisper rematerialises ``"dots"`` as ``"full"``
+    (``repro/models/whisper.py``: ``remat in ("full", "dots")``)."""
+    return "full" if remat == "dots" else remat
 
 
 class Whisper(TableModule):
@@ -172,7 +179,7 @@ class Whisper(TableModule):
         positions = _positions(B, S, frames.device)
         x = frames.to(cfg.param_dtype)
         for i in range(cfg.encdec.encoder_layers):
-            x = run_layer(self._enc_layer, remat, x, i, positions)
+            x = run_layer(self._enc_layer, _remat(remat), x, i, positions)
         return rms_norm(x, self._p("enc_final_norm"), cfg.norm_eps)
 
     def forward(self, tokens: torch.Tensor,
@@ -199,8 +206,8 @@ class Whisper(TableModule):
         enc_pos = _positions(B, enc_out.shape[1], enc_out.device)
         x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
         for i in range(cfg.num_layers):
-            x = run_layer(self._dec_layer, remat, x, i, positions, enc_out,
-                          enc_pos)
+            x = run_layer(self._dec_layer, _remat(remat), x, i, positions,
+                          enc_out, enc_pos)
         if last_only:
             x = x[:, -1:]
         x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)

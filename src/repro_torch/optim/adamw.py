@@ -28,8 +28,7 @@ all-gathers the updated master, cast to the parameter's dtype, back into
 the parameter's block.  Under FSDP the parameters are banked themselves:
 their gradients arrive reduce-scattered (the weight all-gather's
 backward), and the update writes the bank straight into the parameter.
-The reference's cross-pod gradient compression (``optim/compress.py``)
-is not ported yet (ROADMAP item 13b-2).
+The cross-pod gradient compression is :mod:`repro_torch.optim.compress`.
 """
 from __future__ import annotations
 

@@ -2,12 +2,12 @@
 over ``torch.distributed`` and the collectives the JAX package writes as
 ``lax`` primitives inside ``shard_map``.
 
-Each JAX named axis becomes a process group of a
-``torch.distributed.device_mesh.DeviceMesh`` with ``mesh_dim_names``:
+Each JAX named axis becomes a process group (``dist.new_group``) over
+the ranks of each row of the mesh along it:
 
-* a JAX axis name -> ``mesh.get_group(name)`` (:meth:`Mesh.group`; a tuple
-  of axes -> one group over their product, ranks in row-major order);
-* ``lax.axis_index`` -> ``mesh.get_local_rank(name)`` (:meth:`Mesh.index`,
+* a JAX axis name -> that group (:meth:`Mesh.group`; a tuple of axes ->
+  one group over their product, ranks in row-major order);
+* ``lax.axis_index`` -> the rank's coordinate (:meth:`Mesh.index`,
   row-major over a tuple of axes);
 * ``lax.all_gather(tiled=True)`` / ``psum_scatter(tiled=True)`` /
   ``psum`` / ``pmax`` / ``all_to_all(tiled=True)`` / ``ppermute`` ->
@@ -131,50 +131,71 @@ def _count(op: str, x: torch.Tensor) -> None:
 
 
 class Mesh:
-    """A named mesh of the ranks of the initialised default process group.
+    """A named mesh of ranks of the initialised default process group.
 
     ``shape`` and ``axis_names`` as a JAX mesh's: ``Mesh((2, 4), ("data",
     "model"))`` puts rank ``r`` at row ``r // 4``, column ``r % 4``.
+    ``ranks`` (default: every rank of the process group) are the global
+    ranks the mesh covers, in row-major order; a mesh on a subset of the
+    world is what an elastic re-shard moves to (``Trainer.reshard``).
     ``device`` is where this rank's tensors live (``cpu`` or its card).
-    Collective: every rank constructs it, in the same order as its other
-    groups."""
+
+    Collective over the whole process group: every rank constructs it,
+    the ranks outside it too, in the same order as its other groups, and
+    every rank builds every group of every axis and combination of axes
+    in one order (``dist.new_group`` is collective over the world).  A
+    rank outside the mesh holds a mesh it is no :attr:`member` of: it
+    takes part in no collective of it."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 device=None):
-        from torch.distributed.device_mesh import DeviceMesh
+                 device=None, ranks: Optional[Sequence[int]] = None):
         shape, axis_names = tuple(shape), tuple(axis_names)
         n = 1
         for s in shape:
             n *= s
-        if n != dist.get_world_size():
-            raise ValueError(f"mesh {shape} needs {n} ranks, the process "
-                             f"group has {dist.get_world_size()}")
+        world = dist.get_world_size()
+        if ranks is None:
+            ranks = range(world)
+        ranks = [int(r) for r in ranks]
+        if n != len(ranks):
+            raise ValueError(f"mesh {shape} needs {n} ranks, got "
+                             f"{len(ranks)} (the process group has "
+                             f"{world})")
+        if len(set(ranks)) != n or not all(0 <= r < world for r in ranks):
+            raise ValueError(f"mesh ranks {ranks} are not distinct ranks "
+                             f"of a world of {world}")
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape))
         self.device = torch.device("cpu" if device is None else device)
         self.backend = dist.get_backend()
-        ranks = torch.arange(n).reshape(shape)
-        self.device_mesh = DeviceMesh(self.device.type, ranks,
-                                      mesh_dim_names=axis_names)
-        # groups over two or more axes, ranks in row-major order
+        self.ranks = tuple(ranks)
+        me = dist.get_rank()
+        self.member = me in self.ranks
+        grid = torch.tensor(ranks).reshape(shape)
+        self._coords = {} if not self.member else dict(zip(
+            axis_names, (int(c) for c in
+                         (grid == me).nonzero()[0].tolist())))
+        # a group per row along every axis and every combination of
+        # axes, ranks in row-major order; built in one order everywhere
         self._groups = {}
-        for k in range(2, len(axis_names) + 1):
+        for k in range(1, len(axis_names) + 1):
             for combo in itertools.combinations(range(len(axis_names)), k):
                 rest = [d for d in range(len(axis_names)) if d not in combo]
-                sub = ranks.permute(*rest, *combo).reshape(
+                sub = grid.permute(*rest, *combo).reshape(
                     -1, *[shape[d] for d in combo])
                 names = tuple(axis_names[d] for d in combo)
                 for row in sub.reshape(sub.shape[0], -1).tolist():
                     g = dist.new_group(ranks=row)
-                    if dist.get_rank() in row:
+                    if me in row:
                         self._groups[names] = g
 
     @property
     def size(self) -> int:
-        return dist.get_world_size()
+        return len(self.ranks)
 
     @property
     def rank(self) -> int:
+        """This rank's global rank."""
         return dist.get_rank()
 
     def names(self, axes: Axes) -> Tuple[str, ...]:
@@ -198,19 +219,23 @@ class Mesh:
             n *= self.shape[a]
         return n
 
+    def _check_member(self) -> None:
+        if not self.member:
+            raise RuntimeError(f"rank {dist.get_rank()} is not in this "
+                               f"mesh (ranks {list(self.ranks)})")
+
     def index(self, axes: Axes) -> int:
         """This rank's index along ``axes`` (``lax.axis_index``; row-major
         over a tuple)."""
+        self._check_member()
         idx = 0
         for a in self.names(axes):
-            idx = idx * self.shape[a] + self.device_mesh.get_local_rank(a)
+            idx = idx * self.shape[a] + self._coords[a]
         return idx
 
     def group(self, axes: Axes):
-        names = self.names(axes)
-        if len(names) == 1:
-            return self.device_mesh.get_group(names[0])
-        return self._groups[names]
+        self._check_member()
+        return self._groups[self.names(axes)]
 
 
 def staged(mesh: Mesh, op: str, x: torch.Tensor) -> bool:

@@ -20,6 +20,10 @@ The loop is the reference's, with the host-side control plane explicit:
 * **straggler detection** — each step's wall time against the rolling
   median of the last steps; a step slower than ``straggler_factor`` times
   it is recorded as an event.
+* **elastic re-shard** — :meth:`Trainer.reshard` moves the live
+  parameters and optimizer state onto another mesh mid-run (a smaller or
+  a larger one): the same global tensors, the new mesh's layouts, no
+  restart from disk.
 
 One device, given explicitly (the card unless ``device="cpu"``), or a
 mesh: ``Trainer(..., mesh=mesh, strategy=..., **rule_overrides)`` in
@@ -40,8 +44,15 @@ the step's first collective, and the ranks agree on the outcome with one
 ``all_reduce(MAX)`` of a failure flag: all of them run the step, or all
 of them retry (or restore) together.  A fault in the middle of a
 collective (a rank dying inside the step) is out of scope: it raises,
-and the run ends (ROADMAP C-13).  The reference's elastic ``reshard``
-waits for ROADMAP item 13b-2.
+and the run ends (ROADMAP C-13).
+
+**A mesh on some ranks of the world.**  The ranks are started for the
+larger of the meshes a run will use; a mesh may cover some of them
+(``Mesh(..., ranks=)``).  Every rank of the world constructs the
+``Trainer`` and calls each method alike; a rank outside the current mesh
+holds no state, and its ``init``, ``resume_or_init`` and ``run`` return
+at once, taking part in no collective of the mesh's, until a
+:meth:`reshard` brings it in.
 """
 from __future__ import annotations
 
@@ -52,6 +63,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import optim
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore
@@ -61,6 +73,7 @@ from repro_torch.launch.step import cell_rules, train_step
 from repro_torch.models import get_model
 from repro_torch.models.convert import init_params, shard_params, state_layout
 from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import cut_block, join_blocks
 
 __all__ = ["TrainerConfig", "Trainer", "FaultInjector"]
 
@@ -91,11 +104,22 @@ class FaultInjector:
             raise RuntimeError(f"injected fault at step {step}")
 
 
+def _from_rank(t: torch.Tensor, src: int) -> torch.Tensor:
+    """``t`` as global rank ``src`` holds it, on every rank of the world
+    (elsewhere ``t`` gives the shape, dtype and device).  Through the
+    host where gloo carries the tensors (its CUDA broadcast is not
+    relied on; ``parallel.comm.HOST_STAGED``)."""
+    host = t.device.type == "cpu" or dist.get_backend() == "gloo"
+    w = t.detach().cpu().contiguous() if host else t.detach().contiguous()
+    dist.broadcast(w, src)
+    return w.to(t.device)
+
+
 class Trainer:
     """Trains ``cfg``'s model on batches of ``shape`` on one device, or on
     ``mesh`` (every rank constructs it alike) under ``cell_rules(mesh,
     cfg, shape, strategy, **rule_overrides)``.  ``remat``: the models'
-    ``"none"`` or ``"full"``; default ``"none"`` on one device,
+    ``"none"``, ``"full"`` or ``"dots"``; default ``"none"`` on one device,
     ``rules.remat`` on a mesh (where a given ``remat`` overrides it)."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
@@ -108,34 +132,53 @@ class Trainer:
         self.tcfg = tcfg or TrainerConfig()
         self.opt_cfg = opt_cfg or optim.OptConfig()
         self.fault_injector = fault_injector
-        self.mesh, self.strategy = mesh, strategy
+        self.strategy = strategy
         if mesh is None:
             if rule_overrides or strategy != "baseline":
                 raise ValueError("a strategy and rule overrides need a mesh")
-            self.rules, self.specs = None, None
+            self.mesh, self.rules, self.specs = None, None, None
             self.device = resolve_device(device)
             self.remat = remat or "none"
         else:
             if remat is not None:
                 rule_overrides["remat"] = remat
-            self.rules = cell_rules(mesh, cfg, shape, strategy,
-                                    **rule_overrides)
-            self.device = resolve_device(mesh.device if device is None
-                                         else device)
-            self.remat = self.rules.remat
-            specs = get_model(cfg).param_specs(cfg, self.rules)
-            banks = state_layout(cfg, self.rules)
-            self.specs = {"params": specs,
-                          "opt": {"master": banks, "m": banks, "v": banks,
-                                  "step": ()}}
+            self.rule_overrides = rule_overrides
+            self._bind_mesh(mesh, device)
         self.events: List[Dict] = []
         self.step_times: List[float] = []
-        self.ckpt = None if self.tcfg.ckpt_dir is None else \
-            AsyncCheckpointer(self.tcfg.ckpt_dir,
-                              credits=self.tcfg.ckpt_credits, mesh=mesh)
+        self.ckpt = None
+        self._open_checkpointer()
         self.model = None
         self.opt_state = None
         self.step = 0
+
+    def _bind_mesh(self, mesh, device=None) -> None:
+        """(Re)build the rules and the layouts for ``mesh`` (the
+        reference's ``_bind_mesh``): ``cell_rules`` of the strategy."""
+        self.mesh = mesh
+        self.rules = cell_rules(mesh, self.cfg, self.shape, self.strategy,
+                                **self.rule_overrides)
+        self.device = resolve_device(mesh.device if device is None
+                                     else device)
+        self.remat = self.rules.remat
+        specs = get_model(self.cfg).param_specs(self.cfg, self.rules)
+        banks = state_layout(self.cfg, self.rules)
+        self.specs = {"params": specs,
+                      "opt": {"master": banks, "m": banks, "v": banks,
+                              "step": ()}}
+
+    def _open_checkpointer(self) -> None:
+        """The async writer of the current mesh (collective over the world
+        on a mesh: every rank opens it, a rank outside the mesh too)."""
+        if self.tcfg.ckpt_dir is not None:
+            self.ckpt = AsyncCheckpointer(self.tcfg.ckpt_dir,
+                                          credits=self.tcfg.ckpt_credits,
+                                          mesh=self.mesh)
+
+    @property
+    def active(self) -> bool:
+        """Whether this rank is in the current mesh (holds state, steps)."""
+        return self.mesh is None or self.mesh.member
 
     # ------------------------------------------------------------------
     def _bind(self, params: Dict[str, torch.Tensor], opt_state) -> None:
@@ -151,6 +194,9 @@ class Trainer:
         ``seed``, or the full state dict ``params`` on the device) and a
         fresh optimizer state, at step 0.  On a mesh, this rank's blocks
         and banks of them: the same numbers as one card's."""
+        self.step = 0
+        if not self.active:
+            return self
         if params is None:
             params = init_params(self.cfg, torch.Generator(
                 self.device).manual_seed(seed), self.device, rules=self.rules)
@@ -159,13 +205,14 @@ class Trainer:
         on_mesh = {} if self.rules is None else {
             "rules": self.rules, "specs": self.specs["params"]}
         self._bind(params, optim.init(params, **on_mesh))
-        self.step = 0
         return self
 
     def resume_or_init(self, seed: int = 0):
         """Restore the newest committed checkpoint (params and optimizer
         state, onto the device; on a mesh this rank's blocks and banks),
         or :meth:`init` where there is none."""
+        if not self.active:
+            return self
         last = None if self.ckpt is None else latest_step(self.tcfg.ckpt_dir)
         if last is None:
             return self.init(seed)
@@ -182,6 +229,70 @@ class Trainer:
         self._bind(tree["params"], tree["opt"])
         self.step = step
         self.events.append({"kind": "resume", "step": step})
+        return self
+
+    # ------------------------------------------------------------------
+    def reshard(self, new_mesh):
+        """Elastic re-shard: move the live state onto ``new_mesh``, then
+        keep training (the reference's ``reshard``): the rules, layouts
+        and banks rebound to ``cell_rules`` of the new mesh, the
+        parameters and the ZeRO-1/FSDP banks of the optimizer state moved
+        into its layout, and ``{"kind": "reshard", "step", "from_chips",
+        "to_chips"}`` recorded.
+
+        Collective over the whole process group: every rank calls it
+        (and has built ``new_mesh``), those outside either mesh too.  The
+        checkpoint writer is fenced on the old mesh and reopened on the
+        new one, so a checkpoint written after the move restores there.
+        Each tensor moves whole: joined on the old mesh
+        (``sharding.join_blocks``), sent from the old mesh's first rank
+        to every rank, and cut on the new one (``sharding.cut_block``),
+        one tensor at a time, so a rank holds one full tensor at most."""
+        if self.mesh is None:
+            raise ValueError("reshard moves a mesh trainer's state; this "
+                             "one runs on one device")
+        old_chips, was_active = self.mesh.size, self.active
+        old_rules, old_specs = self.rules, self.specs
+        src = self.mesh.ranks[0]
+        if self.ckpt is not None:
+            self.ckpt.close()
+        model = get_model(self.cfg)
+        table = model.param_table(self.cfg)
+        held = {} if not was_active else {
+            "params": {k: p.detach() for k, p in
+                       self.model.named_parameters()},
+            **{q: self.opt_state[q] for q in ("master", "m", "v")}}
+        self._bind_mesh(new_mesh)
+        moved = {"params": {}, "master": {}, "m": {}, "v": {}}
+        for part in moved:
+            specs = self.specs["params"] if part == "params" \
+                else self.specs["opt"][part]
+            was = old_specs["params"] if part == "params" \
+                else old_specs["opt"][part]
+            for k, shape in table.items():
+                dtype = model.param_dtype(self.cfg, k) \
+                    if part == "params" else torch.float32
+                full = join_blocks(held[part][k], was[k], old_rules) \
+                    if was_active else torch.empty(shape, dtype=dtype,
+                                                   device=self.device)
+                full = _from_rank(full, src)
+                if self.active:
+                    moved[part][k] = cut_block(full, specs[k], self.rules)
+        step = _from_rank(torch.tensor(
+            [self.step, int(self.opt_state["step"]) if was_active else 0],
+            dtype=torch.int64, device=self.device), src)
+        self.step = int(step[0])
+        if self.active:
+            state = {q: moved[q] for q in ("master", "m", "v")}
+            state["step"] = torch.tensor(int(step[1]), dtype=torch.int32,
+                                         device=self.device)
+            self._bind(moved["params"], state)
+        else:
+            self.model, self.opt_state = None, None
+        self._open_checkpointer()
+        self.events.append({"kind": "reshard", "step": self.step,
+                            "from_chips": old_chips,
+                            "to_chips": new_mesh.size})
         return self
 
     # ------------------------------------------------------------------
@@ -224,6 +335,8 @@ class Trainer:
 
     def run(self, batches: Iterator[Dict[str, np.ndarray]],
             on_step: Optional[Callable[[int, Dict], None]] = None) -> Dict:
+        if not self.active:
+            return {}
         if self.model is None:
             raise RuntimeError("call init() or resume_or_init() first")
         total_retries = 0

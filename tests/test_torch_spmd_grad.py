@@ -22,6 +22,9 @@ reference's ``loss_fn`` under its rules on the conftest's ``mesh_dm``.
   ``cell_rules`` of a training cell whose batch (3) does not divide the
   data axis (every data row holds every row; each token still counts
   once); each with ``remat`` "none" and "full" on the port's side;
+  and ``remat="dots"`` (the reference's
+  ``checkpoint_dots_with_no_batch_dims``) in the rules of both sides for
+  qwen2's manual TP and moonshot's ``xy``;
 * a world of one rank equals the single-card port.
 
 The batches are the reference's ``synthetic_batch`` (masked at document
@@ -74,6 +77,8 @@ CASES = {
     "moe flat_a2a": (MOE, 8.0, dict(dispatch="flat"), 4, False),
 }
 REMATS = ("none", "full")
+# the same cases with ``remat="dots"`` in the rules of both packages
+DOTS_CASES = ("qwen2 manual_tp", "moe xy")
 
 
 def _cfgs(arch, cf=None):
@@ -168,6 +173,12 @@ def runs(mesh_dm, mesh2x4):
         jobs.append((name, jcfg, rules, p, batch))
         cases.append((name, tcfg, {k: np.asarray(v) for k, v in p.items()},
                       batch, case_rules))
+        if name in DOTS_CASES:
+            dots = dict(kw, remat="dots")
+            jobs.append((name + " dots", jcfg,
+                         JRules(mesh=mesh_dm, **dots), p, batch))
+            cases.append((name + " dots", tcfg, cases[-1][2], batch,
+                          ("rules", dots), ("dots",)))
     inputs = _vjp_inputs()
     with ThreadPoolExecutor(1) as pool:
         ranks_run = pool.submit(spawn, ranks.backward_checks, 8, "gloo",
@@ -215,6 +226,25 @@ def test_loss_and_gradients_match_value_and_grad(grad_runs, name, remat):
                                    metrics["moe_aux"], rtol=1e-5, atol=1e-6)
         assert drops == 0
     got = results[0][(name, remat)][2]
+    assert set(got) == set(grads)
+    for k, g in grads.items():
+        scale = float(np.abs(g).max())
+        np.testing.assert_allclose(got[k], g, rtol=1e-3,
+                                   atol=1e-4 * scale + 1e-9, err_msg=k)
+
+
+@pytest.mark.parametrize("name", DOTS_CASES)
+def test_dots_loss_and_gradients_match_value_and_grad(grad_runs, name):
+    want, results = grad_runs
+    loss, metrics, grads = want[name + " dots"]
+    for rank, res in enumerate(results):
+        got_loss, got_metrics, _, drops, _ = res[(name + " dots", "dots")]
+        np.testing.assert_allclose(got_loss, loss, err_msg=f"rank {rank}",
+                                   **LOSS_TOL)
+        np.testing.assert_allclose(got_metrics["moe_aux"],
+                                   metrics["moe_aux"], rtol=1e-5, atol=1e-6)
+        assert drops == 0
+    got = results[0][(name + " dots", "dots")][2]
     assert set(got) == set(grads)
     for k, g in grads.items():
         scale = float(np.abs(g).max())

@@ -167,22 +167,191 @@ def test_loss_and_gradients_match_the_reference(arch, capacity_factor,
         assert dropped, "no expert overflowed: the case tests no drops"
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "whisper-large-v3"])
-def test_remat_full_gives_the_same_loss_and_gradients(arch):
+# ``"full"`` for Jamba and Whisper keep their ids from before ``"dots"``
+REMAT_CASES = [pytest.param(arch, remat, id=arch if remat == "full" and arch
+                            in ("jamba-v0.1-52b", "whisper-large-v3")
+                            else f"{remat}-{arch}")
+               for remat in ("full", "dots") for arch, _cf in FAMILIES]
+
+
+@pytest.mark.parametrize("arch,remat", REMAT_CASES)
+def test_remat_full_gives_the_same_loss_and_gradients(arch, remat):
+    """``remat`` ("full", and "dots" the reference's
+    ``checkpoint_dots_with_no_batch_dims``) against ``"none"``: the same
+    loss and gradients in every family."""
     jcfg, tcfg = _cfgs(arch)
     jparams = j_get_model(jcfg).init_params(jcfg, jax.random.PRNGKey(1))
     batch = _tensors(_batch(jcfg, step=1))
     out = {}
-    for remat in ("none", "full"):
+    for policy in ("none", remat):
         model = _port_model(jcfg, tcfg, jparams).requires_grad_(True)
-        loss, _ = model.loss(batch, remat=remat)
+        loss, _ = model.loss(batch, remat=policy)
         loss.backward()
-        out[remat] = (loss.item(), {k: p.grad.clone() for k, p
-                                    in model.named_parameters()})
-    assert out["full"][0] == pytest.approx(out["none"][0], rel=1e-6)
+        out[policy] = (loss.item(), {k: p.grad.clone() for k, p
+                                     in model.named_parameters()})
+    assert out[remat][0] == pytest.approx(out["none"][0], rel=1e-6)
     for k, g in out["none"][1].items():
-        torch.testing.assert_close(out["full"][1][k], g, rtol=1e-5,
+        torch.testing.assert_close(out[remat][1][k], g, rtol=1e-5,
                                    atol=1e-7)
+
+
+def _jax_layer(arch, jcfg, jparams, positions):
+    """(one layer of the reference under its ``remat="dots"`` treatment,
+    its parameters): the transformer's ``_layer_body``, Jamba's period,
+    Mamba-2's block, Whisper's encoder layer (``jax.checkpoint`` with no
+    policy: the reference's Whisper takes "dots" as "full")."""
+    from repro.models import jamba as jj, mamba2 as jm
+    from repro.models import transformer as jt, whisper as jw
+    from repro.models.layers import rms_norm
+    policy = jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims
+    first = lambda tree: jax.tree.map(lambda a: a[0], tree)  # noqa: E731
+    if jcfg.family == "hybrid":
+        body = lambda x, pp: jj._period_body(  # noqa: E731
+            x, pp, positions, jcfg, None)[0]
+        return jax.checkpoint(body, policy=policy), first(
+            jj._split(jparams)[1])
+    if jcfg.family == "ssm":
+        body = lambda x, lp: x + jm.mixer_apply(  # noqa: E731
+            lp, rms_norm(x, lp["norm"], jcfg.norm_eps), jcfg, None)
+        return jax.checkpoint(body, policy=policy), first(
+            jm._split(jparams)[1])
+    if jcfg.family == "audio":
+        body = lambda x, lp: jw._mlp(jw._sa(  # noqa: E731
+            x, lp, "enc", jcfg, None, positions, causal=False), lp, "enc",
+            jcfg, None)
+        return jax.checkpoint(body), first(jw._split(jparams)[1])
+    body = lambda x, lp: jt._layer_body(  # noqa: E731
+        x, lp, positions, jcfg, None)[0]
+    return jax.checkpoint(body, policy=policy), first(
+        jt._split_layers(jparams)[1])
+
+
+def _port_layer(model, x, positions):
+    """(the port's function of the same layer, its arguments)."""
+    if model.cfg.family == "hybrid":
+        return (lambda *a: model._period(*a)[0]), (x, 0, positions)
+    if model.cfg.family == "ssm":
+        return model._block, (x, 0)
+    if model.cfg.family == "audio":
+        return model._enc_layer, (x, 0, positions)
+    return (lambda *a: model._block(*a)[0]), (x, 0, positions)
+
+
+def _flat(shape):
+    """A product's output as the 2-D matrix ``mm`` writes: its leading
+    dimensions folded (the reference keeps them; the port's ``x @ w``
+    folds them and views the result back)."""
+    lead = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+    return (lead, int(shape[-1]))
+
+
+@pytest.mark.parametrize("arch", [a for a, _cf in FAMILIES])
+def test_dots_saves_the_references_products(arch, monkeypatch):
+    """What one layer keeps for its backward under ``remat="dots"``.
+
+    * The reference: ``jax.ad_checkpoint.print_saved_residuals`` of the
+      layer under ``checkpoint_dots_with_no_batch_dims``: its arguments
+      and the outputs of the products with no batch dimensions that its
+      backward reads.
+    * The port: the tensors autograd saves, counted with
+      ``torch.autograd.graph.saved_tensors_hooks`` (the checkpoint keeps
+      the layer's inputs), and the products the selective checkpoint
+      caches, counted by a dispatch mode beside it in the forward and in
+      the recompute.
+
+    The products the recompute reads are the reference's residual
+    products, shape for shape (the leading dimensions folded); the
+    forward may cache, beyond them, only a last product whose output the
+    backward never reads (``run_layer``'s docstring).  The layer's saved
+    bytes (parameters not counted) order ``none > dots > full``;
+    Whisper's ``dots`` is its ``full``."""
+    import contextlib
+    import io
+    import jax.ad_checkpoint
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.models import base, whisper
+    jcfg, tcfg = _cfgs(arch)
+    jparams = j_get_model(jcfg).init_params(jcfg, jax.random.PRNGKey(3))
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((BATCH, SEQ, jcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(SEQ, dtype=np.int32), (BATCH, SEQ))
+    if jcfg.mrope_sections is not None:
+        pos = np.broadcast_to(pos, (3, BATCH, SEQ))
+    fn, lp = _jax_layer(arch, jcfg, jparams, jnp.asarray(pos))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        jax.ad_checkpoint.print_saved_residuals(
+            lambda x, lp: fn(x, lp).sum(), jnp.asarray(x), lp)
+    lines = buf.getvalue().splitlines()
+
+    def shape_of(line):
+        dims = line.split("[", 1)[1].split("]", 1)[0]
+        return tuple(int(d) for d in dims.split(",") if d)
+    want_products = sorted(_flat(shape_of(ln)) for ln in lines
+                           if " output of " in ln)
+    want_args = sorted(shape_of(ln) for ln in lines
+                       if "from the argument x" in ln)
+
+    class Products(TorchDispatchMode):
+        def __init__(self, seen):
+            super().__init__()
+            self.seen = seen
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in base._NO_BATCH_PRODUCTS:
+                self.seen.append(tuple(out.shape))
+            return out
+
+    cached, read = [], []
+    dots_context = base._dots_context
+
+    def counting():
+        fwd, rec = dots_context()
+
+        @contextlib.contextmanager
+        def both(ctx, seen):
+            with ctx, Products(seen):
+                yield
+        return both(fwd, cached), both(rec, read)
+
+    monkeypatch.setattr(base, "_dots_context", counting)
+    model = _port_model(jcfg, tcfg, jparams).requires_grad_(True)
+    held = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    saved_bytes = {}
+    for remat in ("none", "full", "dots"):
+        cached.clear(), read.clear()
+        saved = []
+
+        def pack(t):
+            if t.untyped_storage().data_ptr() not in held:
+                saved.append(t)
+            return t
+        xt = torch.from_numpy(x).requires_grad_(True)
+        layer, args = _port_layer(model, xt, torch.from_numpy(pos.copy()))
+        policy = whisper._remat(remat) if tcfg.family == "audio" else remat
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            y = base.run_layer(layer, policy, *args)
+        y.sum().backward()
+        saved_bytes[remat] = sum(t.numel() * t.element_size()
+                                 for t in saved) + 4 * sum(
+            int(np.prod(s)) for s in cached)
+        if remat == "dots":
+            assert sorted(tuple(t.shape) for t in saved
+                          if t.is_floating_point()) == want_args
+            assert sorted(_flat(s) for s in read) == want_products
+            extra = list(cached)
+            for s in read:
+                extra.remove(s)
+            assert extra in ([], [(BATCH * SEQ, jcfg.d_model)]), extra
+    if tcfg.family == "audio":
+        assert want_products == []
+        assert saved_bytes["none"] > saved_bytes["dots"] == \
+            saved_bytes["full"]
+    else:
+        assert want_products
+        assert saved_bytes["none"] > saved_bytes["dots"] > \
+            saved_bytes["full"]
 
 
 def test_remat_rejects_unknown_policies():
@@ -191,7 +360,7 @@ def test_remat_rejects_unknown_policies():
     model = get_model(tcfg)(tcfg, "cpu", params=init_params(
         tcfg, torch.Generator().manual_seed(0), "cpu"))
     with pytest.raises(ValueError, match="remat"):
-        model(torch.zeros(1, 4, dtype=torch.long), remat="dots")
+        model(torch.zeros(1, 4, dtype=torch.long), remat="offload")
 
 
 # ---------------------------------------------------------------------------

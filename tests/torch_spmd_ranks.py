@@ -333,18 +333,18 @@ def _rules_of(mesh, cfg, case_rules):
 
 def spmd_grads(rank, cases, shape=(2, 4), remats=("none", "full")):
     """{(name, remat): (loss, metrics, full gradients on rank 0, drops)}
-    of each case (name, cfg, params, batch, rules spec) through the mesh
-    ``loss`` and its backward."""
+    of each case (name, cfg, params, batch, rules spec[, its own
+    remats]) through the mesh ``loss`` and its backward."""
     from repro_torch.models import moe
     from repro_torch.parallel import comm
     mesh = make_test_mesh(shape, ("data", "model"))
     out = {}
-    for name, cfg, params, batch, case_rules in cases:
+    for name, cfg, params, batch, case_rules, *own in cases:
         rules = _rules_of(mesh, cfg, case_rules)
         model = _model(cfg, params, rules)
         model.requires_grad_(True)
         tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-        for remat in remats:
+        for remat in (own[0] if own else remats):
             for p in model.parameters():
                 p.grad = None
             comm.reset_comm_stats()
@@ -455,7 +455,9 @@ def spmd_trainers(rank, cfg, p0, opt, dirs, shape=(2, 4)):
       at step 2 on every rank / at step 1 on rank 0 only: (losses,
       events);
     * ``from one card``: ``dirs["one card"]`` (written by the single-card
-      ``Trainer``) restored: (step, full parameters and state on rank 0).
+      ``Trainer``) restored: (step, full parameters and state on rank 0);
+    * ``shrink`` / ``grow``: :func:`elastic` from (2, 4) to (1, 4) and
+      back the other way, checkpoints under ``dirs["elastic"]``.
     """
     import shutil
     import torch.distributed as dist
@@ -471,17 +473,18 @@ def spmd_trainers(rank, cfg, p0, opt, dirs, shape=(2, 4)):
     def full():          # fresh tensors: a trainer updates what it holds
         return params_from_jax(cfg, p0, "cpu")
 
-    def trainer(steps, ckpt_dir, faults=None):
+    def trainer(steps, ckpt_dir, faults=None, on=None):
         return Trainer(cfg, SHAPE, optim.OptConfig(**opt), TrainerConfig(
             total_steps=steps, ckpt_every=3, ckpt_dir=ckpt_dir,
             log_every=100), fault_injector=FaultInjector(faults or {}),
-            mesh=mesh)
+            mesh=on or mesh)
 
-    def run(tr):
+    def run(tr, close=True):
         losses = []
         tr.run(batch_iterator(cfg, SHAPE, start_step=tr.step),
                on_step=lambda s, m: losses.append(float(m["loss"])))
-        tr.close()
+        if close:
+            tr.close()
         return losses
 
     def whole(tr):
@@ -512,5 +515,128 @@ def spmd_trainers(rank, cfg, p0, opt, dirs, shape=(2, 4)):
     tr = trainer(6, dirs["one card"]).resume_or_init()
     out["from one card"] = (tr.step, whole(tr))
     tr.close()
+    for case, (a, b) in (("shrink", ((2, 4), (1, 4))),
+                         ("grow", ((1, 4), (2, 4)))):
+        out[case] = elastic(rank, a, b, f"{dirs['elastic']}/{case}", full,
+                            trainer, run, whole)
+    out["modules"] = loaded_modules(rank)
+    return out
+
+
+def elastic(rank, shape_a, shape_b, ckpt_dir, full, trainer, run, whole):
+    """2 steps on a mesh of ``shape_a``, ``reshard`` to one of
+    ``shape_b`` (each on the first ranks of the world), 2 more steps;
+    then the last checkpoint (written on the new mesh) resumed there:
+    (losses, events, full state at 4 on rank 0, this rank's activity
+    before and after, the resumed step and full state on rank 0)."""
+    def mesh_of(shape):
+        n = shape[0] * shape[1]
+        return make_test_mesh(shape, ("data", "model"), ranks=range(n))
+    mesh_a, mesh_b = mesh_of(shape_a), mesh_of(shape_b)
+    tr = trainer(2, ckpt_dir, on=mesh_a)
+    tr.init(params=full())
+    losses = run(tr, close=False)
+    active = [tr.active]
+    tr.reshard(mesh_b)
+    active.append(tr.active)
+    tr.tcfg.total_steps = 4
+    losses += run(tr, close=False)
+    state = whole(tr) if tr.active else None
+    tr.close()
+    tr2 = trainer(4, ckpt_dir, on=mesh_b).resume_or_init()
+    resumed = (tr2.step, whole(tr2) if tr2.active else None)
+    tr2.close()
+    return losses, tr.events, state, active, resumed
+
+
+# ---------------------------------------------------------------------------
+# the rest of SPMD training: compressed cross-pod reduction, the pipeline
+# ---------------------------------------------------------------------------
+
+def spmd_compress(rank, psum_x, rounds):
+    """``cross_pod_psum`` over ``data`` on the (data 2, model 4) mesh:
+    {"psum int8": this rank's (1, 8) row of the reference test's sum,
+    (mode, round): (the sum, this rank's new residual)} with error
+    feedback carried over ``rounds`` (each {"g": per-rank gradients})."""
+    from repro_torch import optim
+    from repro_torch.parallel import comm
+    mesh = make_test_mesh((2, 4), ("data", "model"))
+    d = mesh.index("data")
+    out = {}
+    x = torch.from_numpy(psum_x[d:d + 1])
+    out["psum int8"] = _np(optim.cross_pod_psum(x, mesh, "data", "int8")[0])
+    for mode in ("int8", "bf16"):
+        err = optim.init_error_state(
+            {"g": torch.zeros(rounds[0].shape[1:])})["g"]
+        for i, g in enumerate(rounds):
+            s, err = optim.cross_pod_psum(torch.from_numpy(g[rank]), mesh,
+                                          "data", mode, err)
+            out[(mode, i)] = (_np(s), _np(err))
+    comm.reset_comm_stats()
+    optim.cross_pod_psum(torch.from_numpy(rounds[0][rank]), mesh, "data",
+                         "int8")
+    out["stats"] = comm.comm_stats()
+    out["modules"] = loaded_modules(rank)
+    return out
+
+
+def _tanh_body(lp, x):
+    """The reference test's stage body: this stage's layers, tanh(h @ w)."""
+    for w in lp:
+        x = torch.tanh(x @ w)
+    return x
+
+
+def spmd_pipelines(rank, w, x, tf):
+    """``pipeline_apply`` on the (data 2, model 4) mesh, stages over
+    ``model``, rows over ``data``:
+
+    * ``tanh``: the reference test's tanh MLP (w (L, D, D), x (n_micro,
+      mb, D)): (this rank's outputs, its stage's gradient of the outputs'
+      sum summed over ``data``, the hop counts);
+    * ``transformer``: ``tf`` = (cfg, params, x): the tiny transformer's
+      layers (``layer_apply``, the kernels' plain versions) as the stage
+      body, the outputs and its stage's gradients likewise.
+    """
+    from repro_torch.models.transformer import layer_apply
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.pipeline import pipeline_apply
+    mesh = make_test_mesh((2, 4), ("data", "model"))
+    S, d, s = mesh.axis_size("model"), mesh.index("data"), mesh.index("model")
+    out = {}
+
+    def rows(a):
+        mb = a.shape[1] // mesh.axis_size("data")
+        return torch.from_numpy(np.ascontiguousarray(
+            a[:, d * mb:(d + 1) * mb]))
+
+    ws = torch.from_numpy(np.ascontiguousarray(
+        w.reshape(S, -1, *w.shape[1:])[s])).requires_grad_(True)
+    comm.reset_comm_stats()
+    y = pipeline_apply(_tanh_body, ws, rows(x), mesh, "model", "data")
+    y.sum().backward()
+    stats = comm.comm_stats()
+    out["tanh"] = (_np(y), _np(comm.all_reduce(ws.grad, mesh, "data")),
+                   {k: stats[k]["calls"] for k in ("ppermute",
+                                                   "ppermute.bwd")})
+    cfg, params, tx = tf
+    L = cfg.num_layers
+    stage = {k.split("/", 1)[1]: torch.from_numpy(np.ascontiguousarray(
+        v.reshape(S, L // S, *v.shape[1:])[s])).requires_grad_(True)
+        for k, v in params.items() if k.startswith("layers/")}
+    xm = rows(tx)
+    pos = torch.arange(xm.shape[2], dtype=torch.int32).expand(xm.shape[1],
+                                                              xm.shape[2])
+
+    def body(sp, h):
+        for i in range(L // S):
+            h = layer_apply(h, {k: v[i] for k, v in sp.items()}, cfg,
+                            pos)[0]
+        return h
+    y = pipeline_apply(body, stage, xm, mesh, "model", "data")
+    y.sum().backward()
+    out["transformer"] = (_np(y), {k: _np(comm.all_reduce(v.grad, mesh,
+                                                          "data"))
+                                   for k, v in stage.items()})
     out["modules"] = loaded_modules(rank)
     return out
