@@ -122,7 +122,7 @@ Phases (any failure raises and exits nonzero):
    idle share):
    - Jamba v0.1's widths, one period of 8 layers (13.27 B parameters):
      1 x 4096 tokens, 1 ``wgmma_tma`` flash, 7 ``tensor_core`` SSD and 12
-     ``tma`` GMM; ``Server`` of 8 requests of 16 prompt tokens, 16 new
+     ``tma`` GMM; ``Server`` of 8 requests of 8 prompt tokens, 8 new
      tokens each, 4 slots: 12 ``decode`` GMM a tick;
    - Mixtral-8x7B's widths, 8 of 32 layers (11.87 B): 1 x 8192 tokens,
      8 ``wgmma_tma`` flash and 24 ``tma`` GMM; the same ``Server``: 24
@@ -158,9 +158,9 @@ Phases (any failure raises and exits nonzero):
    ``train_step`` on the card equal to the CPU's; (3) through ``Trainer``
    and ``launch/train.py``'s code, bf16 weights drawn on the card, full
    remat, each model freed before the next: Mamba-2 370M whole, 8 x 4096
-   tokens, 10 steps, checkpoints at 5 and 10 (96 ``tensor_core`` SSD
+   tokens, 6 steps, checkpoints at 5 and 6 (96 ``tensor_core`` SSD
    launches a step: 48 forward and 48 rematerialised; an injected fault
-   at step 3 retried), and Moonshot's widths, 2 of 48 layers, 1 x 4096,
+   at step 2 retried), and Moonshot's widths, 2 of 48 layers, 1 x 4096,
    10 steps (4 ``wgmma_tma`` flash and 24 ``tma`` GMM a step: 6 forward,
    6 rematerialised, 12 in the backward), the launches asserted at every
    step and the loss falling; then Moonshot again from the same weights
@@ -200,18 +200,18 @@ Phases (any failure raises and exits nonzero):
    Every time is labelled as 4 ranks time-sharing one card.
 13. ``[spmd train]``, training on a mesh: (1) the yardstick on one card
    first: ``make_trainer`` of Moonshot's widths (2 of 48 layers), 2 x
-   4096 tokens, full remat, 3 steps on the pipeline's batch 0 from
-   ``init(seed=0)``; its step-1 gradients and step-3 parameters to the
+   4096 tokens, full remat, 2 steps on the pipeline's batch 0 from
+   ``init(seed=0)``; its step-1 gradients and step-2 parameters to the
    host, the card freed; (2) 4 ranks (data 2 x model 2) sharing the card
    over gloo, each ``make_trainer(..., mesh=mesh)`` under
    ``cell_rules``' ``baseline`` (ZeRO-1 over ``data``, full remat), the
-   same 3 steps from the same seed, once with its ``xy`` dispatch (the
+   same 2 steps from the same seed, once with its ``xy`` dispatch (the
    main path) and once with ``ep`` (which runs one card's global FIFO):
    on every rank each step's launches by variant and by forward, remat
    and backward (4 ``wgmma_tma`` flash, 24 ``tma`` GMM: 6 forward, 6
    remat, 12 backward), the collectives a step by phase (loss, backward,
    optimizer), ms a step, peak memory, each loss within 2e-2 of one
-   card's; on both runs each parameter's step-3 block within 3e-2
+   card's; on both runs each parameter's step-2 block within 3e-2
    relative L2 of its cut of one card's (every error finite), on the
    ``ep`` run each step-1 gradient bank too (``xy`` drops other
    assignments than one card's FIFO: its gradient errors are printed);
@@ -245,6 +245,35 @@ Phases (any failure raises and exits nonzero):
    0-1, 2 more steps (ranks 2-3 idle): the 4 losses within 1e-3 of one
    card's, the move's time and bytes; the phase's entries in the
    ``kernels`` line.
+15. ``[spmd families]``, Mamba-2, Whisper and Jamba on a mesh: (1) each on
+   the card alone first, freed before the next: a bf16 prefill at the
+   published widths and capacity factor (Mamba-2 370M whole and Jamba
+   v0.1's one period, 8 layers, at 2 x 4096; whisper-large-v3 whole at 4
+   clips of 1500 frames + 4 x 448 tokens) and an fp32 one (Jamba at
+   capacity factor E / top_k = 8, which drops nothing, and 2 x 1024),
+   each with its launches asserted; Jamba's 16 fp32 decode ticks of 2
+   rows; the fp32 ``Server`` (8 requests of 4 + 4 tokens on 4 slots;
+   Whisper 4) and 3 fp32 training steps (Mamba-2 8 layers at 2 x 4096,
+   Whisper 4 + 4 layers at 2 x 448, full remat) of Mamba-2 and Whisper;
+   (2) one spawn of 4 ranks sharing the card over gloo, Mamba-2 and
+   Whisper on data 2 x model 2, Jamba on data 1 x model 4, the same runs:
+   on every rank each prefill's launches by variant (bf16: Mamba-2 48
+   ``tensor_core`` SSD at 16 local heads; Whisper 96 ``wgmma_tma`` flash
+   at 10; Jamba 1 flash, 7 SSD at 32 heads and 12 ``tma`` GMM at 4 local
+   experts; fp32 the same through the fp32 variants), the fp32 logits
+   within 2e-2 of the card alone's largest (random-init models amplify
+   bf16 rounding: the bf16 errors are printed, see ``FAM_JAMBA_FP32_SEQ``),
+   nothing dropped at capacity factor 8 (the drops at the published 1.25
+   printed); each of Jamba's 16 decode ticks within 2e-2; the fp32 mesh
+   ``Server``'s tokens identical to the card alone's; each training loss
+   within 2e-2 and every parameter block within 3e-2 relative L2 after
+   step 3, the zero-initialised ones after step 1 (``FAM_TRAIN_LAYERS``
+   says why, and why Mamba-2 trains 8 layers); the
+   collectives of each island a call (the mixer's weight gathers and
+   gate-norm all-reduce among them), wall and peak memory a rank; each
+   rank's kernels of the bf16 prefills against plain at its local
+   shapes, one rank at a time; (3) those kernels' times on the card
+   alone, and the phase's entries in the ``kernels`` line.
 
 It needs a card: without one it prints the reason to stderr and exits 1.
 """
@@ -1581,8 +1610,11 @@ BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core rate, SXM data sheet
 # The training paths (phase 11): Mamba-2 370M whole at 8 x 4096 tokens,
 # Moonshot's widths (2 of 48 layers) at 1 x 4096, both with full remat.
 TRAIN_SEQ = 4096
-MAMBA2_TRAIN_BATCH, MAMBA2_TRAIN_STEPS = 8, 10
-MAMBA2_CKPT_EVERY = 5          # checkpoints at 5 and 10; step 5 resumed
+MAMBA2_TRAIN_BATCH, MAMBA2_TRAIN_STEPS = 8, 6
+# checkpoints at 5 and 6 (the last; each write, async, slows the next
+# step, so the warm steps timed are 3 and 4); step 5 resumed
+MAMBA2_CKPT_EVERY = 5
+MAMBA2_FAULT_AT = 2            # a fault injected at this step, retried
 MOONSHOT_TRAIN_LAYERS, MOONSHOT_TRAIN_STEPS = 2, 10
 # Moonshot again under each other remat policy, 3 steps from the same
 # weights on the same batch: losses against the full-remat run's first 3
@@ -1975,8 +2007,8 @@ def prefill_path(device, cfg, params, seq, want, label, positions=False,
             "variants": variants, "seq": seq, "batch": B}
 
 
-def server_path(device, cfg, params, per_tick, label, requests=8, prompt=16,
-                max_new=16, slots=4, max_seq=64):
+def server_path(device, cfg, params, per_tick, label, requests=8, prompt=8,
+                max_new=8, slots=4, max_seq=64):
     """The continuous-batching ``Server`` at full width on the prefill's
     weights, the launch counts set to 0 just before and read just after:
     every request completes, and each tick launches exactly ``per_tick``
@@ -2845,7 +2877,11 @@ def train_path(device, cfg, label, batch, steps, per_step, ckpt_dir=None,
         ops._GMM.backward = staticmethod(backward)
     peak = torch.cuda.max_memory_allocated()
     step_s = np.diff([t0] + stamps)
-    warm = float(np.median(step_s[1:]))
+    # the warm steps: after the first, neither retrying the injected fault
+    # nor writing a checkpoint, nor after one (the async write slows it)
+    clean = [s for s in range(2, steps + 1) if s != fault_at
+             and (ckpt_dir is None or s < ckpt_every)]
+    warm = float(np.median(step_s[[s - 1 for s in clean]]))
     tokens = batch * TRAIN_SEQ
     flops = _model_flops(cfg, batch, TRAIN_SEQ)
     for i, v in enumerate(variants):
@@ -2873,7 +2909,7 @@ def train_path(device, cfg, label, batch, steps, per_step, ckpt_dir=None,
           f"of them GMM launches in the backward {bwd_gmm[0]}; events "
           f"{[(e['kind'], e['step']) for e in trainer.events]}")
     print(f"[train] {card}: {label}: wall {wall:.2f} s for {steps} steps; "
-          f"warm step (median of steps 2-{steps}) {warm * 1e3:.1f} ms, "
+          f"warm step (median of steps {clean}) {warm * 1e3:.1f} ms, "
           f"{tokens / warm:.0f} tokens/s, model {flops / warm / 1e12:.1f} "
           f"TFLOP/s ({flops / warm / BF16_OPS_PER_S:.3f} of 989 bf16; "
           f"{flops / 1e12:.2f} TFLOP a step: 6 x active non-embedding "
@@ -2950,9 +2986,9 @@ def checkpoint_resume(device, cfg, ckpt_dir, losses, data,
 
 
 def train_paths(device):
-    """Phase 11 (3) and (4): Mamba-2 370M whole (8 x 4096 tokens, 20
-    steps, a fault injected at step 3, checkpoints every 10 steps, the
-    resume), then Moonshot's widths, 2 of 48 layers (1 x 4096, 10 steps,
+    """Phase 11 (3) and (4): Mamba-2 370M whole (8 x 4096 tokens, 6
+    steps, a fault injected at step 2, checkpoints at 5 and 6, the
+    resume of 5), then Moonshot's widths, 2 of 48 layers (1 x 4096, 10 steps,
     no checkpoint: its 25 GiB of state would take most of a minute to
     write), one model at a time.  Returns {arch: record}."""
     import dataclasses
@@ -2971,7 +3007,8 @@ def train_paths(device):
         trainer, rec = train_path(
             device, cfg, label, MAMBA2_TRAIN_BATCH, MAMBA2_TRAIN_STEPS,
             {"ssd_scan": {"tensor_core": 2 * cfg.num_layers}},
-            ckpt_dir=ckpt_dir, fault_at=3, ckpt_every=MAMBA2_CKPT_EVERY)
+            ckpt_dir=ckpt_dir, fault_at=MAMBA2_FAULT_AT,
+            ckpt_every=MAMBA2_CKPT_EVERY)
         trainer.close()
         del trainer
         torch.cuda.empty_cache()
@@ -3328,7 +3365,8 @@ def _spmd_layer_comm(log):
 
 
 def _spmd_prefill(model, tokens, rules, mesh):
-    """One prefill on every rank in lockstep, the counts set to 0 just
+    """One prefill of ``tokens`` (or of a batch, a dict with Whisper's
+    ``frames``) on every rank in lockstep, the counts set to 0 just
     before and read just after: (logits, wall, launches by variant,
     collective stats, drops)."""
     import torch
@@ -3342,7 +3380,8 @@ def _spmd_prefill(model, tokens, rules, mesh):
     comm.reset_comm_stats()
     t0 = time.perf_counter()
     with moe.counting_drops() as drops:
-        logits = prefill_step(model, {"tokens": tokens}, rules)
+        logits = prefill_step(model, tokens if isinstance(tokens, dict)
+                              else {"tokens": tokens}, rules)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     variants, stats = read_variants(), comm.comm_stats()
@@ -3350,31 +3389,61 @@ def _spmd_prefill(model, tokens, rules, mesh):
     return logits, wall, variants, stats, int(sum(int(d) for d in drops))
 
 
+def _flash_mask(opts):
+    """(causal, window) of a logged flash call's options: its window
+    (causal), or Whisper's (causal, window)."""
+    return opts if isinstance(opts, tuple) else (True, opts)
+
+
+def _ssd_at(device, shapes, seed):
+    """SSD inputs (kernel layout) at a logged call's (x, B) shapes: x, B,
+    C of scale 0.5, dt a softplus times 0.1, A the models' initial
+    -linspace(1, 16)."""
+    import torch
+    import torch.nn.functional as F
+    rnd, g = _rnd(device, torch.bfloat16, seed)
+    (b, h, S, P), (_b, G, _S, N) = shapes
+    return dict(x=rnd(b, h, S, P, scale=0.5),
+                dt=(F.softplus(torch.randn(b, h, S, generator=g,
+                                           device=device)) * 0.1).to(
+                    torch.bfloat16),
+                B=rnd(b, G, S, N, scale=0.5), C=rnd(b, G, S, N, scale=0.5),
+                A=-torch.linspace(1.0, 16.0, h, device=device))
+
+
 def _spmd_kernel_checks(log, device, seed):
     """Each distinct kernel call a rank made (``log`` of ops-level
-    shapes), again on random inputs at that shape, against the plain
-    version: {shape: max_abs_err}."""
+    shapes: flash with its window or (causal, window), the GMM, the SSD
+    with its chunk), again on random inputs at that shape, against the
+    plain version: {shape: max_abs_err}."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_gmm import grouped_matmul
+    from repro_torch.kernels.ssd_scan import ssd_scan
     errs = {}
-    for kind, shapes, window in log:
+    for kind, shapes, opts in log:
         if (kind, shapes) in errs:
             continue
         rnd, _ = _rnd(device, torch.bfloat16, seed)
         if kind == "flash":
             q, k, v = (rnd(*s) for s in shapes)
-            got = flash_attention(q, k, v, causal=True, window=window)
-            want = ref.flash_attention_ref(q, k, v, causal=True,
+            causal, window = _flash_mask(opts)
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
                                            window=window)
+        elif kind == "ssd":
+            ssd = _ssd_at(device, shapes, seed)
+            got = ssd_scan(**ssd, chunk=opts)
+            want = ref.ssd_scan_ref(**ssd)
         else:
             lhs = rnd(*shapes[0])
             rhs = rnd(*shapes[1], scale=shapes[1][1] ** -0.5)
             got = grouped_matmul(lhs, rhs)
             want = ref.grouped_matmul_ref(lhs, rhs)
         errs[(kind, shapes)] = _compare(
-            f"[spmd rank] {kind}", f"{shapes} window {window}", got, want)
+            f"[spmd rank] {kind}", f"{shapes} "
+            f"{'chunk' if kind == 'ssd' else 'window'} {opts}", got, want)
     return errs
 
 
@@ -3533,26 +3602,37 @@ def _spmd_times(device, calls):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm_mod
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
     out = {}
-    for kind, shapes, window in calls:
+    for kind, shapes, opts in calls:
         rnd, _ = _rnd(device, torch.bfloat16, 1)
-        if kind == "flash":
+        if kind == "ssd":
+            ssd = _ssd_at(device, shapes, 1)
+            nb, ops = ssd_mod.ssd_bound(ssd["x"], ssd["B"], opts)
+            out[(kind, shapes, opts)] = dict(
+                ms=_event_ms(lambda: ssd_mod.ssd_scan(**ssd, chunk=opts), 5),
+                plain_ms=_event_ms(lambda: ref.ssd_scan_ref(**ssd), 1),
+                library_ms=None, library=None,
+                bound=_bound(nb, ops, BF16_OPS_PER_S))
+            del ssd
+        elif kind == "flash":
             q, k, v = (rnd(*s) for s in shapes)
-            nb, ops = fa.flash_bound(q, k, causal=True, window=window)
+            causal, window = _flash_mask(opts)
+            nb, ops = fa.flash_bound(q, k, causal=causal, window=window)
             if window is None:
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    q, k, v, is_causal=True, enable_gqa=True)
+                    q, k, v, is_causal=causal, enable_gqa=True)
             else:
                 i = torch.arange(q.shape[2], device=device)
                 band = (i[None, :] <= i[:, None]) & \
                     (i[None, :] > i[:, None] - window)
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     q, k, v, attn_mask=band, enable_gqa=True)
-            out[(kind, shapes, window)] = dict(
+            out[(kind, shapes, opts)] = dict(
                 ms=_event_ms(lambda: fa.flash_attention(
-                    q, k, v, causal=True, window=window), 5),
+                    q, k, v, causal=causal, window=window), 5),
                 plain_ms=_event_ms(lambda: ref.flash_attention_ref(
-                    q, k, v, causal=True, window=window), 1),
+                    q, k, v, causal=causal, window=window), 1),
                 library_ms=_event_ms(lib, 5),
                 library="scaled_dot_product_attention",
                 bound=_bound(nb, ops, BF16_OPS_PER_S))
@@ -3561,7 +3641,7 @@ def _spmd_times(device, calls):
             lhs = rnd(*shapes[0])
             rhs = rnd(*shapes[1], scale=shapes[1][1] ** -0.5)
             nb, ops = gmm_mod.gmm_bound(lhs, rhs)
-            out[(kind, shapes, window)] = dict(
+            out[(kind, shapes, opts)] = dict(
                 ms=_event_ms(lambda: gmm_mod.grouped_matmul(lhs, rhs), 5),
                 plain_ms=_event_ms(lambda: ref.grouped_matmul_ref(lhs, rhs),
                                    2),
@@ -3803,7 +3883,7 @@ def spmd_entries(spmd, replaces):
 # ----------------------------------------------------------------------
 # [spmd train]: training on a mesh of ranks sharing the card
 # ----------------------------------------------------------------------
-SPMD_TRAIN_BATCH, SPMD_TRAIN_STEPS = 2, 3
+SPMD_TRAIN_BATCH, SPMD_TRAIN_STEPS = 2, 2
 SPMD_TRAIN_BAR = 3e-2        # relative L2 a parameter, bf16
 # the dispatch modes run: xy (baseline) is the main path; ep runs the
 # global FIFO, one card's, so it drops nearly the assignments one card
@@ -3811,7 +3891,7 @@ SPMD_TRAIN_BAR = 3e-2        # relative L2 a parameter, bf16
 # few near-tied choices differ) and is the run whose step-1 gradients are
 # held to one card's too (xy's own FIFOs drop other assignments: at this
 # random initialisation about 45% of them drop at the published capacity
-# factor, in either layout); both runs' step-3 parameters are held
+# factor, in either layout); both runs' last-step parameters are held
 SPMD_TRAIN_MODES = ("xy", "ep")
 
 
@@ -3880,9 +3960,9 @@ def _all_within(errs, bar):
 def spmd_train_yardstick(device, out):
     """[spmd train] (1): the yardstick on one card, first, in this
     process: ``make_trainer`` of Moonshot's widths (2 layers), 2 x 4096
-    tokens, full remat, 3 steps on the pipeline's batch 0 from
+    tokens, full remat, 2 steps on the pipeline's batch 0 from
     ``init(seed=0)``.  The step-1 gradients (clipped, as AdamW takes
-    them, and unclipped again by the step's norm, as bf16) and the step-3
+    them, and unclipped again by the step's norm, as bf16) and the step-2
     parameters (each in its own dtype: the router fp32, the rest bf16) go
     to ``out`` as ``.npy``; the card is freed.
     Returns (losses, grad norms, wall per step)."""
@@ -3933,9 +4013,9 @@ def spmd_train_yardstick(device, out):
 def _spmd_train_rank(rank, plan):
     """The [spmd train] program of one rank (4 ranks sharing the card over
     gloo): ``make_trainer(..., mesh=mesh)`` of the yardstick's config and
-    batch, 3 steps; the launches by forward, remat and backward, the
+    batch, 2 steps; the launches by forward, remat and backward, the
     collectives by phase and the wall of every step; its step-1
-    gradient banks and step-3 parameter blocks against its cut of the
+    gradient banks and step-2 parameter blocks against its cut of the
     yardstick's; then, one rank at a time, each distinct kernel call it
     made and its flash and GMM ops (forward and backward) at its local
     shapes against the plain versions."""
@@ -4137,14 +4217,14 @@ def spmd_train_phase(device):
     first on one card (:func:`spmd_train_yardstick`) and frees it; then 4
     ranks (data 2 x model 2) share the card over gloo, each a
     ``make_trainer(..., mesh=mesh)`` under ``cell_rules``' ``baseline``
-    (ZeRO-1 over ``data``, full remat), 3 steps on the same batch from the
+    (ZeRO-1 over ``data``, full remat), 2 steps on the same batch from the
     same seed: with its ``xy`` dispatch (the main path), then with ``ep``
     (:data:`SPMD_TRAIN_MODES`).  Checks on every rank of both runs: the
     rules; each step's launches by variant (flash 2 ``wgmma_tma`` a
     layer, forward and remat; GMM 12 ``tma`` a layer: 3 forward, 3 remat,
     6 backward); each step's loss within 2e-2 relative of one card's;
     each kernel call and each op's forward and backward at its local
-    shapes against plain; each parameter's step-3 block within 3e-2
+    shapes against plain; each parameter's step-2 block within 3e-2
     relative L2 of its cut of one card's, finite.  On the ``ep`` run,
     whose global FIFO drops nearly what one card's drops, each
     parameter's step-1 gradient bank too.  Returns its records."""
@@ -4167,7 +4247,8 @@ def spmd_train_phase(device):
               f"losses {yard['losses']}, grad norms {yard['norms']}; "
               f"{' '.join(f'{t * 1e3:.1f}' for t in yard['step_s'])} ms a "
               f"step; peak memory {yard['peak'] / 2**30:.2f} GiB; "
-              f"{yard['drops']} assignments dropped over the 3 steps' 12 "
+              f"{yard['drops']} assignments dropped over the "
+              f"{SPMD_TRAIN_STEPS} steps' {4 * SPMD_TRAIN_STEPS} "
               f"MoE calls (forward and remat) of "
               f"{12 * SPMD_TRAIN_BATCH * TRAIN_SEQ * 6}")
         print(f"[spmd train] {SPMD_LABEL}: backend gloo (chosen "
@@ -4192,7 +4273,8 @@ def spmd_train_phase(device):
     for mode, ranks in runs.items():
         for r, rec in enumerate(ranks):
             _spmd_train_checks(mode, r, rec, yard, want, fwd_want, card, L)
-        print(f"[spmd train] {mode}: assignments dropped over the 3 steps a "
+        print(f"[spmd train] {mode}: assignments dropped over the "
+              f"{SPMD_TRAIN_STEPS} steps a "
               f"rank {[rec['drops'] for rec in ranks]} (one card "
               f"{yard['drops']}; ep runs one card's global FIFO on every "
               f"rank, xy a FIFO a rank at each of its three stages)")
@@ -4269,16 +4351,17 @@ def _spmd_train_checks(mode, r, rec, yard, want, fwd_want, card, L):
           + (f"(tolerance {SPMD_TRAIN_BAR})" if grads_held else
              "(not held: this layout drops other assignments than one "
              "card's FIFO)")
-          + f"; step-3 parameter blocks: worst {p:.3e} ({worst_p}) "
+          + f"; step-{SPMD_TRAIN_STEPS} parameter blocks: worst {p:.3e} "
+          f"({worst_p}) "
           f"(tolerance {SPMD_TRAIN_BAR})")
     print(f"[spmd train] {mode} rank {r} relative L2 a parameter vs one "
           f"card's: step-1 gradients "
           f"{ {k: float(f'{v:.3e}') for k, v in rec['grad_err'].items()} }"
-          f"; step-3 parameters "
+          f"; step-{SPMD_TRAIN_STEPS} parameters "
           f"{ {k: float(f'{v:.3e}') for k, v in rec['param_err'].items()} }")
     print(f"[spmd train] {mode} rank {r} collectives by phase: {per_step}")
     check(_all_within(rec["param_err"], SPMD_TRAIN_BAR),
-          f"[spmd train] {mode} rank {r}: step-3 parameters "
+          f"[spmd train] {mode} rank {r}: step-{SPMD_TRAIN_STEPS} parameters "
           f"{rec['param_err']} not all within {SPMD_TRAIN_BAR} of one card's")
     if grads_held:
         check(_all_within(rec["grad_err"], SPMD_TRAIN_BAR),
@@ -4827,6 +4910,695 @@ def spmd_pipeline_entries(pipe, times, errs, bwd_times, replaces):
     return out
 
 
+# ----------------------------------------------------------------------
+# [spmd families]: Mamba-2, whisper-large-v3 and Jamba on a mesh of ranks
+# sharing the card
+# ----------------------------------------------------------------------
+FAM_WORLD = 4
+FAMILIES = (MAMBA2, WHISPER, JAMBA)
+# (data, model) of each family's mesh: Jamba's one period is 24.7 GiB in
+# bf16, whole on every data row, so it runs on 1 x 4 (6.2 GiB a rank)
+FAM_MESH = {MAMBA2: (2, 2), WHISPER: (2, 2), JAMBA: (1, 4)}
+FAM_BATCH, FAM_SEQ, FAM_STEPS = 2, 4096, 3
+# The training runs' depths and the leaves held at step 1.  Whisper
+# trains 4 + 4 layers at full width, Mamba-2 8 of its 48.  Mamba-2's
+# zero-initialised ``dt_bias`` and ``conv_b`` hold nothing but AdamW's
+# updates, each about the sign of its gradient times ``lr``, so their
+# relative L2 counts sign flips, and after step 1 the model amplifies
+# rounding into the gradients: at 48 layers a 1e-7 relative perturbation
+# of one weight moves the fp32 gradients by 2e-4 and, after 3 steps,
+# these two leaves by 0.35 and 0.33 relative L2 on one device
+# (``benchmarks/torch_rounding_spread.py``, 2 x 64 tokens on the CPU); a
+# mesh at 16 layers moved them by 0.035-0.044 here.  So the leaves that
+# start at zero are held after their first update (a flip there needs a
+# gradient within rounding of zero), every other leaf after step 3; the
+# zero leaves' step-3 errors are printed.
+FAM_TRAIN_LAYERS = {MAMBA2: 8, WHISPER: 4}
+FAM_JAMBA_LAYERS, FAM_TICKS = 8, 16
+# Jamba's E / top_k: a FIFO of T * top_k * cf / E slots holds every token
+# (a token takes an expert at most once), so no layout drops
+FAM_JAMBA_NO_DROP_CF = 8.0
+# The gates compare fp32 runs.  At random initialisation these models
+# amplify bf16 rounding: Mamba-2 370M's own bf16 logits differ from its
+# fp32 logits by 0.58 of the largest (2 x 64 tokens, on the CPU:
+# ``benchmarks/torch_rounding_spread.py``; this phase prints the card's),
+# and a bf16 mesh, whose partial sums round in another order, as much; so
+# a bf16 run could meet a 2e-2 bar only bit for bit.  The bf16 runs give the
+# tensor-core kernels' launches, local shapes and times, their errors
+# printed.  Jamba's fp32 prefill takes 2 x 1024 tokens: its 49.4 GiB of
+# fp32 weights leave no room for 2 x 4096's fp32 expert activations.
+FAM_JAMBA_FP32_SEQ = 1024
+FAM_BAR = 2e-2                   # logits (of the largest), losses (relative)
+# the fp32 Servers' (requests, prompt, new tokens): a mesh tick is
+# 0.53 s (Mamba-2) and 1.35 s (Whisper) of ~200 and ~450 gloo calls
+FAM_SERVERS = {MAMBA2: (8, 4, 4), WHISPER: (4, 4, 4)}
+FAM_LABEL = f"{FAM_WORLD} ranks time-sharing one card through gloo"
+
+
+def _fam_cfg(arch, dtype=None, train=False, cf=None):
+    """The phase's config of ``arch``: Mamba-2 and whisper-large-v3 whole
+    (their training depth ``FAM_TRAIN_LAYERS``), Jamba one period (8 of 32
+    layers) at capacity factor ``cf`` (default the published 1.25); in
+    ``dtype``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == JAMBA:
+        cfg = dataclasses.replace(
+            cfg, num_layers=FAM_JAMBA_LAYERS, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cf or cfg.moe.capacity_factor))
+    if train:
+        cfg = dataclasses.replace(cfg, num_layers=FAM_TRAIN_LAYERS[arch])
+    if arch == WHISPER and train:
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+            cfg.encdec, encoder_layers=FAM_TRAIN_LAYERS[arch]))
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def _fam_runs(arch):
+    """The prefills of a family, on the card alone and on the mesh:
+    (label, config, tokens a row): ``bf16`` at the published widths and
+    capacity factor (launches asserted, errors printed) and ``fp32`` (the
+    gated run; Jamba at the capacity factor that drops nothing)."""
+    return (("bf16", _fam_cfg(arch), FAM_SEQ),
+            ("fp32", _fam_cfg(arch, "float32", cf=FAM_JAMBA_NO_DROP_CF),
+             FAM_JAMBA_FP32_SEQ if arch == JAMBA else FAM_SEQ))
+
+
+def _fam_batch(device, cfg, seq):
+    """A prefill batch (``_prefill_batch``, seed 0): 2 x ``seq`` tokens,
+    or Whisper's 4 clips of 1500 frames and 4 x 448 tokens."""
+    if cfg.encdec is not None:
+        return _prefill_batch(device, cfg, WHISPER_CLIPS, WHISPER_TOKENS, 0)
+    return _prefill_batch(device, cfg, FAM_BATCH, seq, 0)
+
+
+def _fam_launches(arch, label):
+    """{kernel: {variant: launches}} of a family's prefill on every rank
+    (and on the card alone): Mamba-2 48 SSD, whisper-large-v3 96 flash
+    (32 encoder, 32 decoder self, 32 cross), Jamba's period 1 flash, 7
+    SSD and 12 GMM (3 in each of 4 MoE layers); bf16 through the tensor
+    cores, fp32 through the fp32 variants; every other 0."""
+    tc = label == "bf16"
+    flash, ssd, gmm = (("wgmma_tma", "tensor_core", "tma") if tc else
+                       ("f32", "cuda_core", "f32"))
+    want = {MAMBA2: {"ssd_scan": {ssd: 48}},
+            WHISPER: {"flash_attention": {flash: 96}},
+            JAMBA: {"flash_attention": {flash: 1}, "ssd_scan": {ssd: 7},
+                    "moe_gmm": {gmm: 12}}}[arch]
+    return {k: {v: want.get(k, {}).get(v, 0) for v in vs}
+            for k, vs in read_variants().items()}
+
+
+def _fam_requests(arch):
+    import numpy as np
+    n, prompt, new = FAM_SERVERS[arch]
+    rng = np.random.default_rng(2)
+    vocab = _fam_cfg(arch).vocab_size
+    return [(r, rng.integers(0, vocab, size=prompt).astype(np.int32), new)
+            for r in range(n)]
+
+
+def _fam_ticks(cfg):
+    """The fixed token stream of Jamba's decode: (ticks, rows)."""
+    import numpy as np
+    return np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (FAM_TICKS, FAM_BATCH)).astype(np.int64)
+
+
+def _fam_server(device, arch, mesh=None):
+    """The fp32 ``Server`` of ``arch`` (the seeded draw) on the card alone,
+    or on ``mesh``: (outs, ticks, wall, launches by variant, collectives,
+    the rules' batch and KV axes)."""
+    import torch
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.parallel import comm
+    server = Server(_fam_cfg(arch, "float32"), slots=4, max_seq=64,
+                    device=device, mesh=mesh)
+    for rid, prompt, new in _fam_requests(arch):
+        server.submit(Request(rid=rid, prompt=prompt, max_new=new))
+    torch.cuda.synchronize()
+    zero_counts()
+    comm.reset_comm_stats()
+    t0 = time.perf_counter()
+    ticks = server.run(tick_limit=1000)
+    torch.cuda.synchronize()
+    rec = dict(outs=[r.out for r in sorted(server.completed,
+                                            key=lambda r: r.rid)],
+               ticks=ticks, wall=time.perf_counter() - t0,
+               variants=read_variants(), comm=comm.comm_stats())
+    if mesh is not None:
+        rec.update(batch=server.rules._clean(server.rules.batch),
+                   kv_seq=server.rules._clean(server.rules.kv_seq))
+    del server
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _fam_train(device, arch, out_dir, mesh=None):
+    """``make_trainer`` of the family's fp32 training config (Mamba-2 8
+    layers, Whisper 4 + 4), 2 x 4096 tokens (Whisper 2 x 448 and 2
+    clips), full remat, 3 steps on the
+    pipeline's batch 0 from ``init(seed=0)``, on the card alone (the
+    step-3 parameters written to ``out_dir``) or on ``mesh`` (each block
+    against its cut of the parameters in ``out_dir``): its record."""
+    import os
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.sharding import block_of
+    cfg = _fam_cfg(arch, "float32", train=True)
+    seq = WHISPER_TOKENS if arch == WHISPER else FAM_SEQ
+    tr = make_trainer(cfg, seq, FAM_BATCH, FAM_STEPS, device=device,
+                      ckpt_dir=None, mesh=mesh,
+                      **({"remat": "full"} if mesh is None else {}))
+    tr.init(seed=0)
+    data = synthetic_batch(cfg, tr.shape, 0)
+    losses, stamps, variants, phases, first = [], [], [], [], {}
+    zeros = [k for k in tr.model.param_table(cfg)
+             if tr.model.init_rule(k) == "zeros"]
+
+    def on_step(step, m):
+        losses.append(float(m["loss"]))
+        variants.append(read_variants())
+        phases.append(comm.phase_stats())
+        zero_counts()
+        comm.reset_comm_stats()
+        if len(losses) == 1:
+            first.update({k: tr.model._p(k).detach().float().cpu()
+                          for k in zeros})
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    comm.reset_comm_stats()
+    t0 = time.perf_counter()
+    _run_on(tr, data, on_step)
+    rec = dict(losses=losses, step_s=[round(float(t), 3) for t in
+                                      np.diff([t0] + stamps)],
+               peak=torch.cuda.max_memory_allocated(), variants=variants,
+               phases=phases, remat=tr.remat)
+    step3 = {k: p.detach() for k, p in tr.model.named_parameters()}
+    for part, leaves in (("params", step3), ("step1", first)):
+        where = os.path.join(out_dir, part)
+        if mesh is None:
+            os.makedirs(where)
+            for name, p in leaves.items():
+                _leaf_file(os.path.join(where, name.replace("/", "@")), p)
+            continue
+        specs = tr.model.param_specs(cfg, tr.rules)
+        errs = {}
+        for name, p in leaves.items():
+            got = p.float().cpu()
+            want = _leaf_block(
+                os.path.join(where, name.replace("/", "@") + ".npy"),
+                block_of(mesh, specs[name], tuple(got.shape))[1])
+            errs[name] = float((got - want).norm()
+                               / want.norm().clamp_min(1e-30))
+        rec[part + "_err"] = errs
+    rec["zeros"] = zeros
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def families_yardstick(device, out):
+    """[spmd families] (1): each family on the card alone first, each
+    model freed before the next: the bf16 and fp32 prefills of
+    :func:`_fam_runs` (Mamba-2 370M whole and Jamba's one period at 2 x
+    4096, Jamba's fp32 at 2 x 1024; whisper-large-v3 whole at 4 clips of
+    1500 frames + 4 x 448 tokens), each with its launches asserted;
+    Jamba's 16 fp32 decode ticks of 2 rows on a fixed token stream (each
+    tick's logits to ``out``); the fp32 ``Server`` and 3 fp32 training
+    steps of Mamba-2 (8 layers) and Whisper (4 + 4 layers).  Returns the
+    records (logits as numpy)."""
+    import os
+    import numpy as np
+    import torch
+    from repro_torch.launch.step import prefill_step
+    from repro_torch.models import get_model, moe
+    rec = {}
+    for arch in FAMILIES:
+        r = {}
+        for label, cfg, seq in _fam_runs(arch):
+            params, nbytes, draw_s = draw_params(device, cfg)
+            model = get_model(cfg)(cfg, device, params=params)
+            batch = _fam_batch(device, cfg, seq)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            with moe.counting_drops() as drops:
+                logits = prefill_step(model, batch)
+                torch.cuda.synchronize()
+            r[label] = dict(
+                logits=logits.float().cpu().numpy(),
+                wall=time.perf_counter() - t0, bytes=nbytes, draw_s=draw_s,
+                peak=torch.cuda.max_memory_allocated(),
+                drops=int(sum(int(d) for d in drops)))
+            check(read_variants() == _fam_launches(arch, label),
+                  f"[spmd families] {arch} {label} prefill on the card "
+                  f"alone launched {read_variants()}")
+            if arch == JAMBA and label == "fp32":
+                cache = model.init_cache(FAM_BATCH, 64)
+                ticks = []
+                t0 = time.perf_counter()
+                for tok in _fam_ticks(cfg):
+                    step, cache = model.decode_step(cache, torch.from_numpy(
+                        tok).to(device))
+                    ticks.append(step.float().cpu().numpy())
+                r["tick_s"] = (time.perf_counter() - t0) / FAM_TICKS
+                np.save(os.path.join(out, "jamba_ticks.npy"), np.stack(ticks))
+                del cache
+            del model, params, logits, batch
+            torch.cuda.empty_cache()
+        if arch != JAMBA:
+            r["server"] = _fam_server(device, arch)
+            os.makedirs(os.path.join(out, arch))
+            r["train"] = _fam_train(device, arch, os.path.join(out, arch))
+        rec[arch] = r
+        b16, f32 = r["bf16"], r["fp32"]
+        print(f"[spmd families] {card_line()}: {arch} on the card alone: "
+              f"bf16 prefill {b16['wall']:.3f} s ({b16['bytes'] / 2**30:.2f}"
+              f" GiB drawn in {b16['draw_s']:.1f} s, peak "
+              f"{b16['peak'] / 2**30:.2f} GiB, {b16['drops']} dropped); fp32 "
+              f"prefill {f32['wall']:.3f} s ({f32['bytes'] / 2**30:.2f} GiB, "
+              f"peak {f32['peak'] / 2**30:.2f} GiB, {f32['drops']} dropped)"
+              + (f"; fp32 Server {r['server']['ticks']} ticks "
+                 f"{r['server']['wall']:.3f} s; fp32 training losses "
+                 f"{r['train']['losses']} ({r['train']['step_s']} s a step, "
+                 f"peak {r['train']['peak'] / 2**30:.2f} GiB)"
+                 if arch != JAMBA else
+                 f"; {FAM_TICKS} fp32 decode ticks of {FAM_BATCH} rows, "
+                 f"{r['tick_s'] * 1e3:.1f} ms a tick"))
+    return rec
+
+
+def _fam_comm_log(log, targets):
+    """Wrap each (module, attribute, label) of ``targets`` so that its
+    calls' collectives accumulate under ``log[label]`` (with a count of
+    the calls); returns the restore function."""
+    from repro_torch.parallel import comm
+    saved = [(m, a, getattr(m, a)) for m, a, _label in targets]
+
+    def wrap(fn, label):
+        def run(*a, **kw):
+            before = comm.comm_stats()
+            out = fn(*a, **kw)
+            d = log.setdefault(label, {"n": 0})
+            d["n"] += 1
+            for op, v in comm.comm_stats().items():
+                b = before.get(op, {"calls": 0, "bytes": 0})
+                if v["calls"] > b["calls"]:
+                    e = d.setdefault(op, {"calls": 0, "bytes": 0})
+                    e["calls"] += v["calls"] - b["calls"]
+                    e["bytes"] += v["bytes"] - b["bytes"]
+            return out
+        return run
+    for (m, a, fn), (_m, _a, label) in zip(saved, targets):
+        setattr(m, a, wrap(fn, label))
+
+    def restore():
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+    return restore
+
+
+def _per_call(log):
+    """``log`` (:func:`_fam_comm_log`) as collectives per call of each
+    label: {label: {op: (calls, bytes)}}."""
+    return {label: {op: (v["calls"] / d["n"], round(v["bytes"] / d["n"]))
+                    for op, v in d.items() if op != "n"}
+            for label, d in log.items()}
+
+
+def _families_rank(rank, plan):
+    """The [spmd families] program of one rank (4 ranks sharing the card
+    over gloo): Mamba-2 and whisper-large-v3 on (data 2 x model 2), Jamba's
+    one period on (data 1 x model 4); each family's bf16 and fp32
+    prefills (:func:`_fam_runs`), Jamba's 16 fp32 decode ticks against
+    the card alone's, the fp32 mesh ``Server`` and 3 fp32 training steps
+    of Mamba-2 and Whisper; then, one rank at a time, each distinct
+    kernel call of the bf16 prefills against the plain version at its
+    local shape.  Returns its records."""
+    import os
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.backend import resolve_device
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.step import cell_rules
+    from repro_torch.models import get_model, jamba, mamba2, moe, whisper
+    from repro_torch.models.convert import init_params
+    device = str(resolve_device(plan["device"]))
+    meshes = {shape: make_test_mesh(shape, ("data", "model"), device)
+              for shape in sorted(set(FAM_MESH.values()))}
+    calls = []
+
+    def flash_log(q, k, v, **kw):
+        calls.append(("flash", (tuple(q.shape), tuple(k.shape),
+                                tuple(v.shape)),
+                      (kw.get("causal", True), kw.get("window"))))
+        return real["flash"](q, k, v, **kw)
+
+    def gmm_log(lhs, rhs):
+        calls.append(("gmm", (tuple(lhs.shape), tuple(rhs.shape)), None))
+        return real["gmm"](lhs, rhs)
+
+    def ssd_log(x, dt, B, C, A, chunk):
+        calls.append(("ssd", (tuple(x.shape), tuple(B.shape)), chunk))
+        return real["ssd"](x, dt, B, C, A, chunk=chunk)
+    real = {"flash": ops.flash_attention, "gmm": ops._gmm_kernel,
+            "ssd": ops.ssd_scan}
+    ops.flash_attention, ops._gmm_kernel, ops.ssd_scan = \
+        flash_log, gmm_log, ssd_log
+    log = {}
+    restore = _fam_comm_log(log, [
+        (mamba2, "mixer_spmd", "mixer"),
+        (mamba2, "mixer_decode_spmd", "mixer decode"),
+        (jamba, "attn_island", "attention"),
+        (jamba, "dense_mlp", "dense MLP"),
+        (moe, "moe_block", "MoE"),
+        (whisper, "attn_island", "attention"),
+        (whisper, "dense_mlp", "MLP")])
+    out = {}
+    try:
+        for arch in FAMILIES:
+            mesh = meshes[FAM_MESH[arch]]
+            r = {}
+            for label, cfg, seq in _fam_runs(arch):
+                batch = _fam_batch(device, cfg, seq)
+                B, S = batch["tokens"].shape
+                rules = cell_rules(mesh, cfg, ShapeConfig("prefill", S, B,
+                                                          "prefill"))
+                t0 = time.perf_counter()
+                params = init_params(cfg, torch.Generator(device)
+                                     .manual_seed(0), device, rules=rules)
+                model = get_model(cfg)(cfg, device, params=params,
+                                       rules=rules)
+                torch.cuda.synchronize()
+                rr = dict(draw_s=time.perf_counter() - t0, bytes=sum(
+                    p.numel() * p.element_size() for p in params.values()))
+                torch.cuda.reset_peak_memory_stats()
+                calls.clear()
+                log.clear()
+                logits, rr["wall"], rr["variants"], rr["comm"], \
+                    rr["drops"] = _spmd_prefill(model, batch, rules, mesh)
+                rr["logits"] = logits.float().cpu().numpy()
+                rr["calls"] = list(calls) if label == "bf16" else []
+                rr["per_call"] = _per_call(log)
+                rr["peak"] = torch.cuda.max_memory_allocated()
+                del logits
+                if arch == JAMBA and label == "fp32":
+                    # 16 decode ticks under the decode cell's rules,
+                    # against the card alone's logits, tick by tick
+                    drules = cell_rules(mesh, cfg, ShapeConfig(
+                        "decode", 64, FAM_BATCH, "decode"))
+                    dm = get_model(cfg)(cfg, device, params=params,
+                                        rules=drules)
+                    cache = dm.init_cache(FAM_BATCH, 64)
+                    want = np.load(os.path.join(plan["dir"],
+                                                "jamba_ticks.npy"))
+                    log.clear()
+                    zero_counts()
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    errs = []
+                    for i, tok in enumerate(_fam_ticks(cfg)):
+                        step, cache = dm.decode_step(
+                            cache, torch.from_numpy(tok).to(device))
+                        errs.append(_rel_err(step.float().cpu().numpy(),
+                                             want[i]))
+                    rr["tick_s"] = (time.perf_counter() - t0) / FAM_TICKS
+                    rr["tick_errs"] = errs
+                    rr["tick_variants"] = read_variants()
+                    rr["tick_per_call"] = _per_call(log)
+                    del dm, cache
+                del model, params
+                torch.cuda.empty_cache()
+                r[label] = rr
+            if arch != JAMBA:
+                log.clear()
+                r["server"] = _fam_server(device, arch, mesh)
+                r["server"]["per_call"] = _per_call(log)
+                r["train"] = _fam_train(device, arch,
+                                        os.path.join(plan["dir"], arch),
+                                        mesh)
+            out[arch] = r
+    finally:
+        restore()
+        ops.flash_attention, ops._gmm_kernel, ops.ssd_scan = \
+            real["flash"], real["gmm"], real["ssd"]
+    # one rank at a time: each distinct kernel call of the bf16 prefills
+    # against its plain version at that local shape (not counted)
+    seen = sorted({c for r in out.values() for c in r["bf16"]["calls"]})
+    for turn in range(FAM_WORLD):
+        if turn == rank:
+            out["kernel_errs"] = _spmd_kernel_checks(seen, device, 40 + rank)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _xy_buffers(cfg, tokens, R, C):
+    """(cap1, cap2, cap3, bytes of one (E/C, cap3, F) bf16 expert
+    activation) of the ``xy`` dispatch of ``tokens`` tokens a rank on R x
+    C (``models/moe.py::_moe_xy``)."""
+    m = cfg.moe
+    A = tokens * m.top_k
+    cap1 = max(8, -(-int(A / R * m.capacity_factor) // 8) * 8)
+    cap2 = max(8, -(-int(R * cap1 / C) // 8) * 8)
+    e_loc = m.num_experts // C
+    cap3 = max(8, -(-int(C * cap2 / e_loc) // 8) * 8)
+    return cap1, cap2, cap3, e_loc * cap3 * m.d_ff_expert * 2
+
+
+def spmd_families_phase(device):
+    """Phase 15, ``[spmd families]``: Mamba-2 370M, whisper-large-v3 and
+    Jamba's one period on a mesh.  (1) each on the card alone first
+    (:func:`families_yardstick`); (2) one spawn of 4 ranks sharing the card
+    over gloo (:func:`_families_rank`; Mamba-2 and Whisper on data 2 x
+    model 2, Jamba on data 1 x model 4).  Gates: every prefill's launches
+    by variant on every rank; the fp32 prefills' logits within 2e-2 of
+    the card alone's largest (the bf16 ones' printed: see
+    ``FAM_JAMBA_FP32_SEQ``'s comment); Jamba's capacity factor E / top_k
+    drops nothing, and each of its 16 fp32 decode ticks within 2e-2; the
+    fp32 mesh ``Server``'s tokens identical to the card alone's (Mamba-2,
+    Whisper); fp32 training losses within 2e-2 and every step-3
+    parameter block within 3e-2 relative L2 of the card alone's, every
+    error finite; each rank's kernels against plain at its local shapes.
+    (3) the kernel times at those shapes on the card alone.  Returns its
+    records."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.moe import capacity
+    card = card_line()
+    t_phase = time.perf_counter()
+    for label, c, seq in (("bf16", _fam_cfg(JAMBA), FAM_SEQ),
+                          ("fp32", _fam_runs(JAMBA)[1][1],
+                           FAM_JAMBA_FP32_SEQ)):
+        T = FAM_BATCH * seq
+        one = capacity(T, c.moe)
+        act = c.moe.num_experts * one * c.moe.d_ff_expert * (
+            2 if label == "bf16" else 4)
+        cap1, cap2, cap3, nb = _xy_buffers(c, T // 4, *FAM_MESH[JAMBA])
+        print(f"[spmd families] {JAMBA} one period, {label}, {FAM_BATCH} x "
+              f"{seq} tokens at capacity factor {c.moe.capacity_factor}: "
+              f"the card alone's FIFO {one} slots an expert ("
+              f"{act / 2**30:.2f} GiB an (E, slots, F) expert activation); "
+              f"xy on data {FAM_MESH[JAMBA][0]} x model {FAM_MESH[JAMBA][1]}"
+              f": cap1 {cap1}, cap2 {cap2}, cap3 {cap3}, "
+              f"{nb * (1 if label == 'bf16' else 2) / 2**30:.2f} GiB an "
+              f"(E/4, cap3, F) activation a rank")
+    out = tempfile.mkdtemp(prefix="spmd_families_")
+    try:
+        yard = families_yardstick(device, out)
+        torch.cuda.empty_cache()
+        print(f"[spmd families] {card}: {FAM_LABEL}; this process holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        t0 = time.perf_counter()
+        kind = torch.device(device).type
+        ranks = spawn(_families_rank, FAM_WORLD, "gloo", device=kind,
+                      args=({"device": kind, "dir": out},), timeout=900)
+        ranks_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for arch in FAMILIES:
+        want = yard[arch]
+        shape = FAM_MESH[arch]
+        for r, rec in enumerate(ranks):
+            got = rec[arch]
+            for label in ("bf16", "fp32"):
+                g, w = got[label], want[label]
+                check(g["variants"] == _fam_launches(arch, label),
+                      f"[spmd families] rank {r} {arch} {label} prefill "
+                      f"launched {g['variants']}, expected "
+                      f"{_fam_launches(arch, label)}")
+                g["err"] = _rel_err(g["logits"], w["logits"])
+                check(np.isfinite(g["logits"]).all(), f"[spmd families] "
+                      f"rank {r} {arch} {label} logits not finite")
+            f32, b16 = got["fp32"], got["bf16"]
+            check(f32["err"] <= FAM_BAR and f32["drops"] == 0,
+                  f"[spmd families] rank {r} {arch} fp32 logits differ from "
+                  f"the card alone's by {f32['err']} ({f32['drops']} "
+                  f"dropped)")
+            print(f"[spmd families] {card}: {arch} prefill, rank {r} (data "
+                  f"{shape[0]} x model {shape[1]}, {FAM_LABEL}): bf16 "
+                  f"{b16['bytes'] / 2**30:.2f} GiB of weights drawn in "
+                  f"{b16['draw_s']:.1f} s, wall {b16['wall']:.3f} s (the "
+                  f"card alone {want['bf16']['wall']:.3f} s), logits "
+                  f"{b16['err']:.3e} of the card alone's largest (not gated), "
+                  f"{b16['drops']} dropped, launches {b16['variants']}, "
+                  f"collectives a call {b16['per_call']}, whole prefill "
+                  f"{b16['comm']}, peak {b16['peak'] / 2**30:.2f} GiB; fp32 "
+                  f"wall {f32['wall']:.3f} s (the card alone "
+                  f"{want['fp32']['wall']:.3f} s), logits within "
+                  f"{f32['err']:.3e} of the card alone's largest (tolerance "
+                  f"{FAM_BAR}), peak {f32['peak'] / 2**30:.2f} GiB")
+            if arch == JAMBA:
+                worst = max(f32["tick_errs"])
+                check(all(np.isfinite(e) and e <= FAM_BAR
+                          for e in f32["tick_errs"]),
+                      f"[spmd families] rank {r} Jamba decode ticks differ "
+                      f"from the card alone's: {f32['tick_errs']}")
+                print(f"[spmd families] {card}: {JAMBA} {FAM_TICKS} fp32 "
+                      f"decode ticks of {FAM_BATCH} rows on rank {r}: "
+                      f"{f32['tick_s'] * 1e3:.1f} ms a tick (the card alone "
+                      f"{want['tick_s'] * 1e3:.1f}), every tick's logits "
+                      f"within {worst:.3e} of the card alone's largest; "
+                      f"launches {f32['tick_variants']}; collectives a call "
+                      f"{f32['tick_per_call']}")
+                continue
+            s, alone = got["server"], want["server"]
+            check(s["outs"] == alone["outs"] and s["ticks"] == alone["ticks"],
+                  f"[spmd families] rank {r} {arch}: the mesh Server's "
+                  f"tokens differ from the card alone's")
+            print(f"[spmd families] {card}: fp32 {arch} mesh Server, rank "
+                  f"{r} (rows over {s['batch']}, KV over {s['kv_seq']}): "
+                  f"{len(s['outs'])} requests, {s['ticks']} ticks, "
+                  f"{s['wall'] / s['ticks'] * 1e3:.1f} ms a tick (the card "
+                  f"alone {alone['wall'] / alone['ticks'] * 1e3:.1f}); tokens "
+                  f"identical; collectives a call {s['per_call']}")
+            t, ta = got["train"], want["train"]
+            lerr = max(abs(a - b) / max(abs(b), 1e-30)
+                       for a, b in zip(t["losses"], ta["losses"]))
+            held = {k: e for k, e in t["params_err"].items()
+                    if k not in t["zeros"]}
+            held.update({k + " (step 1)": e
+                         for k, e in t["step1_err"].items()})
+            name, perr = _worst(held)
+            check(len(t["losses"]) == FAM_STEPS and lerr <= FAM_BAR
+                  and _all_within(held, SPMD_TRAIN_BAR),
+                  f"[spmd families] rank {r} {arch} training: losses "
+                  f"{t['losses']} vs {ta['losses']}, worst parameter "
+                  f"{name} {perr}")
+            print(f"[spmd families] {card}: fp32 {arch} training on rank {r}"
+                  f" ({FAM_TRAIN_LAYERS[arch]} layers, remat {t['remat']}): "
+                  f"losses {t['losses']} (the card alone {ta['losses']}, "
+                  f"within {lerr:.3e}); parameters within {perr:.3e} "
+                  f"relative L2 ({name}; bar {SPMD_TRAIN_BAR}; the zero-"
+                  f"initialised leaves after step 1, the rest after step "
+                  f"3; the zero leaves after step 3, not held: "
+                  f"{ {k: round(t['params_err'][k], 6) for k in t['zeros']} });"
+                  f" {t['step_s']} s a step (the card alone {ta['step_s']}); "
+                  f"peak {t['peak'] / 2**30:.2f} GiB; launches a step "
+                  f"{t['variants'][-1]}; collectives a step by phase "
+                  f"{t['phases'][-1]}")
+        print(f"[spmd families] {arch}: the bf16 prefill logits of the card "
+              f"alone vs its fp32 ones: {_rel_err(want['bf16']['logits'], want['fp32']['logits']) if arch != JAMBA else float('nan'):.3e}"
+              f" of the largest (the rounding's own spread; Jamba's runs "
+              f"differ in length and capacity factor)")
+    kerr = max(e for rec in ranks for e in rec["kernel_errs"].values())
+    calls = sorted({c for rec in ranks for a in FAMILIES
+                    for c in rec[a]["bf16"]["calls"]})
+    times = _spmd_times(device, calls)
+    for key, t in times.items():
+        lib = "none" if t["library_ms"] is None else \
+            f"{t['library']} {t['library_ms']:.4f} ms"
+        print(f"[spmd families times] {card}: {key[0]} at a rank's local "
+              f"shape {key[1]} ({'chunk' if key[0] == 'ssd' else 'mask'} "
+              f"{key[2]}; the card alone): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{t['bound'][0]:.4f} ms by {t['bound'][1]}")
+    print(f"[spmd families] phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"(the ranks {ranks_wall:.1f} s of it); worst kernel error vs "
+          f"plain {kerr:.3e}")
+    return {"ranks": ranks, "times": times}
+
+
+def spmd_families_entries(fam, replaces):
+    """The ``kernels`` entries of [spmd families]: one per family, kernel
+    and local shape of the prefills, its launches that shape's calls
+    summed over the ranks, its error the worst rank's against the plain
+    version, its times at that shape on the card alone."""
+    import collections
+    ranks, times = fam["ranks"], fam["times"]
+    names = {"flash": ("flash_attention", "wgmma_tma"),
+             "ssd": ("ssd_scan", "tensor_core"), "gmm": ("moe_gmm", "tma")}
+    out = []
+    for arch, label in ((MAMBA2, "mamba2"), (WHISPER, "whisper"),
+                        (JAMBA, "jamba")):
+        by_rank = [collections.Counter(rec[arch]["bf16"]["calls"])
+                   for rec in ranks]
+        keys = sorted(set().union(*by_rank))
+        for kind in ("flash", "ssd", "gmm"):
+            mine = [k for k in keys if k[0] == kind]
+            for i, key in enumerate(mine):
+                if kind == "gmm" and i:
+                    continue                     # the down product, below
+                name, variant = names[kind]
+                t = times[key]
+                role = ""
+                if arch == WHISPER:      # by the attention's (Sq, Sk, mask)
+                    (q, k, _v), (causal, _w) = key[1], _flash_mask(key[2])
+                    role = "_self" if causal else \
+                        "_cross" if q[2] != k[2] else "_encoder"
+                entry = {
+                    "name": f"{name}_spmd_{label}{role}",
+                    "route": "cuda",
+                    "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                    "replaces": replaces[name],
+                    "launches": sum(c[key] for c in by_rank),
+                    "launches_by_rank": [c[key] for c in by_rank],
+                    "max_abs_err": max(rec["kernel_errs"][key[:2]]
+                                       for rec in ranks),
+                    "ms": t["ms"], "plain_ms": t["plain_ms"],
+                    "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                    "library_ms": t["library_ms"], "library": t["library"],
+                    "checked_against_plain": True, "variant": variant,
+                    "path": f"[spmd families] {arch} prefill, data "
+                            f"{FAM_MESH[arch][0]} x model {FAM_MESH[arch][1]}"
+                            f", {FAM_LABEL}",
+                    "shape": f"local {key[1]} "
+                             + (f"chunk {key[2]}" if kind == "ssd" else
+                                "causal {} window {}".format(
+                                    *_flash_mask(key[2]))
+                                if kind == "flash" else "")}
+                if kind == "gmm" and len(mine) > 1:
+                    d = times[mine[1]]
+                    entry["down"] = {
+                        "shape": f"local {mine[1][1]}", "ms": d["ms"],
+                        "plain_ms": d["plain_ms"],
+                        "library_ms": d["library_ms"],
+                        "bound_ms": d["bound"][0], "bound_by": d["bound"][1],
+                        "launches": sum(c[mine[1]] for c in by_rank),
+                        "max_abs_err": max(rec["kernel_errs"][mine[1][:2]]
+                                           for rec in ranks)}
+                check(entry["launches"] > 0,
+                      f"{entry['name']} never launched")
+                out.append(entry)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4933,6 +5705,7 @@ def main() -> int:
     spmd = spmd_phase("cuda")
     spmd_train = spmd_train_phase("cuda")
     pipe = spmd_pipeline_phase("cuda")
+    fam = spmd_families_phase("cuda")
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:86",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
                 "moe_gmm": "src/repro/kernels/moe_gmm.py:44"}
@@ -5045,6 +5818,7 @@ def main() -> int:
     kernels += spmd_entries(spmd, replaces)
     kernels += spmd_train_entries(spmd_train, replaces)
     kernels += spmd_pipeline_entries(pipe, times, errs, bwd_times, replaces)
+    kernels += spmd_families_entries(fam, replaces)
     for arch, r in trains.items():
         print(f"[summary] {card_line()}: {arch} training {r['tokens']} tokens "
               f"a step: warm step {r['warm'] * 1e3:.1f} ms, "

@@ -17,7 +17,7 @@ cache is built without an encoder output, as the reference's ``Server``
 builds it, so its cross-attention reads a zero cross KV and the tokens
 compare with the reference's (``ROADMAP.md`` C-7).
 
-On a mesh (the transformer family): ``--devices 8 --mesh-shape 2,4``
+On a mesh (every family): ``--devices 8 --mesh-shape 2,4``
 starts 8 ranks (``repro_torch.launch.mesh.spawn``, ``--backend gloo`` on
 the CPU or ranks sharing a card, ``nccl`` with a card per rank), each a
 ``Server(cfg, slots=..., max_seq=..., mesh=mesh)`` running the same
@@ -26,6 +26,9 @@ cache sharded by the reference's ``cell_rules``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \
       --reduced --device cpu --devices 8 --mesh-shape 2,4
+
+(``--arch mamba2-370m``, ``jamba-v0.1-52b`` or ``whisper-large-v3`` the
+same way).
 """
 from __future__ import annotations
 

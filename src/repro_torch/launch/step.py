@@ -15,7 +15,9 @@ plain functions of the model (an ``nn.Module`` from
 without it they run on one card exactly as before; with it (on a mesh,
 every rank calling them in lockstep with the global batch) the model
 runs its SPMD islands and every rank gets the global result, the
-training step the global loss and every rank's blocks updated.
+training step the global loss and every rank's blocks updated.  Every
+family runs them on a mesh: the transformer's, Mamba-2, Jamba and
+Whisper.
 :func:`cell_rules` adapts a strategy to a cell as the reference's does.
 ``batch["positions"]`` is passed through as the reference passes it: (B,
 S), or (3, B, S) for Qwen2-VL's M-RoPE; for the ``audio`` family

@@ -9,7 +9,7 @@ kernels; without ``--device cpu`` it runs on the card.  Without
 (the reference's ``train_4k`` global batch of 256 does not fit one card,
 and the reference has no gradient accumulation).
 
-On a mesh (the transformer family): ``--devices 8 --mesh-shape 2,4
+On a mesh (every family): ``--devices 8 --mesh-shape 2,4
 --strategy fsdp`` starts 8 ranks (``repro_torch.launch.mesh.spawn``;
 ``--backend gloo`` on the CPU or ranks sharing a card, ``nccl`` with a
 card per rank), each a ``Trainer(..., mesh=mesh, strategy=...)`` reading

@@ -9,9 +9,20 @@ What the families' training shares is here too: the loss
 (:meth:`TableModule._loss`, the reference's ``loss_fn`` tail; on a mesh
 :meth:`TableModule._mesh_loss`) and the rematerialisation of a layer
 (:func:`run_layer`, the reference's ``Rules.remat``).
+
+So is what every family shares on a mesh: the parameter layouts (each
+family's ``param_labels`` resolved by :func:`resolve_axis`, the
+reference's ``param_specs``; :meth:`TableModule.layout_specs`,
+:meth:`~TableModule.param_specs`, :meth:`~TableModule.shard_table`), the
+FSDP banks (:meth:`TableModule._use`, :meth:`TableModule._stack`), the
+vocab-sharded embedding and LM head (:meth:`TableModule._embed`,
+:meth:`TableModule._logits`), the vocab-parallel cross entropy
+(:meth:`TableModule._spmd_ce`) and Megatron sequence parallelism's
+gather and return (:func:`seq_gather`, :func:`seq_return`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -23,9 +34,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.parallel import comm
-from .layers import cross_entropy
+from repro_torch.parallel.sharding import (Layout, Rules, entry_index,
+                                           entry_names, join_blocks,
+                                           spec_axes, zero1_spec)
+from .layers import cross_entropy, embed_lookup, rms_norm
 
-__all__ = ["TableModule", "run_layer", "dots_policy", "AUX_COEF", "REMAT"]
+__all__ = ["TableModule", "run_layer", "dots_policy", "AUX_COEF", "REMAT",
+           "resolve_axis", "seq_gather", "seq_return", "whole",
+           "stack_specs"]
+
+F32 = torch.float32
 
 AUX_COEF = 0.01            # the MoE load-balance loss's weight
 REMAT = ("none", "full", "dots")
@@ -96,6 +114,65 @@ def run_layer(fn, remat: str, *args):
                           context_fn=_dots_context)
     raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
 
+# ---------------------------------------------------------------------------
+# on a mesh: the parameter layouts and the sequence-parallel helpers
+# ---------------------------------------------------------------------------
+
+def resolve_axis(cfg: ModelConfig, rules: Rules, label, size: int):
+    """The mesh axes a dimension labelled ``label`` of ``size`` is laid
+    over (the reference's ``transformer._resolve_axis``, which Jamba and
+    Whisper use, and ``mamba2._resolve``; divisibility is checked on the
+    flat weight dimension, and a dimension that does not divide stays
+    whole).  Expert weights are sharded over ``experts`` (EP) where E
+    divides it, else their FFN width over ``ff``.  One difference: under
+    ``dispatch="local"`` they are held FFN-sharded, as ``_moe_local``
+    reads them, where the reference's table shards them over experts and
+    GSPMD reshards them inside every layer."""
+    if label is None:
+        return None
+    if label in ("heads", "kv_heads"):
+        return rules.dim_axis(rules.heads, size)
+    if label in ("vocab", "ff"):
+        return rules.dim_axis(getattr(rules, label), size)
+    ep = rules.axis_size(rules.experts)
+    use_ep = cfg.moe is not None and ep > 1 and \
+        cfg.moe.num_experts % ep == 0 and rules.dispatch not in ("tp",
+                                                                 "local")
+    if label == "experts":
+        return rules._clean(rules.experts) if use_ep else None
+    if label == "ff_expert":
+        return None if use_ep else rules.dim_axis(rules.ff, size)
+    raise KeyError(label)
+
+
+def stack_specs(specs: Dict[str, Tuple], prefix: str, names,
+                stacked: int = 1) -> Dict[str, Tuple]:
+    """{name: the spec of one slice of ``prefix + name``}: the ``stacked``
+    leading (layer) dimensions dropped."""
+    return {k: specs[prefix + k][stacked:] for k in names}
+
+
+def whole(lp: Dict[str, torch.Tensor], lspecs: Dict[str, Tuple], names,
+          rules: Rules) -> Dict[str, torch.Tensor]:
+    """The named slices of ``lp`` with their blocks gathered over the axes
+    of ``lspecs`` (collective; the backward reduce-scatters)."""
+    return {k: join_blocks(lp[k], lspecs[k], rules) for k in names
+            if k in lp}
+
+
+def seq_gather(h: torch.Tensor, rules: Rules, lay: Layout) -> torch.Tensor:
+    """This rank's sequence block (b, s, ...) all-gathered over ``model``
+    to the whole sequence where the layout shards it."""
+    return comm.all_gather(h, rules.mesh, "model", 1) if lay.seq else h
+
+
+def seq_return(out: torch.Tensor, rules: Rules, lay: Layout):
+    """A partial (b, S, D) sum over ``model`` back to this rank's block:
+    reduce-scattered over the sequence, or summed."""
+    if lay.seq:
+        return comm.reduce_scatter(out, rules.mesh, "model", 1)
+    return comm.all_reduce(out, rules.mesh, "model")
+
 
 class _Reported(torch.autograd.Function):
     """The global loss's value with this rank's share's gradient."""
@@ -113,8 +190,10 @@ class TableModule(nn.Module):
     """An ``nn.Module`` whose parameters are the rows of the family's
     ``param_table`` (name -> shape), in the dtypes of its
     ``param_dtype(cfg, name)``; ``init_rule(name)`` names how the
-    reference initialises each (``ones``, ``zeros``, ``A_log``, ``dense``).
-    Subclasses set the three as static methods.
+    reference initialises each (``ones``, ``zeros``, ``A_log``, ``dense``)
+    and ``param_labels`` the logical axis of each dimension (the
+    reference table's labels).  Subclasses set the four as static
+    methods.
 
     With ``rules`` (``repro_torch.parallel.sharding.Rules``) the module
     holds this rank's block of each parameter, the shapes of
@@ -149,20 +228,45 @@ class TableModule(nn.Module):
         raise NotImplementedError
 
     @staticmethod
-    def shard_table(cfg: ModelConfig, rules) -> Dict[str, Tuple[int, ...]]:
-        """Name -> shape of this rank's block of every parameter under
-        sharding ``rules``; a family without SPMD islands refuses rules."""
-        raise NotImplementedError(
-            f"the {cfg.family} family does not run on a mesh yet")
+    def param_labels(cfg: ModelConfig) -> Dict[str, Tuple]:
+        raise NotImplementedError
 
-    @staticmethod
-    def param_specs(cfg: ModelConfig, rules) -> Dict[str, Tuple]:
-        """Name -> the mesh axes of each dimension of this rank's block of
-        every parameter under sharding ``rules`` (the layouts a mesh
-        training step, its optimizer banks and its checkpoints read); a
-        family without SPMD islands refuses rules."""
-        raise NotImplementedError(
-            f"the {cfg.family} family does not run on a mesh yet")
+    @classmethod
+    def layout_specs(cls, cfg: ModelConfig, rules: Rules
+                     ) -> Dict[str, Tuple]:
+        """Name -> the mesh axes of each dimension (None: whole on every
+        rank) as the islands read the parameters: the reference's
+        ``param_specs``."""
+        labels = cls.param_labels(cfg)
+        return {name: tuple(resolve_axis(cfg, rules, a, shape[d])
+                            for d, a in enumerate(labels[name]))
+                for name, shape in cls.param_table(cfg).items()}
+
+    @classmethod
+    def param_specs(cls, cfg: ModelConfig, rules: Rules) -> Dict[str, Tuple]:
+        """Name -> the mesh axes of each dimension of the blocks a rank
+        holds (the layouts a mesh training step, its optimizer banks and
+        its checkpoints read): :meth:`layout_specs`, and under
+        ``rules.fsdp`` each banked over ``zero1`` as the reference's
+        ``build_cell`` banks a training cell's parameters
+        (``parallel.sharding.zero1_spec``; ZeRO-3).  The islands
+        all-gather a banked weight over ``zero1`` before they use it
+        (:meth:`_use`, :meth:`_stack`)."""
+        specs = cls.layout_specs(cfg, rules)
+        if not rules.fsdp:
+            return specs
+        table = cls.param_table(cfg)
+        return {k: zero1_spec(v, table[k], rules) for k, v in specs.items()}
+
+    @classmethod
+    def shard_table(cls, cfg: ModelConfig, rules: Rules
+                    ) -> Dict[str, Tuple[int, ...]]:
+        """Name -> the shape of this rank's block of every parameter under
+        sharding ``rules``."""
+        table = cls.param_table(cfg)
+        return {name: tuple(n // rules.axis_size(a)
+                            for n, a in zip(table[name], axes))
+                for name, axes in cls.param_specs(cfg, rules).items()}
 
     def __init__(self, cfg: ModelConfig, device=None,
                  params: Optional[Dict[str, torch.Tensor]] = None,
@@ -191,16 +295,47 @@ class TableModule(nn.Module):
             self.register_parameter(name, nn.Parameter(data,
                                                        requires_grad=False))
 
+    def _rules(self, rules: Optional[Rules]) -> Optional[Rules]:
+        """The rules of a call: ``rules``, else the model's own.  Rules
+        that lay the parameters out otherwise than the model holds them
+        are refused."""
+        if rules is None or rules is self.rules:
+            return self.rules
+        held = self.param_table(self.cfg) if self.rules is None \
+            else self.shard_table(self.cfg, self.rules)
+        if self.shard_table(self.cfg, rules) != held:
+            raise ValueError("these rules shard the parameters otherwise "
+                             "than the model holds them")
+        return rules
+
+    # -- decode caches -------------------------------------------------------
+    def _cache_batch(self, batch: int) -> int:
+        """The rows of a decode cache of ``batch`` this rank holds: all of
+        them on one card; on a mesh its block over ``rules.batch`` (where
+        the batch divides), remembered for :meth:`reset_slot`."""
+        if self.rules is None:
+            return batch
+        lay = Layout(self.rules.dim_axis(self.rules.batch, batch), False)
+        self._cache_rows = lay.rows(self.rules, batch)
+        return len(range(batch)[self._cache_rows])
+
     def reset_slot(self, cache: Dict[str, torch.Tensor], s: int) -> None:
-        """Start slot ``s`` of ``cache`` afresh, in place: its length 0 and
-        its ``RECURRENT_LEAVES`` zeroed.  Stale KV (and a transformer's
-        ``pos``) needs no wipe: attention masks by length, and new appends
-        overwrite."""
+        """Start slot ``s`` (a global row) of ``cache`` afresh, in place:
+        its length 0 and its ``RECURRENT_LEAVES`` zeroed.  Stale KV (and a
+        transformer's ``pos``) needs no wipe: attention masks by length,
+        and new appends overwrite.  On a mesh only the ranks holding that
+        row of the cache of the last ``init_cache`` touch it."""
+        if self.rules is not None:
+            rows = self._cache_rows
+            if not rows.start <= s < rows.stop:
+                return
+            s -= rows.start
         cache["len"][s] = 0
         idx = (slice(None),) * self.CACHE_BATCH_DIM + (s,)
         for name in self.RECURRENT_LEAVES:
             cache[name][idx] = 0
 
+    # -- the loss ------------------------------------------------------------
     def _loss(self, logits: torch.Tensor, aux: torch.Tensor,
               batch: Dict[str, torch.Tensor], moe: bool
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -238,10 +373,167 @@ class TableModule(nn.Module):
             total, metrics = ce, {"ce": ce}
         return _Reported.apply(local, total), metrics
 
+    # -- parameters and FSDP banks -----------------------------------------
     def _p(self, name: str) -> torch.Tensor:
         return getattr(self, name)
 
+    @functools.cached_property
+    def _banked(self) -> Dict[str, Tuple[int, Tuple[str, ...]]]:
+        """Under FSDP, name -> (the dimension banked over ``zero1``, the
+        ``zero1`` axes) of each parameter held as a bank."""
+        if self.rules is None or not self.rules.fsdp:
+            return {}
+        held = self.param_specs(self.cfg, self.rules)
+        out = {}
+        for k, spec in self.layout_specs(self.cfg, self.rules).items():
+            for d, (a, b) in enumerate(zip(held[k], spec)):
+                if a != b:
+                    out[k] = (d, entry_names(a)[len(entry_names(b)):])
+        return out
+
+    def _gather_bank(self, name: str, t: torch.Tensor, dim: int
+                     ) -> torch.Tensor:
+        """``t`` (a bank, or a slice of one whose banked dimension is now
+        ``dim``) all-gathered over ``zero1`` (autograd: the backward
+        reduce-scatters the gradient into the bank)."""
+        for a in reversed(self._banked[name][1]):
+            t = comm.all_gather(t, self.rules.mesh, a, dim)
+        return t
+
+    def _use(self, name: str) -> torch.Tensor:
+        """Parameter ``name`` as the islands read it: this rank's block,
+        a bank all-gathered first under FSDP."""
+        t = self._p(name)
+        if name in self._banked:
+            t = self._gather_bank(name, t, self._banked[name][0])
+        return t
+
     def _stack(self, prefix: str, names, *index) -> Dict[str, torch.Tensor]:
         """``{name: param(prefix + name)[index]}``: one layer's slice of
-        stacked parameters."""
-        return {k: self._p(prefix + k)[index] for k in names}
+        stacked parameters, as the islands read it (a bank gathered
+        under FSDP: the slice's own bank, or the whole bank where it is
+        banked over a stacked dimension)."""
+        out = {}
+        for k in names:
+            name = prefix + k
+            bank = self._banked.get(name)
+            if bank is None:
+                out[k] = self._p(name)[index]
+            elif bank[0] < len(index):
+                out[k] = self._use(name)[index]
+            else:
+                out[k] = self._gather_bank(name, self._p(name)[index],
+                                           bank[0] - len(index))
+        return out
+
+    # -- the vocabulary on a mesh ------------------------------------------
+    def _embed(self, tokens: torch.Tensor, rules: Rules, lay: Layout,
+               specs) -> torch.Tensor:
+        """This rank's block (b, s, D) of the embedding of its rows'
+        ``tokens`` (b, S).  A vocab-sharded table: each rank looks up the
+        tokens of its block (zeros elsewhere) and the blocks are summed
+        (one non-zero term: exact), reduce-scattered straight to the
+        sequence block where the sequence is sharded over the same
+        axis."""
+        table, va = self._use("embed"), specs["embed"][0]
+        S = tokens.shape[1]
+        if va is None:
+            x = embed_lookup(table, tokens)[:, lay.positions(rules, S)]
+            return x.to(self.cfg.param_dtype)
+        n = table.shape[0]
+        local = tokens - entry_index(rules.mesh, va) * n
+        ok = (local >= 0) & (local < n)
+        x = torch.where(ok[..., None], embed_lookup(table,
+                                                    local.clamp(0, n - 1)),
+                        0)
+        if lay.seq and rules.mesh.names(va) == ("model",):
+            x = comm.reduce_scatter(x, rules.mesh, "model", 1)
+        else:
+            x = comm.all_reduce(x, rules.mesh, va)
+            x = x[:, lay.positions(rules, S)]
+        return x.to(self.cfg.param_dtype)
+
+    def _spmd_head(self, specs) -> Tuple[torch.Tensor, object]:
+        """(this rank's block of the LM head (D, V / n), the axes of its
+        vocabulary)."""
+        if self.cfg.tie_embeddings:
+            return self._use("embed").T, specs["embed"][0]
+        return self._use("lm_head"), specs["lm_head"][1]
+
+    def _logits(self, x: torch.Tensor, rules: Rules, lay: Layout,
+                specs) -> torch.Tensor:
+        """The global logits (B, s, V) of this rank's final hidden rows x
+        (b, s, D) (every column holding the same rows): the vocab blocks
+        all-gathered, then the batch rows."""
+        x = rms_norm(x, self._use("final_norm"), self.cfg.norm_eps)
+        head, va = self._spmd_head(specs)
+        logits = x @ head
+        if va is not None:
+            logits = comm.all_gather(logits, rules.mesh, va, logits.dim() - 1)
+        if lay.batch is not None:
+            logits = comm.all_gather(logits, rules.mesh, lay.batch, 0)
+        return logits
+
+    def _spmd_out(self, x: torch.Tensor, last_only: bool, rules: Rules,
+                  lay: Layout, specs) -> torch.Tensor:
+        """The global logits of this rank's final block x (b, s, D): of
+        every position (the sequence gathered), or of the last one only
+        (which lives on the last column where the sequence is
+        sharded)."""
+        if last_only:
+            x = x[:, -1:]
+            if lay.seq:
+                last = rules.mesh.index("model") == \
+                    rules.axis_size("model") - 1
+                x = comm.all_reduce(x if last else torch.zeros_like(x),
+                                    rules.mesh, "model")
+        else:
+            x = seq_gather(x, rules, lay)
+        return self._logits(x, rules, lay, specs)
+
+    def _spmd_ce(self, x, batch, rules: Rules, lay: Layout, specs):
+        """(the masked cross-entropy sum of the tokens this rank counts,
+        their mask's sum) from its final hidden block x (b, s, D).  Each
+        token is counted on exactly one rank: its rows' and positions'
+        owner, the first rank along every axis that neither the rows nor
+        the positions are laid over.  A vocab-sharded head takes a
+        vocab-parallel log-sum-exp: the ranks of the vocabulary's axes
+        hold the same tokens (the sequence gathered; the rows too where
+        the vocabulary shares an axis with them), each its logits'
+        vocabulary block, and reduce the shift (max), the exponentials'
+        sum and the label's logit over them; no logits are gathered."""
+        cfg, mesh = self.cfg, rules.mesh
+        labels, mask = batch["labels"], batch.get("mask")
+        B, S = labels.shape
+        if mask is None:
+            mask = torch.ones((B, S), dtype=F32, device=labels.device)
+        rows, cols = lay.rows(rules, B), lay.positions(rules, S)
+        x = rms_norm(x, self._use("final_norm"), cfg.norm_eps)
+        head, va = self._spmd_head(specs)
+        if va is None:
+            logits = (x @ head).to(F32)
+            lab = labels[rows][:, cols].long()
+            nll = torch.logsumexp(logits, -1) - \
+                logits.gather(-1, lab[..., None])[..., 0]
+        else:
+            x = seq_gather(x, rules, lay)
+            full = lay.batch is not None and rules.overlaps(va, lay.batch)
+            if full:
+                x = comm.all_gather(x, mesh, lay.batch, 0)
+            logits = (x @ head).to(F32)
+            n = logits.shape[-1]
+            loc = (labels if full else labels[rows]).long() - \
+                entry_index(rules.mesh, va) * n
+            top = comm.all_reduce(logits.detach().amax(-1), mesh, va, "max")
+            se = comm.all_reduce(torch.exp(logits - top[..., None]).sum(-1),
+                                 mesh, va)
+            ok = (loc >= 0) & (loc < n)
+            gold = logits.gather(-1, loc.clamp(0, n - 1)[..., None])[..., 0]
+            gold = comm.all_reduce(torch.where(ok, gold, 0), mesh, va)
+            nll = top + torch.log(se) - gold
+            nll = (nll[rows] if full else nll)[:, cols]
+        held = set(spec_axes((lay.batch, "model" if lay.seq else None)))
+        owner = all(mesh.index(a) == 0 for a in mesh.axis_names
+                    if a not in held)
+        w = mask[rows][:, cols].to(F32) * float(owner)
+        return (nll * w).sum(), w.sum()

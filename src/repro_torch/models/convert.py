@@ -6,8 +6,9 @@ model class of the config's family (``get_model(cfg)``, whose
 ``param_table``, ``param_dtype`` and ``init_rule`` they follow); the
 arrays come in as numpy, so nothing here imports JAX.
 
-On a mesh, :func:`shard_params` cuts a rank's blocks out of full
-parameters (under FSDP its banks), :func:`opt_state_from_jax` carries the
+On a mesh (every family), :func:`shard_params` cuts a rank's blocks out
+of full parameters (under FSDP its banks), :func:`gather_params` joins
+them back (collective), :func:`opt_state_from_jax` carries the
 reference's ``optim.init`` state (numpy ``master``, ``m``, ``v``,
 ``step``) into a rank's ZeRO-1 banks, and :func:`gather_opt_state` joins
 banks back to full arrays (collective; for tests and the smoke).
@@ -21,12 +22,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.parallel.sharding import cut_block, join_blocks
+from repro_torch.parallel.sharding import block_of, cut_block, join_blocks
 from .api import get_model
 from .layers import init_dense
 
 __all__ = ["params_from_jax", "init_params", "shard_params",
-           "opt_state_from_jax", "gather_opt_state", "state_layout"]
+           "gather_params", "opt_state_from_jax", "gather_opt_state",
+           "state_layout"]
 
 
 def params_from_jax(cfg: ModelConfig, params: Mapping[str, np.ndarray],
@@ -57,10 +59,17 @@ def shard_params(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                  rules) -> Dict[str, torch.Tensor]:
     """This rank's blocks of full parameters (a state dict from
     :func:`params_from_jax` or :func:`init_params`) under sharding
-    ``rules``: the shapes of the family's ``shard_table``
-    (``transformer.shard_params``; the families without SPMD islands
-    refuse rules)."""
+    ``rules``: the shapes of the family's ``shard_table``."""
     return {name: cut_block(params[name], spec, rules)
+            for name, spec in get_model(cfg).param_specs(cfg, rules).items()}
+
+
+def gather_params(cfg: ModelConfig, shards: Dict[str, torch.Tensor],
+                  rules) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_params`: every rank's blocks joined to
+    the full parameters (collective: every rank calls it; for tests and
+    the smoke)."""
+    return {name: join_blocks(shards[name], spec, rules)
             for name, spec in get_model(cfg).param_specs(cfg, rules).items()}
 
 
@@ -133,8 +142,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             a = torch.log(torch.linspace(1.0, 16.0, shape[-1],
                                          dtype=torch.float32, device=device))
             out[name] = a.expand(shape).to(dtype).contiguous()
+        elif specs is not None:
+            out[name] = init_dense(shape, dtype, generator, device,
+                                   where=_block(shape, specs[name], rules))
+            continue
         else:
             out[name] = init_dense(shape, dtype, generator, device)
         if specs is not None:
             out[name] = cut_block(out[name], specs[name], rules)
     return out
+
+
+def _block(shape, spec, rules):
+    """This rank's slice of every dimension of a tensor of ``shape`` laid
+    out by ``spec``."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
+    return block_of(rules.mesh, spec, tuple(
+        n // rules.axis_size(a) for n, a in zip(shape, spec)))[1]

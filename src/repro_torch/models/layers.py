@@ -7,6 +7,7 @@ rotary embedding in fp32, SiLU in fp32 cast back to the activation dtype.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -19,21 +20,36 @@ F32 = torch.float32
 
 
 def init_dense(shape: Sequence[int], dtype: torch.dtype,
-               generator: torch.Generator, device=None) -> torch.Tensor:
+               generator: torch.Generator, device=None,
+               where: Optional[Tuple[slice, ...]] = None) -> torch.Tensor:
     """Truncated-normal fan-in init: N(0, 1) cut at +-2, times
     ``fan_in ** -0.5`` (fan_in = ``shape[-2]``, or ``shape[-1]`` for a
     vector).  Drawn in fp32 one slice of the leading dimensions at a time,
-    so a large stacked weight never needs a whole fp32 copy, then cast."""
+    so a large stacked weight never needs a whole fp32 copy, then cast.
+    With ``where`` (a slice of every dimension), only that block of the
+    same draw: every slice is drawn in turn and only the block's part of
+    it kept, so the whole is never held."""
     shape = tuple(shape)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     s = fan_in ** -0.5
-    out = torch.empty(shape, dtype=dtype, device=device)
-    flat = out.view(-1, *shape[-2:]) if len(shape) >= 2 else out.view(1, -1)
-    for sl in flat:
-        t = torch.empty(sl.shape, dtype=F32, device=device)
+    if where is not None and len(shape) < 2:
+        return init_dense(shape, dtype, generator, device)[where]
+    if where is None:
+        where = tuple(slice(0, n) for n in shape)
+    out = torch.empty(tuple(w.stop - w.start for w in where), dtype=dtype,
+                      device=device)
+    lead = where[:-2]
+    for idx in itertools.product(*(range(n) for n in shape[:-2])):
+        t = torch.empty(shape[-2:] if len(shape) >= 2 else (1, shape[0]),
+                        dtype=F32, device=device)
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
                                     generator=generator)
-        sl.copy_(t.mul_(s))
+        if all(w.start <= i < w.stop for i, w in zip(idx, lead)):
+            dst = tuple(i - w.start for i, w in zip(idx, lead))
+            if len(shape) < 2:
+                out.copy_(t[0].mul_(s))
+            else:
+                out[dst].copy_(t[where[-2], where[-1]].mul_(s))
     return out
 
 

@@ -28,9 +28,10 @@ rematerialised in the backward).
 **On a mesh** (``Transformer(cfg, device, params, rules=rules)``, every
 rank running the same code on its own block; ``rules`` from
 ``repro_torch.parallel.sharding``).  :func:`param_specs` is the
-reference's table of parameter shardings and :func:`shard_params` cuts a
-rank's block out of full parameters (``convert.init_params(...,
-rules=)`` draws them so).  The forward and ``decode_step`` take the
+reference's table of parameter shardings (``base.TableModule``'s, from
+:func:`param_labels`) and ``convert.shard_params`` cuts a rank's block
+out of full parameters (``convert.init_params(..., rules=)`` draws them
+so).  The forward and ``decode_step`` take the
 global tokens on every rank and return the global logits on every rank.
 Inside, the activations are the reference's layout: rows over
 ``rules.batch``, the sequence over ``model`` (Megatron SP), and
@@ -53,7 +54,10 @@ Inside, the activations are the reference's layout: rows over
 * decode keeps the KV cache sharded over ``batch`` and ``kv_seq``
   (:func:`cache_specs`): the new token's K/V are written by the rank that
   owns its slot, and attention combines the slabs' partial softmax
-  statistics (``attention.decode_attention``).
+  statistics (``attention.decode_attention``; :func:`decode_attn`).
+
+Jamba and Whisper run these islands too (:func:`attn_island`, with
+cross-attention's ``kv_x``; :func:`dense_mlp`; :func:`decode_attn`).
 """
 from __future__ import annotations
 
@@ -66,20 +70,18 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.parallel import comm
-from repro_torch.parallel.sharding import (Layout, Rules, cut_block,
-                                           entry_index, entry_names,
-                                           join_blocks, spec_axes,
-                                           zero1_spec)
+from repro_torch.parallel.sharding import Layout, Rules
 from . import moe as moe_mod
 from .attention import decode_attention
-from .base import TableModule, run_layer
+from .base import (TableModule, run_layer, seq_gather, seq_return,
+                   stack_specs, whole)
 from .layers import embed_lookup, mrope, rms_norm, rope, swiglu
 
-__all__ = ["param_table", "param_dtype", "init_rule", "attn_block",
-           "mlp_block", "layer_apply",
+__all__ = ["param_table", "param_dtype", "init_rule", "param_labels",
+           "attn_block", "attn_island", "mlp_block", "layer_apply",
+           "dense_mlp", "decode_attn", "decode_slot", "kv_slab",
            "scatter_kv", "scatter_pos", "Transformer", "param_specs",
-           "layout_specs", "shard_table", "shard_params", "gather_params",
-           "cache_specs"]
+           "layout_specs", "shard_table", "cache_specs"]
 
 F32 = torch.float32
 
@@ -128,8 +130,8 @@ def init_rule(name: str) -> str:
 
 
 # ---------------------------------------------------------------------------
-# sharding of the parameters (the reference's ``param_table`` axes,
-# ``_resolve_axis`` and ``param_specs``)
+# sharding of the parameters (the reference's ``param_table`` axes; the
+# layouts are ``base.TableModule``'s, from these labels)
 # ---------------------------------------------------------------------------
 
 def param_labels(cfg: ModelConfig) -> Dict[str, Tuple]:
@@ -156,77 +158,16 @@ def param_labels(cfg: ModelConfig) -> Dict[str, Tuple]:
     return t
 
 
-def _resolve_axis(cfg: ModelConfig, rules: Rules, label, size: int):
-    """The mesh axes a dimension labelled ``label`` of ``size`` is laid
-    over (the reference's ``_resolve_axis``; divisibility is checked on the
-    flat weight dimension).  Expert weights are sharded over ``experts``
-    (EP) where E divides it, else their FFN width over ``ff``.  One
-    difference: under ``dispatch="local"`` they are held FFN-sharded, as
-    ``_moe_local`` reads them, where the reference's table shards them
-    over experts and GSPMD reshards them inside every layer."""
-    if label is None:
-        return None
-    if label in ("heads", "kv_heads"):
-        return rules.dim_axis(rules.heads, size)
-    if label in ("vocab", "ff"):
-        return rules.dim_axis(getattr(rules, label), size)
-    ep = rules.axis_size(rules.experts)
-    use_ep = cfg.moe is not None and ep > 1 and \
-        cfg.moe.num_experts % ep == 0 and rules.dispatch not in ("tp",
-                                                                 "local")
-    if label == "experts":
-        return rules._clean(rules.experts) if use_ep else None
-    if label == "ff_expert":
-        return None if use_ep else rules.dim_axis(rules.ff, size)
-    raise KeyError(label)
-
-
-def layout_specs(cfg: ModelConfig, rules: Rules) -> Dict[str, Tuple]:
-    """Name -> the mesh axes of each dimension (None: whole on every
-    rank) as the islands read the parameters: the reference's
-    ``param_specs``."""
-    table = param_table(cfg)
-    return {name: tuple(_resolve_axis(cfg, rules, a, table[name][d])
-                        for d, a in enumerate(labels))
-            for name, labels in param_labels(cfg).items()}
-
-
-def param_specs(cfg: ModelConfig, rules: Rules) -> Dict[str, Tuple]:
-    """Name -> the mesh axes of each dimension of the blocks a rank
-    holds: :func:`layout_specs`, and under ``rules.fsdp`` each banked over
-    ``zero1`` as the reference's ``build_cell`` banks a training cell's
-    parameters (``parallel.sharding.zero1_spec``; ZeRO-3).  The forward
-    all-gathers a banked weight over ``zero1`` before it is used
-    (:meth:`Transformer._use`)."""
-    specs = layout_specs(cfg, rules)
-    if not rules.fsdp:
-        return specs
-    table = param_table(cfg)
-    return {k: zero1_spec(v, table[k], rules) for k, v in specs.items()}
-
-
-def shard_table(cfg: ModelConfig, rules: Rules) -> Dict[str, Tuple]:
-    """Name -> the shape of this rank's block of each parameter."""
-    table = param_table(cfg)
-    return {name: tuple(n // rules.axis_size(a)
-                        for n, a in zip(table[name], axes))
-            for name, axes in param_specs(cfg, rules).items()}
-
-
-def shard_params(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-                 rules: Rules) -> Dict[str, torch.Tensor]:
-    """Full parameters (every rank holding the same) -> this rank's
-    blocks, the shapes of :func:`shard_table`."""
-    return {name: cut_block(params[name], axes, rules)
-            for name, axes in param_specs(cfg, rules).items()}
-
-
-def gather_params(cfg: ModelConfig, shards: Dict[str, torch.Tensor],
-                  rules: Rules) -> Dict[str, torch.Tensor]:
-    """The inverse of :func:`shard_params` (collective; for tests and the
-    smoke)."""
-    return {name: join_blocks(shards[name], axes, rules)
-            for name, axes in param_specs(cfg, rules).items()}
+def kv_slab(rules: Rules, S: int) -> slice:
+    """This rank's slab of a KV cache of ``S`` positions sharded over
+    ``kv_seq``."""
+    kv = rules._clean(rules.kv_seq)
+    n = rules.axis_size(kv)
+    if S % n:
+        raise ValueError(f"a cache of {S} positions does not divide over "
+                         f"kv_seq {kv}")
+    i = rules.mesh.index(kv) if kv else 0
+    return slice(i * (S // n), (i + 1) * (S // n))
 
 
 def cache_specs(cfg: ModelConfig, rules: Rules) -> Dict[str, Tuple]:
@@ -248,9 +189,13 @@ def _rotate(t: torch.Tensor, cfg: ModelConfig,
 
 
 def attn_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
-               cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+               cfg: ModelConfig, positions: torch.Tensor,
+               causal: bool = True, kv_x: Optional[torch.Tensor] = None,
+               kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Pre-norm GQA attention with RoPE (or M-RoPE), the optional q/k/v
-    biases and its residual, x (B, S, D).
+    biases and its residual, x (B, S, D); cross-attention (Whisper's)
+    reads its keys and values from ``kv_x`` (B, Sk, D) at
+    ``kv_positions``.
 
     The reference repeats KV to the H query heads before attention when it
     runs without rules; the flash kernel reads the K KV heads natively
@@ -259,13 +204,16 @@ def attn_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
     B, S, _D = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    src = h if kv_x is None else kv_x
+    kp = positions if kv_positions is None else kv_positions
+    q, k, v = h @ lp["wq"], src @ lp["wk"], src @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q = _rotate(q.reshape(B, S, H, hd), cfg, positions)
-    k = _rotate(k.reshape(B, S, K, hd), cfg, positions)
-    v = v.reshape(B, S, K, hd)
-    out = flash_attention_op(q, k, v, causal=True, window=cfg.sliding_window)
+    k = _rotate(k.reshape(B, src.shape[1], K, hd), cfg, kp)
+    v = v.reshape(B, src.shape[1], K, hd)
+    out = flash_attention_op(q, k, v, causal=causal,
+                             window=cfg.sliding_window)
     return x + out.reshape(B, S, H * hd) @ lp["wo"]
 
 
@@ -314,74 +262,90 @@ def _manual_tp_ok(cfg: ModelConfig, rules: Optional[Rules]) -> bool:
     return hq % g == 0 or g % hq == 0
 
 
-def _seq_gather(h: torch.Tensor, rules: Rules, lay: Layout) -> torch.Tensor:
-    return comm.all_gather(h, rules.mesh, "model", 1) if lay.seq else h
-
-
-def _seq_return(out: torch.Tensor, rules: Rules, lay: Layout):
-    """A partial (b, S, D) sum over ``model`` back to this rank's block:
-    reduce-scattered over the sequence, or summed."""
-    if lay.seq:
-        return comm.reduce_scatter(out, rules.mesh, "model", 1)
-    return comm.all_reduce(out, rules.mesh, "model")
-
-
 def _attn_manual(x, lp, cfg: ModelConfig, rules: Rules, positions,
-                 lay: Layout):
+                 lay: Layout, causal: bool = True, kv_x=None,
+                 kv_positions=None):
     """Megatron TP attention (the reference's ``shard_map`` island over
     ``model``): all-gather the normed block input once, project into this
     column's q heads and its GQA KV slice, attend with the flash kernel at
     the local heads, and reduce-scatter the ``wo`` product straight back
     to the sequence-sharded layout.  Collectives per layer: 1 AG(h) + 2
     AG(k, v) + 1 RS(out).  ``positions``: this rank's rows, the whole
-    sequence."""
+    sequence.  Cross-attention takes its keys and values from ``kv_x``
+    (this rank's rows, the whole source sequence) at ``kv_positions``."""
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     tp = rules.axis_size("model")
     hq, g = H // tp, H // K
     kv_w = max(hq // g, 1)                       # KV heads per column
     col = rules.mesh.index("model")
-    h = _seq_gather(rms_norm(x, lp["attn_norm"], cfg.norm_eps), rules, lay)
+    h = seq_gather(rms_norm(x, lp["attn_norm"], cfg.norm_eps), rules, lay)
     bl, sl, _ = h.shape
-    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    src = h if kv_x is None else kv_x
+    sk = src.shape[1]
+    q, k, v = h @ lp["wq"], src @ lp["wk"], src @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     # k/v columns hold K*hd/tp lanes: gather whole KV heads, take this
     # column's GQA slice
     kv0 = (col * hq) // g
-    k = comm.all_gather(k, rules.mesh, "model", 2).reshape(bl, sl, K, hd)
-    v = comm.all_gather(v, rules.mesh, "model", 2).reshape(bl, sl, K, hd)
+    k = comm.all_gather(k, rules.mesh, "model", 2).reshape(bl, sk, K, hd)
+    v = comm.all_gather(v, rules.mesh, "model", 2).reshape(bl, sk, K, hd)
     k, v = k[:, :, kv0:kv0 + kv_w], v[:, :, kv0:kv0 + kv_w]
     q = _rotate(q.reshape(bl, sl, hq, hd), cfg, positions)
-    k = _rotate(k, cfg, positions)
-    out = flash_attention_op(q, k, v, causal=True,
+    k = _rotate(k, cfg, positions if kv_positions is None else kv_positions)
+    out = flash_attention_op(q, k, v, causal=causal,
                              window=cfg.sliding_window)
     out = (out.reshape(bl, sl, hq * hd) @ lp["wo"]).to(x.dtype)
-    return x + _seq_return(out, rules, lay)
+    return x + seq_return(out, rules, lay)
 
 
 def _mlp_manual(x, lp, cfg: ModelConfig, rules: Rules, lay: Layout):
     """Megatron TP SwiGLU island: AG(h) -> local F/tp -> RS(out)."""
-    h = _seq_gather(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), rules, lay)
+    h = seq_gather(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), rules, lay)
     out = swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]).to(x.dtype)
-    return x + _seq_return(out, rules, lay)
+    return x + seq_return(out, rules, lay)
 
 
-def _whole(lp, specs, names, rules: Rules):
-    """The named layer parameters with their blocks gathered (the layer
-    dimension of ``specs`` dropped)."""
-    return {k: join_blocks(lp[k], specs["layers/" + k][1:], rules)
-            for k in names if k in lp}
+ATTN_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "bq", "bk", "bv")
+MLP_NAMES = ("mlp_norm", "w_gate", "w_up", "w_down")
 
 
 def _attn_gathered(x, lp, cfg: ModelConfig, rules: Rules, positions,
-                   lay: Layout, specs):
+                   lay: Layout, lspecs, causal: bool = True, kv_x=None,
+                   kv_positions=None):
     """Attention where the reference lets GSPMD place the layer: the port
-    gathers the weights and the sequence and runs the single-card block,
-    keeping this rank's sequence block."""
-    w = _whole(lp, specs, ("attn_norm", "wq", "wk", "wv", "wo", "bq",
-                           "bk", "bv"), rules)
-    y = attn_block(_seq_gather(x, rules, lay), w, cfg, positions)
+    gathers the weights (``lspecs``: the layer's specs) and the sequence
+    and runs the single-card block, keeping this rank's sequence
+    block."""
+    w = whole(lp, lspecs, ATTN_NAMES, rules)
+    y = attn_block(seq_gather(x, rules, lay), w, cfg, positions, causal,
+                   kv_x, kv_positions)
     return y[:, lay.positions(rules, y.shape[1])]
+
+
+def attn_island(x, lp, cfg: ModelConfig, rules: Rules, positions,
+                lay: Layout, lspecs, causal: bool = True, kv_x=None,
+                kv_positions=None):
+    """Attention with its residual on this rank's block: the Megatron
+    island where :func:`_manual_tp_ok`, else the gathered layer."""
+    if _manual_tp_ok(cfg, rules):
+        return _attn_manual(x, lp, cfg, rules, positions, lay, causal,
+                            kv_x, kv_positions)
+    return _attn_gathered(x, lp, cfg, rules, positions, lay, lspecs, causal,
+                          kv_x, kv_positions)
+
+
+def dense_mlp(x, lp, cfg: ModelConfig, rules: Rules, lay: Layout, lspecs,
+              decode: bool = False):
+    """The dense SwiGLU MLP with its residual on this rank's block: the
+    Megatron island where F is sharded over ``model`` (under
+    ``manual_tp``, and always in decode), else the weights gathered and
+    the single-card MLP on the rank's own positions."""
+    if lspecs["w_gate"][-1] == "model" and (rules.manual_tp or decode):
+        return _mlp_manual(x, lp, cfg, rules, lay)
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    w = whole(lp, lspecs, ("w_gate", "w_up", "w_down"), rules)
+    return x + swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
 
 
 def _decode_rules(rules: Optional[Rules]) -> Optional[Rules]:
@@ -414,6 +378,57 @@ def scatter_pos(pos: torch.Tensor, cur_len: torch.Tensor,
     return pos
 
 
+def decode_slot(cur_len: torch.Tensor, s_l: int, rules: Rules):
+    """Where each row's new token goes in this rank's slab of a KV cache
+    sharded over ``kv_seq`` (``s_l`` positions a slab; a window wraps):
+    (its position in the slab (clamped), whether this slab owns it)."""
+    kv = rules._clean(rules.kv_seq)
+    slot = cur_len % (s_l * rules.axis_size(kv))
+    here = slot - (rules.mesh.index(kv) * s_l if kv else 0)
+    mine = (here >= 0) & (here < s_l)
+    return here.clamp(0, s_l - 1), mine
+
+
+def decode_attn(x, lp, cfg: ModelConfig, rules: Rules, lspecs, k_c, v_c,
+                lengths, pos, slot=None):
+    """One decode step of attention with its residual on this rank's rows
+    x (b, D), on a mesh: the projections on this rank's weight blocks with
+    their head blocks gathered, the new K/V written by the slab that owns
+    ``slot`` (:func:`decode_slot`; None: a cross-attention cache, read
+    only), attention against this rank's slab of ``k_c``/``v_c``
+    (``lengths`` valid global positions) with the partials combined over
+    ``kv_seq``, and ``wo`` a row-parallel sum."""
+    mesh = rules.mesh
+    b = x.shape[0]
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def cols(h, w, bias):
+        y = h @ lp[w]
+        if cfg.qkv_bias:
+            y = y + lp[bias]
+        a = lspecs[w][-1]
+        return y if a is None else comm.all_gather(y, mesh, a, 1)
+
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = _rotate(cols(h, "wq", "bq").reshape(b, 1, H, hd), cfg, pos)[:, 0]
+    if slot is not None:
+        here, mine = slot
+        rows = torch.arange(b, device=x.device)
+        k = _rotate(cols(h, "wk", "bk").reshape(b, 1, K, hd), cfg, pos)[:, 0]
+        v = cols(h, "wv", "bv").reshape(b, K, hd)
+        for c, new in ((k_c, k), (v_c, v)):
+            c[rows, here] = torch.where(mine[:, None, None],
+                                        new.to(c.dtype), c[rows, here])
+    att = decode_attention(q, k_c, v_c, lengths, rules=rules)
+    att = att.reshape(b, H * hd)
+    ha = lspecs["wo"][0]
+    if ha is None:
+        return x + att @ lp["wo"]
+    n = H * hd // rules.axis_size(ha)
+    part = att[:, mesh.index(ha) * n:][:, :n] @ lp["wo"]
+    return x + comm.all_reduce(part, mesh, ha)
+
+
 class Transformer(TableModule):
     """The dense / MoE / VLM decoder-only LM, its parameters under the
     reference's names; see :class:`~repro_torch.models.base.TableModule`
@@ -422,72 +437,16 @@ class Transformer(TableModule):
     param_table = staticmethod(param_table)
     param_dtype = staticmethod(param_dtype)
     init_rule = staticmethod(init_rule)
-    shard_table = staticmethod(shard_table)
-    param_specs = staticmethod(param_specs)
-
-    def _rules(self, rules: Optional[Rules]) -> Optional[Rules]:
-        """The rules of a call: ``rules``, else the model's own.  Rules
-        that lay the parameters out otherwise than the model holds them
-        are refused."""
-        if rules is None or rules is self.rules:
-            return self.rules
-        held = self.param_table(self.cfg) if self.rules is None \
-            else shard_table(self.cfg, self.rules)
-        if shard_table(self.cfg, rules) != held:
-            raise ValueError("these rules shard the parameters otherwise "
-                             "than the model holds them")
-        return rules
+    param_labels = staticmethod(param_labels)
+    cache_specs = staticmethod(cache_specs)
 
     @functools.cached_property
     def _layer_names(self) -> Tuple[str, ...]:
         return tuple(k.split("/", 1)[1] for k in param_table(self.cfg)
                      if k.startswith("layers/"))
 
-    @functools.cached_property
-    def _banked(self) -> Dict[str, Tuple[int, Tuple[str, ...]]]:
-        """Under FSDP, name -> (the dimension banked over ``zero1``, the
-        ``zero1`` axes) of each parameter held as a bank."""
-        if self.rules is None or not self.rules.fsdp:
-            return {}
-        held = param_specs(self.cfg, self.rules)
-        out = {}
-        for k, spec in layout_specs(self.cfg, self.rules).items():
-            for d, (a, b) in enumerate(zip(held[k], spec)):
-                if a != b:
-                    out[k] = (d, entry_names(a)[len(entry_names(b)):])
-        return out
-
-    def _gather_bank(self, name: str, t: torch.Tensor, dim: int
-                     ) -> torch.Tensor:
-        """``t`` (a bank, or a slice of one whose banked dimension is now
-        ``dim``) all-gathered over ``zero1`` (autograd: the backward
-        reduce-scatters the gradient into the bank)."""
-        for a in reversed(self._banked[name][1]):
-            t = comm.all_gather(t, self.rules.mesh, a, dim)
-        return t
-
-    def _use(self, name: str) -> torch.Tensor:
-        """Parameter ``name`` as the islands read it: this rank's block,
-        a bank all-gathered first under FSDP."""
-        t = self._p(name)
-        if name in self._banked:
-            t = self._gather_bank(name, t, self._banked[name][0])
-        return t
-
     def _layer(self, i: int) -> Dict[str, torch.Tensor]:
-        if not self._banked:
-            return self._stack("layers/", self._layer_names, i)
-        out = {}
-        for k in self._layer_names:
-            name = "layers/" + k
-            if name not in self._banked:
-                out[k] = self._p(name)[i]
-            elif self._banked[name][0] == 0:       # the layer dim: whole
-                out[k] = self._use(name)[i]
-            else:
-                out[k] = self._gather_bank(name, self._p(name)[i],
-                                           self._banked[name][0] - 1)
-        return out
+        return self._stack("layers/", self._layer_names, i)
 
     def _head(self) -> torch.Tensor:
         return self._p("embed").T if self.cfg.tie_embeddings \
@@ -496,6 +455,14 @@ class Transformer(TableModule):
     def _block(self, x: torch.Tensor, i: int, positions: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         return layer_apply(x, self._layer(i), self.cfg, positions)
+
+    def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+        if self.cfg.mrope_sections is not None:
+            positions = positions.expand(3, B, S)
+        return positions
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
@@ -510,16 +477,15 @@ class Transformer(TableModule):
         out alike) every rank passes the global tokens and positions and
         gets the global logits."""
         cfg = self.cfg
-        B, S = tokens.shape
         if positions is None:
-            positions = torch.arange(S, dtype=torch.int32,
-                                     device=tokens.device).expand(B, S)
-            if cfg.mrope_sections is not None:
-                positions = positions.expand(3, B, S)
+            positions = self._positions(tokens)
         rules = self._rules(rules)
         if rules is not None:
-            return self._spmd_forward(tokens, positions, last_only, rules,
-                                      remat)
+            B, S = tokens.shape
+            lay = Layout.of(rules, B, S)
+            x, aux = self._spmd_trunk(tokens, positions, rules, lay, remat)
+            return self._spmd_out(x, last_only, rules, lay,
+                                  self.layout_specs(cfg, rules)), aux
         x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
         aux = torch.zeros((), dtype=F32, device=x.device)
         for i in range(cfg.num_layers):
@@ -531,85 +497,32 @@ class Transformer(TableModule):
         return x @ self._head(), aux
 
     # -- on a mesh ---------------------------------------------------------
-    def _embed(self, tokens: torch.Tensor, rules: Rules, lay: Layout,
-               specs) -> torch.Tensor:
-        """This rank's block (b, s, D) of the embedding of its rows'
-        ``tokens`` (b, S).  A vocab-sharded table: each rank looks up the
-        tokens of its block (zeros elsewhere) and the blocks are summed
-        (one non-zero term: exact), reduce-scattered straight to the
-        sequence block where the sequence is sharded over the same
-        axis."""
-        table, va = self._use("embed"), specs["embed"][0]
-        S = tokens.shape[1]
-        if va is None:
-            x = embed_lookup(table, tokens)[:, lay.positions(rules, S)]
-            return x.to(self.cfg.param_dtype)
-        n = table.shape[0]
-        local = tokens - entry_index(rules.mesh, va) * n
-        ok = (local >= 0) & (local < n)
-        x = torch.where(ok[..., None], embed_lookup(table,
-                                                    local.clamp(0, n - 1)),
-                        0)
-        if lay.seq and rules.mesh.names(va) == ("model",):
-            x = comm.reduce_scatter(x, rules.mesh, "model", 1)
-        else:
-            x = comm.all_reduce(x, rules.mesh, va)
-            x = x[:, lay.positions(rules, S)]
-        return x.to(self.cfg.param_dtype)
-
-    def _spmd_head(self, specs) -> Tuple[torch.Tensor, object]:
-        """(this rank's block of the LM head (D, V / n), the axes of its
-        vocabulary)."""
-        if self.cfg.tie_embeddings:
-            return self._use("embed").T, specs["embed"][0]
-        return self._use("lm_head"), specs["lm_head"][1]
-
-    def _logits(self, x: torch.Tensor, rules: Rules, lay: Layout,
-                specs) -> torch.Tensor:
-        """The global logits (B, s, V) of this rank's final hidden rows x
-        (b, s, D) (every column holding the same rows): the vocab blocks
-        all-gathered, then the batch rows."""
-        x = rms_norm(x, self._use("final_norm"), self.cfg.norm_eps)
-        head, va = self._spmd_head(specs)
-        logits = x @ head
-        if va is not None:
-            logits = comm.all_gather(logits, rules.mesh, va, logits.dim() - 1)
-        if lay.batch is not None:
-            logits = comm.all_gather(logits, rules.mesh, lay.batch, 0)
-        return logits
-
     def _spmd_mlp(self, x: torch.Tensor, lp, rules: Rules, lay: Layout,
-                  specs, decode: bool = False):
+                  lspecs, decode: bool = False):
         """The MLP with its residual on this rank's block; (x, aux)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=F32, device=x.device)
-        ff = specs["layers/w_gate"][2] if cfg.d_ff > 0 else None
-        if cfg.moe is None and ff == "model" and (rules.manual_tp or decode):
-            return _mlp_manual(x, lp, cfg, rules, lay), aux
+        if cfg.moe is None:
+            return dense_mlp(x, lp, cfg, rules, lay, lspecs, decode), aux
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        out = 0
-        if cfg.moe is not None:
-            out, aux = moe_mod.moe_block(
-                h, {"router": lp["router"], "w_gate": lp["moe_gate"],
-                    "w_up": lp["moe_up"], "w_down": lp["moe_down"]}, cfg,
-                _decode_rules(rules) if decode else rules, lay)
+        out, aux = moe_mod.moe_block(
+            h, {"router": lp["router"], "w_gate": lp["moe_gate"],
+                "w_up": lp["moe_up"], "w_down": lp["moe_down"]}, cfg,
+            _decode_rules(rules) if decode else rules, lay)
         if cfg.d_ff > 0:
-            w = _whole(lp, specs, ("w_gate", "w_up", "w_down"), rules)
+            w = whole(lp, lspecs, ("w_gate", "w_up", "w_down"), rules)
             out = out + swiglu(h, w["w_gate"], w["w_up"], w["w_down"])
         return x + out, aux
 
-    def _spmd_layer(self, x, i: int, pos, rules: Rules, lay: Layout, specs,
-                    manual: bool):
+    def _spmd_layer(self, x, i: int, pos, rules: Rules, lay: Layout,
+                    lspecs):
         """Layer ``i`` on this rank's block: its attention island, then
         its MLP; (x, aux).  Under FSDP the layer's banked weights are
         all-gathered first (inside: ``remat="full"`` gathers them again
         in the backward)."""
         lp = self._layer(i)
-        if manual:
-            x = _attn_manual(x, lp, self.cfg, rules, pos, lay)
-        else:
-            x = _attn_gathered(x, lp, self.cfg, rules, pos, lay, specs)
-        return self._spmd_mlp(x, lp, rules, lay, specs)
+        x = attn_island(x, lp, self.cfg, rules, pos, lay, lspecs)
+        return self._spmd_mlp(x, lp, rules, lay, lspecs)
 
     def _spmd_trunk(self, tokens, positions, rules: Rules, lay: Layout,
                     remat: str):
@@ -619,33 +532,16 @@ class Transformer(TableModule):
         cfg = self.cfg
         rows = lay.rows(rules, tokens.shape[0])
         pos = positions[..., rows, :]
-        specs = layout_specs(cfg, rules)
+        specs = self.layout_specs(cfg, rules)
         x = self._embed(tokens[rows], rules, lay, specs)
         aux = torch.zeros((), dtype=F32, device=x.device)
-        body = functools.partial(self._spmd_layer, rules=rules, lay=lay,
-                                 specs=specs,
-                                 manual=_manual_tp_ok(cfg, rules))
+        body = functools.partial(
+            self._spmd_layer, rules=rules, lay=lay,
+            lspecs=stack_specs(specs, "layers/", self._layer_names))
         for i in range(cfg.num_layers):
             x, a = run_layer(body, remat, x, i, pos)
             aux = aux + a
         return x, aux
-
-    def _spmd_forward(self, tokens, positions, last_only: bool,
-                      rules: Rules, remat: str = "none"):
-        B, S = tokens.shape
-        lay = Layout.of(rules, B, S)
-        specs = layout_specs(self.cfg, rules)
-        x, aux = self._spmd_trunk(tokens, positions, rules, lay, remat)
-        if last_only:
-            x = x[:, -1:]
-            if lay.seq:       # the last position lives on the last column
-                last = rules.mesh.index("model") == \
-                    rules.axis_size("model") - 1
-                x = comm.all_reduce(x if last else torch.zeros_like(x),
-                                    rules.mesh, "model")
-        else:
-            x = _seq_gather(x, rules, lay)
-        return self._logits(x, rules, lay, specs), aux
 
     def loss(self, batch: Dict[str, torch.Tensor], remat: str = "none",
              rules: Optional[Rules] = None
@@ -657,73 +553,19 @@ class Transformer(TableModule):
         is this rank's share (``TableModule._mesh_loss``; the convention
         of ``repro_torch.parallel.comm``)."""
         rules = self._rules(rules)
-        if rules is not None:
-            return self._spmd_loss(batch, remat, rules)
-        logits, aux = self(batch["tokens"], positions=batch.get("positions"),
-                           remat=remat)
-        return self._loss(logits, aux, batch, moe=True)
-
-    def _spmd_loss(self, batch, remat: str, rules: Rules):
+        if rules is None:
+            logits, aux = self(batch["tokens"],
+                               positions=batch.get("positions"), remat=remat)
+            return self._loss(logits, aux, batch, moe=True)
         tokens = batch["tokens"]
-        B, S = tokens.shape
         positions = batch.get("positions")
         if positions is None:
-            positions = torch.arange(S, dtype=torch.int32,
-                                     device=tokens.device).expand(B, S)
-            if self.cfg.mrope_sections is not None:
-                positions = positions.expand(3, B, S)
-        lay = Layout.of(rules, B, S)
+            positions = self._positions(tokens)
+        lay = Layout.of(rules, *tokens.shape)
         x, aux = self._spmd_trunk(tokens, positions, rules, lay, remat)
         nll, count = self._spmd_ce(x, batch, rules, lay,
-                                   layout_specs(self.cfg, rules))
+                                   self.layout_specs(self.cfg, rules))
         return self._mesh_loss(nll, count, aux, rules, moe=True)
-
-    def _spmd_ce(self, x, batch, rules: Rules, lay: Layout, specs):
-        """(the masked cross-entropy sum of the tokens this rank counts,
-        their mask's sum) from its final hidden block x (b, s, D).  Each
-        token is counted on exactly one rank: its rows' and positions'
-        owner, the first rank along every axis that neither the rows nor
-        the positions are laid over.  A vocab-sharded head takes a
-        vocab-parallel log-sum-exp: the ranks of the vocabulary's axes
-        hold the same tokens (the sequence gathered; the rows too where
-        the vocabulary shares an axis with them), each its logits'
-        vocabulary block, and reduce the shift (max), the exponentials'
-        sum and the label's logit over them; no logits are gathered."""
-        cfg, mesh = self.cfg, rules.mesh
-        labels, mask = batch["labels"], batch.get("mask")
-        B, S = labels.shape
-        if mask is None:
-            mask = torch.ones((B, S), dtype=F32, device=labels.device)
-        rows, cols = lay.rows(rules, B), lay.positions(rules, S)
-        x = rms_norm(x, self._use("final_norm"), cfg.norm_eps)
-        head, va = self._spmd_head(specs)
-        if va is None:
-            logits = (x @ head).to(F32)
-            lab = labels[rows][:, cols].long()
-            nll = torch.logsumexp(logits, -1) - \
-                logits.gather(-1, lab[..., None])[..., 0]
-        else:
-            x = _seq_gather(x, rules, lay)
-            whole = lay.batch is not None and rules.overlaps(va, lay.batch)
-            if whole:
-                x = comm.all_gather(x, mesh, lay.batch, 0)
-            logits = (x @ head).to(F32)
-            n = logits.shape[-1]
-            loc = (labels if whole else labels[rows]).long() - \
-                entry_index(rules.mesh, va) * n
-            top = comm.all_reduce(logits.detach().amax(-1), mesh, va, "max")
-            se = comm.all_reduce(torch.exp(logits - top[..., None]).sum(-1),
-                                 mesh, va)
-            ok = (loc >= 0) & (loc < n)
-            gold = logits.gather(-1, loc.clamp(0, n - 1)[..., None])[..., 0]
-            gold = comm.all_reduce(torch.where(ok, gold, 0), mesh, va)
-            nll = top + torch.log(se) - gold
-            nll = (nll[rows] if whole else nll)[:, cols]
-        held = set(spec_axes((lay.batch, "model" if lay.seq else None)))
-        owner = all(mesh.index(a) == 0 for a in mesh.axis_names
-                    if a not in held)
-        w = mask[rows][:, cols].to(F32) * float(owner)
-        return (nll * w).sum(), w.sum()
 
     def cache_len(self, max_seq: int) -> int:
         """Sequence length of the KV cache: the window, when it is
@@ -738,20 +580,13 @@ class Transformer(TableModule):
         empty) and the filled length ``len`` (B,).  On a mesh, this rank's
         block of it (:func:`cache_specs`): its rows and its slab of the
         sequence."""
-        cfg, dev, rules = self.cfg, self.device, self.rules
+        cfg, dev = self.cfg, self.device
         S = self.cache_len(max_seq)
         filled = 0 if filled is None else filled
         idx = torch.arange(S, dtype=torch.int32, device=dev)
-        if rules is not None:
-            kv = rules._clean(rules.kv_seq)
-            if S % rules.axis_size(kv):
-                raise ValueError(f"a cache of {S} positions does not "
-                                 f"divide over kv_seq {kv}")
-            n = S // rules.axis_size(kv)
-            idx = idx[rules.mesh.index(kv) * n:][:n] if kv else idx
-            lay = Layout(rules.dim_axis(rules.batch, batch), False)
-            self._cache_rows = lay.rows(rules, batch)
-            batch = len(range(batch)[self._cache_rows])
+        if self.rules is not None:
+            idx = idx[kv_slab(self.rules, S)]
+            batch = self._cache_batch(batch)
         shape = (cfg.num_layers, batch, len(idx), cfg.num_kv_heads,
                  cfg.head_dim)
         pos = torch.where(idx < filled, idx, -1)
@@ -762,17 +597,6 @@ class Transformer(TableModule):
             "len": torch.full((batch,), filled, dtype=torch.int32,
                               device=dev),
         }
-
-    def reset_slot(self, cache: Dict[str, torch.Tensor], s: int) -> None:
-        """Start slot ``s`` (a global row) afresh; on a mesh only the
-        ranks holding that row of the cache of :meth:`init_cache` touch
-        it."""
-        if self.rules is not None:
-            rows = self._cache_rows          # of the last init_cache
-            if not rows.start <= s < rows.stop:
-                return
-            s -= rows.start
-        super().reset_slot(cache, s)
 
     @torch.no_grad()
     def decode_step(self, cache: Dict[str, torch.Tensor],
@@ -823,17 +647,15 @@ class Transformer(TableModule):
     def _spmd_decode(self, cache, tokens, positions, rules: Rules):
         """``decode_step`` on a mesh: this rank's rows (``rules.batch``,
         where the batch divides) against its slab of the cache
-        (``kv_seq``).  The projections run on this rank's weight blocks
-        and gather their head blocks; the slot's owner writes the new K/V
-        (a remote store to the owning shard); attention partials combine
-        over ``kv_seq``; ``wo`` and the dense MLP are row-parallel sums;
-        the MoE FFN runs under ``_decode_rules``."""
-        cfg, mesh = self.cfg, rules.mesh
+        (``kv_seq``), attention through :func:`decode_attn`; the dense
+        MLP is a row-parallel sum, the MoE FFN runs under
+        ``_decode_rules``."""
+        cfg = self.cfg
         B = tokens.shape[0]
-        H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         lay = Layout(rules.dim_axis(rules.batch, B), False)
         rows = lay.rows(rules, B)
-        specs = layout_specs(cfg, rules)
+        specs = self.layout_specs(cfg, rules)
+        lspecs = stack_specs(specs, "layers/", self._layer_names)
         cur_len = cache["len"]
         b = cur_len.shape[0]
         if positions is None:
@@ -843,50 +665,23 @@ class Transformer(TableModule):
         else:
             positions = positions[..., rows]
         pos = positions[..., None]
-        kv = rules._clean(rules.kv_seq)
-        s_l = cache["k"].shape[2]
-        slot = cur_len % (s_l * rules.axis_size(kv))     # a window wraps
-        here = slot - (mesh.index(kv) * s_l if kv else 0)
-        mine = (here >= 0) & (here < s_l)                # this slab's slot
-        here = here.clamp(0, s_l - 1)
-        brow = torch.arange(b, device=slot.device)
+        here, mine = decode_slot(cur_len, cache["k"].shape[2], rules)
         x = self._embed(tokens[rows][:, None], rules, lay, specs)[:, 0]
-
-        def cols(h, lp, w, bias):
-            y = h @ lp[w]
-            if cfg.qkv_bias:
-                y = y + lp[bias]
-            a = specs["layers/" + w][2]
-            return y if a is None else comm.all_gather(y, mesh, a, 1)
-
-        def write(c, new):
-            c[brow, here] = torch.where(mine[:, None, None],
-                                        new.to(c.dtype), c[brow, here])
-            return c
-
         for i in range(cfg.num_layers):
             lp = self._layer(i)
-            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            q = _rotate(cols(h, lp, "wq", "bq").reshape(b, 1, H, hd), cfg,
-                        pos)[:, 0]
-            k = _rotate(cols(h, lp, "wk", "bk").reshape(b, 1, K, hd), cfg,
-                        pos)[:, 0]
-            v = cols(h, lp, "wv", "bv").reshape(b, K, hd)
-            k_c, v_c = write(cache["k"][i], k), write(cache["v"][i], v)
-            att = decode_attention(q, k_c, v_c, cur_len + 1, rules=rules)
-            att = att.reshape(b, H * hd)
-            ha = specs["layers/wo"][1]
-            if ha is None:
-                x = x + att @ lp["wo"]
-            else:
-                n = H * hd // rules.axis_size(ha)
-                part = att[:, mesh.index(ha) * n:][:, :n] @ lp["wo"]
-                x = x + comm.all_reduce(part, mesh, ha)
-            x2, _aux = self._spmd_mlp(x[:, None], lp, rules, lay, specs,
+            x = decode_attn(x, lp, cfg, rules, lspecs, cache["k"][i],
+                            cache["v"][i], cur_len + 1, pos, (here, mine))
+            x2, _aux = self._spmd_mlp(x[:, None], lp, rules, lay, lspecs,
                                       decode=True)
             x = x2[:, 0]
+        brow = torch.arange(b, device=cur_len.device)
         cur = cache["pos"][brow, here]
         cache["pos"][brow, here] = torch.where(mine, cur_len.to(cur.dtype),
                                                cur)
         return self._logits(x, rules, lay, specs), \
             {**cache, "len": cur_len + 1}
+
+
+layout_specs = Transformer.layout_specs
+param_specs = Transformer.param_specs
+shard_table = Transformer.shard_table

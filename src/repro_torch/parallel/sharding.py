@@ -66,6 +66,11 @@ class Rules:
     # flash kernel (its plain version on the CPU); the reference's
     # cost-isolation stub "noattn" has no counterpart and is refused
     attn_impl: str = "chunked"
+    # the reference's SSD implementation: "chunked" and "kernel" compute
+    # one function, and the port runs both through the SSD kernel (its
+    # plain version on the CPU); the cost-isolation stub "skip" has no
+    # counterpart and is refused
+    ssd_impl: str = "chunked"
     # GQA: the reference's ablation keeping k/v at K heads; the flash
     # kernel always reads the K KV heads natively, so both values compute
     # the same function the same way here
@@ -85,6 +90,10 @@ class Rules:
             raise ValueError(f"attn_impl {self.attn_impl!r}: the port "
                              f"computes attention with the flash kernel "
                              f"('chunked', 'ref' and 'flash' all mean it)")
+        if self.ssd_impl not in ("chunked", "kernel"):
+            raise ValueError(f"ssd_impl {self.ssd_impl!r}: the port runs "
+                             f"the SSD scan through its kernel ('chunked' "
+                             f"and 'kernel' both mean it)")
 
     # ------------------------------------------------------------------
     def has_axis(self, name: str) -> bool:

@@ -6,6 +6,10 @@ rank against the single-card port.
   three scenarios, on the reference server's own parameters: tokens
   identical, ticks equal; each request alone (1 slot: the batch axis
   dropped, the cache over every rank) equal to it packed;
+* the same for Mamba-2, Jamba and Whisper (reduced, fp32; Whisper's
+  cache built without an encoder output, as the reference's ``Server``
+  builds it): the recurrent state reset on every slot re-admission, the
+  mixers head-parallel, the KV over ``kv_seq``;
 * a world of one rank (mesh 1 x 1) equals the single-card port: forward
   and prefill logits and greedy decode tokens.
 """
@@ -58,11 +62,23 @@ SCENARIOS.update({f"isolated {i}": ([p], 1, 6) for i, p in
                   enumerate(SCENARIOS["packed"][0])})
 
 
+# name -> (arch, prompts, slots, max_new): the other families' servers
+FAMILY_SERVERS = {
+    "mamba2": ("mamba2-370m", _prompts(3, 5, 4), 2, 5),
+    "jamba": ("jamba-v0.1-52b", _prompts(4, 5, 4), 2, 5),
+    "whisper": ("whisper-large-v3", _prompts(5, 5, 4), 2, 5),
+}
+
+
 @pytest.fixture(scope="module")
 def serve_runs(mesh_dm):
     jcfg, tcfg = _cfgs("stablelm-3b", **SERVE_CFG)
+    runs = [(name, jcfg, tcfg) + v for name, v in SCENARIOS.items()]
+    runs += [(name, *_cfgs(arch), prompts, slots, max_new)
+             for name, (arch, prompts, slots, max_new)
+             in FAMILY_SERVERS.items()]
     want, cases = {}, []
-    for name, (prompts, slots, max_new) in SCENARIOS.items():
+    for name, jcfg, tcfg, prompts, slots, max_new in runs:
         server = JServer(jcfg, mesh_dm, slots=slots, max_seq=64)
         for i, p in enumerate(prompts):
             server.submit(JRequest(rid=i, prompt=p, max_new=max_new))
@@ -82,6 +98,15 @@ def test_mesh_server_tokens_equal_reference(serve_runs, name):
         assert res[name] == want[name], f"rank {rank}"
     outs, _ticks = want[name]
     assert all(len(o) == SCENARIOS[name][2] for o in outs)
+
+
+@pytest.mark.parametrize("name", list(FAMILY_SERVERS))
+def test_family_mesh_server_tokens_equal_reference(serve_runs, name):
+    want, results = serve_runs
+    for rank, res in enumerate(results):
+        assert res[name] == want[name], f"rank {rank}"
+    outs, _ticks = want[name]
+    assert len(outs) == 5 and all(len(o) == 5 for o in outs)
 
 
 def test_mesh_server_packed_equals_isolated(serve_runs):

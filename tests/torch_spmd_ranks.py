@@ -180,19 +180,23 @@ def _model(cfg, params, rules):
 
 def model_forwards(rank, cases, shape=(2, 4)):
     """{name: (logits, aux)} of each case (name, cfg, params, tokens,
-    positions or None, rule overrides) through the sharded forward."""
+    positions or None, rule overrides[, {keyword: array} more inputs, as
+    Whisper's ``frames``]) through the sharded forward."""
     from repro_torch.models import moe
     from repro_torch.parallel.sharding import Rules
     mesh = make_test_mesh(shape, ("data", "model"))
     out = {}
-    for name, cfg, params, tokens, positions, overrides in cases:
+    for name, cfg, params, tokens, positions, overrides, *more in cases:
         rules = Rules(mesh=mesh, **overrides)
         model = _model(cfg, params, rules)
         pos = None if positions is None else torch.from_numpy(positions)
+        kw = {k: torch.from_numpy(v) for k, v in
+              (more[0] if more else {}).items()}
         with torch.no_grad(), moe.counting_drops() as drops:
-            logits, aux = model(torch.from_numpy(tokens), positions=pos)
+            logits, aux = model(torch.from_numpy(tokens), positions=pos,
+                                **kw)
             last, _ = model(torch.from_numpy(tokens), positions=pos,
-                            last_only=True)
+                            last_only=True, **kw)
         out[name] = (_np(logits), _np(aux), _np(last),
                      int(sum(int(d) for d in drops)))
     out["modules"] = loaded_modules(rank)
@@ -204,16 +208,16 @@ def _round_trip(cases, mesh):
     """Per case: this rank's blocks have ``shard_table``'s shapes,
     ``gather_params`` of them is the full parameters, exactly, and
     ``init_params(..., rules=)`` draws the blocks of the full draw."""
-    from repro_torch.models.convert import (init_params, params_from_jax,
-                                            shard_params)
-    from repro_torch.models.transformer import gather_params, shard_table
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import (gather_params, init_params,
+                                            params_from_jax, shard_params)
     from repro_torch.parallel.sharding import Rules
     ok = {}
-    for name, cfg, params, _tokens, _positions, overrides in cases:
+    for name, cfg, params, _tokens, _positions, overrides, *_ in cases:
         rules = Rules(mesh=mesh, **overrides)
         full = params_from_jax(cfg, params, device="cpu")
         shard = shard_params(cfg, full, rules)
-        table = shard_table(cfg, rules)
+        table = get_model(cfg).shard_table(cfg, rules)
         back = gather_params(cfg, shard, rules)
         drawn = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
                             rules=rules)
@@ -228,29 +232,31 @@ def _round_trip(cases, mesh):
 def model_decodes(rank, cases, shape=(2, 4)):
     """{name: [(logits, cache leaves gathered), ...] per step} of each case
     (name, cfg, params, per-step tokens (steps, B), max_seq, rule
-    overrides) under ``cell_rules`` of a decode cell, as the ``Server``
-    builds them."""
+    overrides[, the global encoder output for Whisper's cross KV]) under
+    ``cell_rules`` of a decode cell, as the ``Server`` builds them.  The
+    leaves gathered are those of the family's ``cache_specs``."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.step import cell_rules
-    from repro_torch.models.transformer import cache_specs
     from repro_torch.parallel.sharding import join_blocks
     mesh = make_test_mesh(shape, ("data", "model"))
     out = {}
-    for name, cfg, params, steps, max_seq, overrides in cases:
+    for name, cfg, params, steps, max_seq, overrides, *enc in cases:
         B = steps.shape[1]
         rules = cell_rules(mesh, cfg, ShapeConfig("d", max_seq, B,
                                                   "decode"), **overrides)
         model = _model(cfg, params, rules)
-        cache = model.init_cache(B, max_seq)
-        specs = cache_specs(cfg, rules)
+        kw = {"enc_out": torch.from_numpy(enc[0])} if enc else {}
+        cache = model.init_cache(B, max_seq, **kw)
+        specs = model.cache_specs(cfg, rules)
         got = []
         for tok in steps:
             logits, cache = model.decode_step(cache, torch.from_numpy(tok))
-            whole = {k: _np(join_blocks(v, specs[k], rules))
-                     for k, v in cache.items()}
+            whole = {k: _np(join_blocks(cache[k], spec, rules))
+                     for k, spec in specs.items()}
             got.append((_np(logits), whole))
         out[name] = (got, rules._clean(rules.batch),
                      rules._clean(rules.kv_seq))
+    out["modules"] = loaded_modules(rank)
     return out
 
 
@@ -392,11 +398,29 @@ def collective_vjps(rank, inputs):
     return out
 
 
+def family_checks(rank, forward_cases, decode_cases):
+    """:func:`model_forwards` (the round trips included) and
+    :func:`model_decodes`, in one spawn."""
+    return {"forward": model_forwards(rank, forward_cases),
+            "decode": model_decodes(rank, decode_cases)}
+
+
 def backward_checks(rank, vjp_inputs, grad_cases):
     """:func:`collective_vjps` on the (y 2, x 4) mesh, then
     :func:`spmd_grads` on (data 2, model 4), in one spawn."""
     return {"vjp": collective_vjps(rank, vjp_inputs),
             "grads": spmd_grads(rank, grad_cases)}
+
+
+def family_training(rank, grad_cases, step_cases):
+    """:func:`spmd_grads` of ``grad_cases``, then :func:`spmd_train_steps`
+    of each step case (name, cfg, params, batches, strategies, opt), in
+    one spawn: {"grads": ..., "steps": {name: ...}}."""
+    return {"grads": spmd_grads(rank, grad_cases),
+            "steps": {name: spmd_train_steps(rank, cfg, params, batches,
+                                             strategies, opt)
+                      for name, cfg, params, batches, strategies, opt
+                      in step_cases}}
 
 
 def spmd_train_steps(rank, cfg, params, batches, strategies, opt):
@@ -407,8 +431,7 @@ def spmd_train_steps(rank, cfg, params, batches, strategies, opt):
     from repro_torch import optim
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.step import cell_rules, train_step
-    from repro_torch.models.convert import gather_opt_state
-    from repro_torch.models.transformer import gather_params
+    from repro_torch.models.convert import gather_opt_state, gather_params
     mesh = make_test_mesh((2, 4), ("data", "model"))
     B, S = batches[0]["tokens"].shape
     out = {}
@@ -464,8 +487,8 @@ def spmd_trainers(rank, cfg, p0, opt, dirs, shape=(2, 4)):
     from repro_torch import optim
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import batch_iterator
-    from repro_torch.models.convert import gather_opt_state, params_from_jax
-    from repro_torch.models.transformer import gather_params
+    from repro_torch.models.convert import (gather_opt_state, gather_params,
+                                            params_from_jax)
     from repro_torch.runtime import FaultInjector, Trainer, TrainerConfig
     mesh = make_test_mesh(shape, ("data", "model"))
     SHAPE = ShapeConfig("t", seq_len=32, global_batch=8, kind="train")
