@@ -275,6 +275,24 @@ Phases (any failure raises and exits nonzero):
    shapes, one rank at a time; (3) those kernels' times on the card
    alone, and the phase's entries in the ``kernels`` line.
 
+16. ``[costing]`` (run right after phase 11, reusing what phases 9 and 11
+   measured): the costing tools on the card's own paths.  Phase 9's five
+   prefills and ``[train]``'s Moonshot step are built again with
+   ``launch/step.py::build_cell`` (one card) on the ``meta`` device, from
+   the same configs and batches, and run once under
+   ``launch/costing.py::count_cost``: each kernel wrapper records its call
+   instead of launching.  The records by (kernel, variant) must equal the
+   launches the card counted (Jamba: 1 ``wgmma_tma`` flash, 7
+   ``tensor_core`` SSD, 12 ``tma`` GMM; Moonshot: 4 flash and 24 GMM a
+   step), and each path's compute term (counted FLOPs over the H100 SXM's
+   989 TFLOP/s) may not exceed 1.05 x its measured warm wall; the memory
+   term (counted bytes over 3.35 TB/s, each aten op's tensors charged to
+   HBM) and the bound are printed beside it.  Then two production cells
+   through ``python -m repro_torch.launch.dryrun`` in subprocesses
+   (``qwen2-72b train_4k --mesh pod``, ``jamba-v0.1-52b decode_32k --mesh
+   multipod --no-cost``): status ok, no JAX loaded.  The card's name,
+   power limit and ``total_memory`` are printed beside ``HW``.
+
 It needs a card: without one it prints the reason to stderr and exits 1.
 """
 import json
@@ -2498,6 +2516,7 @@ def family_paths(device):
         srv = server_path(device, cfg, params, per_tick, label, **srv_kw)
         model_profile(device, cfg, params, label, seq=seq,
                       positions=positions, B=B)
+        pre["cfg"], pre["positions"] = cfg, positions
         paths[arch] = (pre, srv)
         del params
         torch.cuda.empty_cache()
@@ -5599,6 +5618,176 @@ def spmd_families_entries(fam, replaces):
     return out
 
 
+# ----------------------------------------------------------------------
+# [costing]: the costing tools' dry run of the card's own paths
+# ----------------------------------------------------------------------
+COSTING_BAR = 1.05   # a path's compute term may not exceed 1.05 x its wall
+# production cells through the dry-run CLI: (arch, shape, mesh, options)
+COSTING_CELLS = (("qwen2-72b", "train_4k", "pod", ()),
+                 ("jamba-v0.1-52b", "decode_32k", "multipod", ("--no-cost",)))
+COSTING_CLI = """
+import json, runpy, sys
+sys.argv = ['dryrun'] + json.loads(sys.argv[1])
+try:
+    runpy.run_module('repro_torch.launch.dryrun', run_name='__main__')
+except SystemExit as e:
+    assert not e.code, e.code
+bad = [n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib'))
+       or n == 'repro' or n.startswith('repro.')]
+assert not bad, bad
+"""
+
+
+def _meta_batch(batch):
+    """The card's batch as ``meta`` tensors of the same shapes and
+    dtypes."""
+    import numpy as np
+    import torch
+    return {k: (torch.from_numpy(np.ascontiguousarray(v))
+                if isinstance(v, np.ndarray) else v).to("meta")
+            for k, v in batch.items()}
+
+
+def _records_by_variant(records):
+    out = {}
+    for r in records:
+        d = out.setdefault(r["kernel"], {})
+        d[r["variant"]] = d.get(r["variant"], 0) + 1
+    return out
+
+
+def _nonzero(variants):
+    return {k: {v: n for v, n in d.items() if n}
+            for k, d in variants.items() if any(d.values())}
+
+
+def costing_phase(paths, trains):
+    """``[costing]``: the costing tools (``repro_torch.launch.{costing,
+    roofline,dryrun}``) on the paths phases 9 and 11 measured.  For each
+    single-card path (phase 9's five prefills, ``[train]``'s Moonshot
+    step) the same config and batch run once on ``meta`` through
+    ``build_cell`` (one card) under ``costing.count_cost``: its kernel
+    records by (kernel, variant) must equal the launches the card counted
+    (a training step's: the run's total over its steps), and its compute
+    term (counted FLOPs over the H100's dense bf16 peak) may not exceed
+    ``COSTING_BAR`` x the measured warm wall; the memory term (counted
+    bytes over HBM's 3.35 TB/s: every aten op's tensors charged to HBM,
+    though some stay in the 50 MB L2) and the bound are printed, not
+    held.  Then two production cells through the dry-run CLI in
+    subprocesses (``COSTING_CELLS``): status ok and no JAX loaded.
+    Returns {path: row}."""
+    import dataclasses
+    import json as _json
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import costing
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import HW
+    from repro_torch.launch.step import build_cell
+    t0 = time.perf_counter()
+    card = card_line()
+    props = torch.cuda.get_device_properties(0)
+    print(f"[costing] {card}, total_memory {props.total_memory / 1e9:.2f} GB "
+          f"beside HW (NVIDIA H100 SXM data sheet, 700 W): peak bf16 "
+          f"{HW.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s, HBM "
+          f"{HW.HBM_BW / 1e12:.2f} TB/s, {HW.HBM_BYTES / 1e9:.0f} GB, link "
+          f"(ICI_BW, InfiniBand NDR) {HW.ICI_BW / 1e9:.0f} GB/s")
+    cells = []
+    for arch, (pre, _srv) in paths.items():
+        cfg = pre["cfg"]
+        batch = _meta_batch(_prefill_batch("cpu", cfg, pre["batch"],
+                                           pre["seq"], 0, pre["positions"]))
+        shape = ShapeConfig(f"prefill {pre['batch']}x{pre['seq']}",
+                            pre["seq"], pre["batch"], "prefill")
+        cells.append((f"{arch} prefill", cfg, shape, batch, pre["warm"],
+                      _nonzero(pre["variants"]), {}))
+    moon = trains[MOONSHOT]
+    cfg = dataclasses.replace(get_config(MOONSHOT),
+                              num_layers=MOONSHOT_TRAIN_LAYERS)
+    steps = len(moon["losses"])
+    per_step = {k: {v: n // steps for v, n in d.items()}
+                for k, d in _nonzero(moon["total"]).items()}
+    cells.append((f"{MOONSHOT} training step", cfg,
+                  ShapeConfig("train 1x4096", TRAIN_SEQ, 1, "train"),
+                  _meta_batch(moon["data"]), moon["warm"], per_step,
+                  {"remat": "full"}))
+    rows = {}
+    for label, cfg, shape, batch, warm, launched, kw in cells:
+        t1 = time.perf_counter()
+        cell = build_cell(cfg, shape, None, device="meta",
+                          inputs={"batch": batch}, **kw)
+        got = costing.count_cost(cell.run)
+        rep = rl.roofline(cfg, shape, "1 card", 1, got.cost, got.collectives)
+        recs = _records_by_variant(got.records)
+        check(recs == launched, f"[costing] {label}: the dry run's kernel "
+              f"records {recs} != the card's launches {launched}")
+        check(rep.compute_s <= COSTING_BAR * warm,
+              f"[costing] {label}: compute term {rep.compute_s * 1e3:.3f} ms "
+              f"> {COSTING_BAR} x the measured {warm * 1e3:.3f} ms")
+        rows[label] = {"compute_ms": rep.compute_s * 1e3,
+                       "memory_ms": rep.memory_s * 1e3,
+                       "bound_ms": rep.peak_step_s * 1e3,
+                       "bottleneck": rep.bottleneck,
+                       "measured_ms": warm * 1e3, "records": recs,
+                       "flops": got.cost["flops"],
+                       "bytes": got.cost["bytes accessed"],
+                       "kernel_bytes": got.cost["bytes kernels"]}
+        print(f"[costing] {card}: {label}: compute {rep.compute_s * 1e3:.3f} "
+              f"ms, memory {rep.memory_s * 1e3:.3f} ms (kernels "
+              f"{got.cost['bytes kernels'] / rep.bytes_per_device:.3f} of "
+              f"{rep.bytes_per_device / 1e9:.2f} GB), bound "
+              f"{rep.peak_step_s * 1e3:.3f} ms ({rep.bottleneck}) against "
+              f"the measured warm {warm * 1e3:.3f} ms (compute / measured "
+              f"{rep.compute_s / warm:.3f}, bound / measured "
+              f"{rep.peak_step_s / warm:.3f}); {got.cost['flops'] / 1e12:.2f} "
+              f"TFLOP counted, model {rep.model_flops / 1e12:.2f} "
+              f"(useful {rep.useful_ratio:.3f}); kernel records {recs} = the "
+              f"card's launches; dry run {time.perf_counter() - t1:.2f} s")
+    # two production cells through the CLI, side by side
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src")]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p]))
+    tag = f"smoke{os.getpid()}"
+    procs = []
+    for arch, shape, mesh, extra in COSTING_CELLS:
+        args = ["--arch", arch, "--shape", shape, "--mesh", mesh, "--tag",
+                tag, *extra]
+        procs.append(((arch, shape, mesh), subprocess.Popen(
+            [sys.executable, "-c", COSTING_CLI, _json.dumps(args)], env=env,
+            cwd=tempfile.gettempdir(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    for (arch, shape, mesh), proc in procs:
+        out, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"[costing] dryrun {arch} {shape} "
+              f"{mesh}: exit {proc.returncode}: {err[-2000:]}")
+        path = os.path.join(HERE, "experiments", "dryrun_torch",
+                            f"{mesh}-{tag}", f"{arch}__{shape}.json")
+        with open(path) as f:
+            rec = _json.load(f)
+        check(rec["status"] == "ok", f"[costing] dryrun {arch} {shape} "
+              f"{mesh}: {rec.get('error')}")
+        mem = rec["memory_analytic"]["total"]
+        line = (f"[costing] dryrun {arch} {shape} --mesh {mesh}: status "
+                f"{rec['status']}, {rec['chips']} chips, no jax loaded, "
+                f"analytic memory {mem / 1e9:.2f} GB a device "
+                f"({mem / HW.HBM_BYTES:.3f} of 80 GB), run {rec['run_s']} s")
+        if "roofline" in rec:
+            r = rec["roofline"]
+            line += (f"; compute {r['compute_s']:.3e} s, memory "
+                     f"{r['memory_s']:.3e} s, collective "
+                     f"{r['collective_s']:.3e} s -> {r['bottleneck']}, useful "
+                     f"{r['useful_ratio']:.3f}")
+        print(line)
+        rows[f"dryrun {arch} {shape} {mesh}"] = rec["status"]
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    print(f"[costing] phase wall {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5702,6 +5891,7 @@ def main() -> int:
         reduced_training("cuda", arch)
     trains = train_paths("cuda")
     bwd_times = train_kernel_timings("cuda")
+    costing_phase(paths, trains)
     spmd = spmd_phase("cuda")
     spmd_train = spmd_train_phase("cuda")
     pipe = spmd_pipeline_phase("cuda")

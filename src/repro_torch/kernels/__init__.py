@@ -12,9 +12,10 @@
   kernels (``csrc/flash_attention.cu``, ``csrc/ssd_scan.cu``,
   ``csrc/moe_gmm.cu``), each with its launch counter; :mod:`.ref` holds
   their plain versions and :mod:`.ops` the wrappers at the models'
-  layouts.  ``flash_attention_op``, ``ssd_scan_op`` and ``grouped_matmul``
-  are exported from here, but no kernel module is imported until one of
-  them is first asked for.
+  layouts; :mod:`.record` the records of their calls on ``meta`` (the
+  costing tools' dry run) and on the CPU.  ``flash_attention_op``,
+  ``ssd_scan_op`` and ``grouped_matmul`` are exported from here, but no
+  kernel module is imported until one of them is first asked for.
 """
 import importlib
 

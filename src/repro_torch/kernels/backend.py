@@ -6,6 +6,10 @@ Entry points run on the card unless the caller asks for the CPU:
   the port never carries on silently on the CPU;
 * ``device="cpu"`` runs the plain PyTorch versions of the kernels (the
   tests do this);
+* ``device="meta"`` allocates nothing and computes nothing: the costing
+  tools' dry run (``repro_torch.launch.costing``) runs a cell on it, each
+  kernel wrapper recording its call (``kernels/record.py``).  It is
+  never chosen for the caller: only a caller who names it gets it;
 * a CUDA device must be a Hopper card (compute capability 9.0): the
   kernels are built for ``sm_90a`` only, so anything else raises here,
   before a state is allocated, instead of failing at the first launch.
@@ -41,7 +45,8 @@ def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``None`` -> the card (raising
     when there is none), ``"cpu"`` -> the CPU, ``"cuda[:i]"`` -> that card
     after checking it is a Hopper, with its index (the current device's
-    for a bare ``"cuda"``), so it compares equal to a tensor's device."""
+    for a bare ``"cuda"``), so it compares equal to a tensor's device;
+    ``"meta"`` -> the meta device, only when named."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -49,11 +54,12 @@ def resolve_device(device=None) -> torch.device:
                 "the caller passes device='cpu'")
         device = "cuda"
     device = torch.device(device)
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):
         return device
     if device.type != "cuda":
         raise ValueError(
-            f"unsupported device {device}: expected 'cuda' or 'cpu'")
+            f"unsupported device {device}: expected 'cuda', 'cpu' or "
+            f"'meta'")
     require_hopper(device)
     if device.index is None:     # "cuda" -> "cuda:<current>", as tensors report it
         device = torch.device("cuda", torch.cuda.current_device())

@@ -21,7 +21,12 @@ alignment alone.  :func:`flash_bound` gives the bound of one call.
 
 :func:`flash_attention` takes the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`) only for CPU tensors;
-for CUDA tensors it launches the kernel or raises.
+for CUDA tensors it launches the kernel or raises.  On ``meta`` tensors
+(the costing tools' dry run) it checks the operands as for the card,
+chooses the variant the card would run (``aligned=True``: a meta tensor
+has no address), records the call (:mod:`repro_torch.kernels.record`)
+and returns an empty output; it never runs the plain version there.  On
+the CPU it records the call it stands in for too.
 ``flash_attention.launches`` counts its launches and
 ``flash_attention.launches_by_variant`` splits them by variant.
 """
@@ -32,11 +37,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _cuda
+from repro_torch import own_work
+from repro_torch.kernels import _cuda, record
 from repro_torch.kernels.backend import require_hopper
 from repro_torch.kernels.ref import flash_attention_ref
 
-__all__ = ["flash_attention", "flash_bound", "flash_variant",
+__all__ = ["flash_attention", "flash_bound", "flash_variant", "kept_pairs",
            "MAX_HEAD_DIM", "VARIANTS"]
 
 MAX_HEAD_DIM = 128
@@ -58,22 +64,62 @@ def flash_variant(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
     return "wgmma_tma" if hd % 8 == 0 and aligned else "wgmma_loads"
 
 
+def _sum_positive(a: int, slope: int, n: int) -> int:
+    """sum(max(0, a + slope * t) for t in range(n)), slope in {-1, 0, 1}."""
+    if n <= 0:
+        return 0
+    if slope == 0:
+        return n * max(0, a)
+    if slope > 0:
+        t0 = max(0, 1 - a)
+        if t0 >= n:
+            return 0
+        first, last = a + t0, a + n - 1
+        return (first + last) * (n - t0) // 2
+    t1 = min(n - 1, a - 1)
+    if t1 < 0:
+        return 0
+    return (a + a - t1) * (t1 + 1) // 2
+
+
+def kept_pairs(sq: int, sk: int, causal: bool = True,
+               window: Optional[int] = None,
+               kv_len: Optional[int] = None) -> int:
+    """The (query, key) pairs the masks keep, in closed form: query ``i``
+    sees keys ``j < kv_len`` (and ``j < sk``), ``j <= i`` when
+    ``causal``, ``j > i - window`` with a window (the masks of
+    :func:`repro_torch.kernels.ref.flash_attention_ref`).  Over each
+    stretch of queries between the points where a mask starts to bind
+    (``i = kv_len`` for the causal edge, ``i = window`` for the window's),
+    the count a query is linear in ``i`` with slope -1, 0 or 1."""
+    end = max(0, min(sk, sk if kv_len is None else int(kv_len)))
+    cuts = {0, sq}
+    if causal:
+        cuts.add(end)
+    if window is not None:
+        cuts.add(window)
+    cuts = sorted(c for c in cuts if 0 <= c <= sq)
+    total = 0
+    for s0, s1 in zip(cuts, cuts[1:]):
+        grows = causal and s0 < end
+        slides = window is not None and s0 >= window
+        hi = s0 + 1 if grows else end
+        lo = s0 - window + 1 if slides else 0
+        total += _sum_positive(hi - lo, int(grows) - int(slides), s1 - s0)
+    return total
+
+
 def flash_bound(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
-                window: Optional[int] = None) -> Tuple[int, int]:
+                window: Optional[int] = None,
+                kv_len: Optional[int] = None) -> Tuple[int, int]:
     """(bytes, FLOPs) one call needs: q, k, v read once and the output
     written once; 4 hd FLOPs (QK^T and PV) for every (query, key) pair the
-    masks keep."""
+    masks keep (:func:`kept_pairs`)."""
     b, h, sq, hd = q.shape
     kh, sk = k.shape[1], k.shape[2]
     nbytes = q.element_size() * (2 * b * h * sq * hd + 2 * b * kh * sk * hd)
-    qi = torch.arange(sq)[:, None]
-    kj = torch.arange(sk)[None, :]
-    keep = torch.ones((sq, sk), dtype=torch.bool)
-    if causal:
-        keep &= kj <= qi
-    if window is not None:
-        keep &= kj > qi - window
-    return nbytes, 4 * hd * b * h * int(keep.sum())
+    return nbytes, 4 * hd * b * h * kept_pairs(sq, sk, causal, window,
+                                               kv_len)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -83,15 +129,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, H, Sq, hd); k/v: (B, K, Sk, hd) -> (B, H, Sq, hd) in q's
     dtype.  ``kv_len`` masks keys at and beyond it; ``sm_scale`` defaults
     to ``hd ** -0.5``.  CPU tensors: the plain version; CUDA tensors
-    (contiguous, fp32 or bf16, one dtype, hd <= 128): the kernel."""
+    (contiguous, fp32 or bf16, one dtype, hd <= 128): the kernel; meta
+    tensors (checked as CUDA ones): a record and an empty output."""
     dev = q.device
     if dev.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   kv_len=kv_len, sm_scale=sm_scale)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
-                         f"{dev}")
-    require_hopper(dev)
+        if q.numel() and record.active():
+            record.record("flash_attention", flash_variant(
+                q.dtype, q.shape[-1], all(t.data_ptr() % 16 == 0
+                                          for t in (q, k, v))),
+                (q, k, v), flash_bound(q, k, causal, window, kv_len),
+                causal=causal, window=window)
+        with own_work.inside():
+            return flash_attention_ref(q, k, v, causal=causal,
+                                       window=window, kv_len=kv_len,
+                                       sm_scale=sm_scale)
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention takes CPU, CUDA or meta tensors, "
+                         f"got {dev}")
+    if dev.type == "cuda":
+        require_hopper(dev)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: expected q (B, H, Sq, hd) and "
                          f"k/v (B, K, Sk, hd), got {tuple(q.shape)}, "
@@ -108,6 +164,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("k", k), ("v", v)):
         _cuda.check_operand("flash_attention", name, t, dev, (q.dtype,),
                             (b, kh, sk, hd))
+    if dev.type == "meta":
+        with own_work.inside():
+            out = torch.empty_like(q)
+        if out.numel() and record.active():
+            record.record("flash_attention", flash_variant(q.dtype, hd),
+                          (q, k, v), flash_bound(q, k, causal, window,
+                                                 kv_len),
+                          causal=causal, window=window)
+        return out
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -24,17 +24,23 @@ what the wrapper passes it, :func:`gmm_bound` the bound of one call.
 :func:`grouped_matmul` takes the plain version
 (:func:`repro_torch.kernels.ref.grouped_matmul_ref`) only for CPU tensors;
 for CUDA tensors it launches the chosen kernel or raises: no variant
-falls back to another.  ``grouped_matmul.launches`` counts its launches
+falls back to another.  On ``meta`` tensors (the costing tools' dry run)
+it checks the operands as for the card, plans the variant the card would
+run (``aligned=True``: a meta tensor has no address), records the call
+(:mod:`repro_torch.kernels.record`) and returns an empty output; it never
+runs the plain version there.  On the CPU it records the call it stands
+in for too.  ``grouped_matmul.launches`` counts its launches
 and ``grouped_matmul.launches_by_variant`` splits them by variant.
 """
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _cuda
+from repro_torch import own_work
+from repro_torch.kernels import _cuda, record
 from repro_torch.kernels.backend import require_hopper
 from repro_torch.kernels.ref import grouped_matmul_ref
 
@@ -62,16 +68,19 @@ def gmm_variant(m: int, k: int, n: int, aligned: bool = True) -> str:
     return "decode" if m <= DECODE_MAX_M else "tma"
 
 
-def gmm_plan(lhs: torch.Tensor, rhs: torch.Tensor) -> Tuple[str, int]:
+def gmm_plan(lhs: torch.Tensor, rhs: torch.Tensor,
+             aligned: Optional[bool] = None) -> Tuple[str, int]:
     """What :func:`grouped_matmul` passes to the kernel for these
     operands: the variant (``f32`` for fp32, else :func:`gmm_variant` of
-    the shape and of the operands' 16-byte alignment) and, for
-    ``decode``, MP (0 otherwise).  The output is allocated aligned."""
+    the shape and of the operands' 16-byte alignment, ``aligned`` where
+    given) and, for ``decode``, MP (0 otherwise).  The output is
+    allocated aligned."""
     if lhs.dtype == torch.float32:
         return "f32", 0
     _, m, k = lhs.shape
     n = rhs.shape[-1]
-    aligned = lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0
+    if aligned is None:
+        aligned = lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0
     variant = gmm_variant(m, k, n, aligned)
     if variant != "decode":
         return variant, 0
@@ -90,13 +99,20 @@ def gmm_bound(lhs: torch.Tensor, rhs: torch.Tensor) -> Tuple[int, int]:
 def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """(E, M, K) @ (E, K, N) -> (E, M, N) in ``lhs``'s dtype, fp32
     accumulation.  CPU tensors: the plain version; CUDA tensors (contiguous,
-    fp32 or bf16, one dtype): the kernel."""
+    fp32 or bf16, one dtype): the kernel; meta tensors (checked as CUDA
+    ones): a record and an empty output."""
     dev = lhs.device
     if dev.type == "cpu":
-        return grouped_matmul_ref(lhs, rhs)
-    if dev.type != "cuda":
-        raise ValueError(f"grouped_matmul takes CPU or CUDA tensors, got {dev}")
-    require_hopper(dev)
+        if lhs.numel() and rhs.numel() and record.active():
+            record.record("moe_gmm", gmm_plan(lhs, rhs)[0], (lhs, rhs),
+                          gmm_bound(lhs, rhs))
+        with own_work.inside():
+            return grouped_matmul_ref(lhs, rhs)
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"grouped_matmul takes CPU, CUDA or meta tensors, "
+                         f"got {dev}")
+    if dev.type == "cuda":
+        require_hopper(dev)
     if lhs.dim() != 3 or rhs.dim() != 3:
         raise ValueError(f"grouped_matmul: expected (E, M, K) and (E, K, N), "
                          f"got {tuple(lhs.shape)} and {tuple(rhs.shape)}")
@@ -106,6 +122,13 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     _cuda.check_operand("grouped_matmul", "lhs", lhs, dev, dtypes, (e, m, k))
     _cuda.check_operand("grouped_matmul", "rhs", rhs, dev, (lhs.dtype,),
                         (e, k, n))
+    if dev.type == "meta":
+        with own_work.inside():
+            out = torch.empty((e, m, n), dtype=lhs.dtype, device=dev)
+        if out.numel() and k and record.active():
+            record.record("moe_gmm", gmm_plan(lhs, rhs, aligned=True)[0],
+                          (lhs, rhs), gmm_bound(lhs, rhs))
+        return out
     out = torch.empty((e, m, n), dtype=lhs.dtype, device=dev)
     if out.numel() == 0:
         return out

@@ -30,9 +30,14 @@ not what is computed.
 :func:`ssd_scan` takes the plain version
 (:func:`repro_torch.kernels.ref.ssd_scan_ref`, the token-by-token
 recurrence, which has no chunk) only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.  ``ssd_scan.launches`` counts its calls
-(three CUDA launches each) and ``ssd_scan.launches_by_variant`` the same
-calls by variant.
+launches the kernel or raises.  On ``meta`` tensors (the costing tools'
+dry run) it checks the operands as for the card, chooses the variant and
+chunk the card would run (``aligned=True``: a meta tensor has no
+address), records the call (:mod:`repro_torch.kernels.record`) and
+returns an empty output; it never runs the plain version there.  On the
+CPU it records the call it stands in for too.  ``ssd_scan.launches``
+counts its calls (three CUDA launches each) and
+``ssd_scan.launches_by_variant`` the same calls by variant.
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _cuda
+from repro_torch import own_work
+from repro_torch.kernels import _cuda, record
 from repro_torch.kernels.backend import require_hopper
 from repro_torch.kernels.ref import ssd_scan_ref
 
@@ -111,6 +117,18 @@ def ssd_bound(x: torch.Tensor, B: torch.Tensor, chunk: int
     return nbytes, b * chunks * (g * per_group + h * per_head)
 
 
+def _record(x: torch.Tensor, B: torch.Tensor, chunk: int, aligned: bool,
+            operands) -> None:
+    """Record the call the card would make: the variant, the chunk it
+    runs at and :func:`ssd_bound` at that chunk."""
+    p, n = x.shape[3], B.shape[3]
+    variant = ssd_variant(x.dtype, int(chunk), n, p, aligned)
+    run = cuda_core_chunk(int(chunk), p, n) if variant == "cuda_core" \
+        else int(chunk)
+    record.record("ssd_scan", variant, operands, ssd_bound(x, B, run),
+                  chunk=run)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, A: torch.Tensor, *, chunk: int = 256
              ) -> torch.Tensor:
@@ -121,14 +139,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     fp32 or bf16 in one dtype, A fp32, P <= 64, chunk <= 256): the
     kernel, its variant chosen by :func:`ssd_variant` (x, B or C not
     16-byte aligned take ``cuda_core``), ``cuda_core`` at
-    :func:`cuda_core_chunk`.
+    :func:`cuda_core_chunk`; meta tensors (checked as CUDA ones): a record
+    and an empty output.
     """
     dev = x.device
     if dev.type == "cpu":
-        return ssd_scan_ref(x, dt, B, C, A)
-    if dev.type != "cuda":
-        raise ValueError(f"ssd_scan takes CPU or CUDA tensors, got {dev}")
-    require_hopper(dev)
+        if x.numel() and record.active():
+            _record(x, B, chunk, all(t.data_ptr() % 16 == 0
+                                     for t in (x, B, C)), (x, dt, B, C, A))
+        with own_work.inside():
+            return ssd_scan_ref(x, dt, B, C, A)
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_scan takes CPU, CUDA or meta tensors, got "
+                         f"{dev}")
+    if dev.type == "cuda":
+        require_hopper(dev)
     if x.dim() != 4 or B.dim() != 4:
         raise ValueError(f"ssd_scan: expected x (b, h, S, P) and B/C "
                          f"(b, g, S, N), got {tuple(x.shape)}, "
@@ -136,7 +161,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     b, h, s, p = x.shape
     g, n = B.shape[1], B.shape[3]
     chunk = int(chunk)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, B, C))
+    aligned = dev.type == "meta" or all(t.data_ptr() % 16 == 0
+                                        for t in (x, B, C))
     variant = ssd_variant(x.dtype, chunk, n, p, aligned)
     if g == 0 or h % g or p > MAX_HEAD_DIM or not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(
@@ -150,6 +176,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     for name, t in (("B", B), ("C", C)):
         _cuda.check_operand("ssd_scan", name, t, dev, (x.dtype,), (b, g, s, n))
     _cuda.check_operand("ssd_scan", "A", A, dev, (torch.float32,), (h,))
+    if dev.type == "meta":
+        with own_work.inside():
+            y = torch.empty_like(x)
+        if y.numel() and record.active():
+            _record(x, B, chunk, True, (x, dt, B, C, A))
+        return y
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y

@@ -5,8 +5,10 @@ counterpart of ``repro.launch.mesh``).
 :class:`~repro_torch.parallel.comm.Mesh` over the ranks of the initialised
 process group, with the reference's shapes and axis names: ``model`` is
 the mesh's X dimension (TP / expert columns), ``data`` its Y dimension
-(DP rows), ``pod`` the off-chip link between pods.  The reference's
-``HW`` class holds TPU v5e constants and has no counterpart here.
+(DP rows), ``pod`` the off-chip link between pods.  :class:`HW` holds
+the constants the roofline reads (``launch/roofline.py``), under the
+reference's names, for an NVIDIA H100 SXM where the reference's hold a
+TPU v5e's.
 
 :func:`spawn` starts ``world`` ranks and returns their results; the tests,
 ``chip_smoke.py`` and the serve CLI all start ranks through it:
@@ -37,14 +39,41 @@ import torch
 
 from repro_torch.parallel.comm import Mesh
 
-__all__ = ["make_production_mesh", "make_test_mesh", "spawn", "BACKENDS"]
+__all__ = ["make_production_mesh", "make_test_mesh", "spawn", "BACKENDS",
+           "HW"]
 
 BACKENDS = ("gloo", "nccl")
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+class HW:
+    """NVIDIA H100 SXM constants used by the roofline (per card): NVIDIA's
+    data sheet, dense rates (no sparsity) at the full 700 W power limit.
+
+    ``ICI_BW`` is the link rate the analytic collective term charges. It
+    is InfiniBand, not NVLink: NVLink joins the 8 cards of one host, and
+    every 16-wide axis of the production meshes (``make_production_mesh``)
+    spans two or more hosts, so a ring along it crosses one 400 Gb/s NDR
+    port per card, as in a DGX H100.  ``NVLINK_BW`` is kept for the
+    record; no term reads it (PERF.md §7)."""
+    PEAK_FLOPS_BF16 = 989e12     # FLOP/s, bf16 dense (data sheet, SXM)
+    HBM_BW = 3.35e12             # bytes/s, HBM3 (data sheet, SXM)
+    HBM_BYTES = 80e9             # capacity, 80 GB (data sheet)
+    SMEM_BYTES = 228 * 2**10     # an SM's shared memory, 228 KiB
+    NVLINK_BW = 450e9            # bytes/s each way, NVLink 4 within a host
+    ICI_BW = 50e9                # bytes/s, one 400 Gb/s NDR port per card
+    DCN_BW = 50e9                # bytes/s, the same fabric between pods
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         dry: bool = False, rank: int = 0) -> Mesh:
+    """The 16x16 pod or the 2x16x16 multipod over the process group's
+    ranks; with ``dry`` a dry mesh of it holding rank ``rank``'s
+    coordinates (``comm.Mesh.dry``: no process group, the ``meta``
+    device), which the costing tools run a cell on."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if dry:
+        return Mesh.dry(shape, axes, rank)
     return Mesh(shape, axes, device)
 
 

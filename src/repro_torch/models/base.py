@@ -22,6 +22,7 @@ gather and return (:func:`seq_gather`, :func:`seq_return`).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -214,6 +215,7 @@ class TableModule(nn.Module):
 
     RECURRENT_LEAVES: Tuple[str, ...] = ()
     CACHE_BATCH_DIM = 0
+    STACKED: Tuple[str, ...] = ()
 
     @staticmethod
     def param_table(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -408,6 +410,39 @@ class TableModule(nn.Module):
             t = self._gather_bank(name, t, self._banked[name][0])
         return t
 
+    @contextlib.contextmanager
+    def layer_views(self):
+        """Within the block (with gradients enabled), :meth:`_stack` takes
+        the layer slices of every stacked parameter (a name under one of
+        the class's ``STACKED`` prefixes, held whole) from one ``unbind``
+        of it, made here, before any layer runs.  Indexing each layer
+        apart makes the backward materialise the whole stacked gradient
+        for every layer (``select``'s backward) and sum them: bytes and
+        memory quadratic in depth.  ``unbind``'s backward stacks the
+        layers' gradients once.  The values and gradients are the same.
+        The block must hold the backward too: a rematerialised layer then
+        takes its slices the same way again (``train_step`` holds both)."""
+        if not torch.is_grad_enabled() or \
+                self.__dict__.get("_views") is not None:
+            yield
+            return
+        self._views = {
+            name: p.unbind(0) for name, p in self.named_parameters()
+            if name.startswith(self.STACKED) and name not in self._banked}
+        try:
+            yield
+        finally:
+            self._views = None
+
+    def _slice(self, name: str, index) -> torch.Tensor:
+        """``param(name)[index]``, from its ``unbind`` within
+        :meth:`layer_views`."""
+        views = self.__dict__.get("_views")
+        if not views or name not in views:
+            return self._p(name)[index]
+        part = views[name][index[0]]
+        return part[index[1:]] if len(index) > 1 else part
+
     def _stack(self, prefix: str, names, *index) -> Dict[str, torch.Tensor]:
         """``{name: param(prefix + name)[index]}``: one layer's slice of
         stacked parameters, as the islands read it (a bank gathered
@@ -418,11 +453,11 @@ class TableModule(nn.Module):
             name = prefix + k
             bank = self._banked.get(name)
             if bank is None:
-                out[k] = self._p(name)[index]
+                out[k] = self._slice(name, index)
             elif bank[0] < len(index):
                 out[k] = self._use(name)[index]
             else:
-                out[k] = self._gather_bank(name, self._p(name)[index],
+                out[k] = self._gather_bank(name, self._slice(name, index),
                                            bank[0] - len(index))
         return out
 
@@ -481,7 +516,10 @@ class TableModule(nn.Module):
         (which lives on the last column where the sequence is
         sharded)."""
         if last_only:
-            x = x[:, -1:]
+            # laid out row-major: a (b, 1, D) slice of a gathered block
+            # has strides CPU and meta tensors copy differently, and the
+            # head's product folds to ``mm`` only when it is row-major
+            x = x[:, -1:].clone(memory_format=torch.contiguous_format)
             if lay.seq:
                 last = rules.mesh.index("model") == \
                     rules.axis_size("model") - 1

@@ -156,6 +156,7 @@ class Jamba(TableModule):
 
     RECURRENT_LEAVES = ("state", "conv")   # (NP, 7, B, ...)
     CACHE_BATCH_DIM = 2
+    STACKED = ("periods/",)
 
     param_table = staticmethod(param_table)
     param_dtype = staticmethod(param_dtype)

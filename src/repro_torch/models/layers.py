@@ -90,7 +90,8 @@ def mrope(x: torch.Tensor, positions: torch.Tensor,
                       / half)
     stream = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))        # band -> stream
+        torch.tensor(sections, device=x.device),
+        output_size=half)                               # band -> stream
     pos = positions.to(F32)[stream]                     # (hd/2, B, S)
     ang = pos.permute(1, 2, 0) * freqs                  # (B, S, hd/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]

@@ -475,6 +475,7 @@ class Mamba2LM(TableModule):
 
     RECURRENT_LEAVES = ("state", "conv")   # (L, B, ...)
     CACHE_BATCH_DIM = 1
+    STACKED = ("layers/",)
 
     param_table = staticmethod(param_table)
     param_dtype = staticmethod(param_dtype)

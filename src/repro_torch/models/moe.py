@@ -103,14 +103,21 @@ def router_topk(x2d: torch.Tensor, w_router: torch.Tensor, k: int
     weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
     E = w_router.shape[-1]
     me = probs.mean(0)
-    ce = F.one_hot(idx[:, 0], E).to(F32).mean(0)
+    ce = _one_hot(idx[:, 0], E).to(F32).mean(0)
     return idx, weights, E * (me * ce).sum()
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` as one comparison: the same ops on every
+    device (``F.one_hot`` checks the values on the CPU and takes another
+    route on ``meta``, where the costing tools count the card's ops)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
 
 
 def _fifo_slots(assign: torch.Tensor, num_experts: int, cap: int):
     """Slot of each assignment in its expert's FIFO, in arrival order:
     (slot, keep = slot < cap)."""
-    onehot = F.one_hot(assign, num_experts)
+    onehot = _one_hot(assign, num_experts)
     ranks = torch.cumsum(onehot, dim=0) - onehot
     slot = ranks.gather(1, assign[:, None])[:, 0]
     return slot, slot < cap

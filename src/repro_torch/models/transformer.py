@@ -434,6 +434,8 @@ class Transformer(TableModule):
     reference's names; see :class:`~repro_torch.models.base.TableModule`
     for ``params``."""
 
+    STACKED = ("layers/",)
+
     param_table = staticmethod(param_table)
     param_dtype = staticmethod(param_dtype)
     init_rule = staticmethod(init_rule)

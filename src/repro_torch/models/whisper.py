@@ -177,6 +177,8 @@ class Whisper(TableModule):
     stale self-attention KV is masked by length, and the cross KV is the
     same for every request of the cache."""
 
+    STACKED = ("enc/", "dec/")
+
     param_table = staticmethod(param_table)
     param_dtype = staticmethod(param_dtype)
     init_rule = staticmethod(init_rule)

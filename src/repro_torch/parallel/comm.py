@@ -60,21 +60,36 @@ zeroed with :func:`reset_comm_stats`); a backward counts under
 all-gather's gradient).  Within :func:`counting_phase` each call is also
 counted under the phase's name (:func:`phase_stats`: a training step's
 ``loss``, ``backward`` and ``optimizer``).  A call on a group of one rank
-moves nothing and is not counted.
+moves nothing and is not counted.  Within :func:`listing_calls` the
+counted calls are also listed one by one with their dtype and group size
+(the costing tools' ring wire model reads them); outside it only the
+fixed-size aggregates above are kept, so a long-running server or
+trainer holds no growing list.
+
+**A dry mesh.**  :meth:`Mesh.dry` holds one rank's coordinates of a mesh
+of any size and needs no process group: its device is ``meta`` and every
+collective on it skips the ``torch.distributed`` call, returning an
+empty output of the shape and dtype a real rank's call returns, counted
+exactly as that call is (the ``.bwd`` transposes and the phases
+included).  It is how the costing tools (``repro_torch.launch.costing``)
+cost a 256- or 512-rank mesh in one process, and it is only ever built
+by name: no real mesh falls back to it.
 """
 from __future__ import annotations
 
 import contextlib
 import itertools
-from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import own_work
+
 __all__ = ["Mesh", "Axes", "HOST_STAGED", "staged", "all_gather",
            "reduce_scatter", "all_reduce", "all_to_all", "ppermute",
            "STATS", "comm_stats", "reset_comm_stats", "counting_phase",
-           "phase_stats"]
+           "phase_stats", "listing_calls"]
 
 Axes = Union[str, Sequence[str], None]
 
@@ -91,6 +106,7 @@ HOST_STAGED: Dict[str, frozenset] = {
 STATS: Dict[str, Dict[str, int]] = {}
 _PHASES: Dict[str, Dict[str, Dict[str, int]]] = {}
 _PHASE: Optional[str] = None
+_LISTS: List[List[Dict[str, object]]] = []
 
 
 def comm_stats() -> Dict[str, Dict[str, int]]:
@@ -103,6 +119,20 @@ def phase_stats() -> Dict[str, Dict[str, Dict[str, int]]]:
     :func:`counting_phase` since the last reset, this rank."""
     return {p: {k: dict(v) for k, v in ops.items()}
             for p, ops in _PHASES.items()}
+
+
+@contextlib.contextmanager
+def listing_calls():
+    """List every call counted within the block, this rank, in order, into
+    the list this yields: {"op", "dtype", "bytes" (the input's), "group"
+    (the ranks of its group), "phase" (None outside
+    :func:`counting_phase`)}."""
+    out: List[Dict[str, object]] = []
+    _LISTS.append(out)
+    try:
+        yield out
+    finally:
+        _LISTS.remove(out)
 
 
 def reset_comm_stats() -> None:
@@ -121,8 +151,13 @@ def counting_phase(name: str):
         _PHASE = outer
 
 
-def _count(op: str, x: torch.Tensor) -> None:
+def _count(op: str, x: torch.Tensor, group: int) -> None:
     nbytes = x.numel() * x.element_size()
+    if _LISTS:
+        call = {"op": op, "dtype": str(x.dtype).replace("torch.", ""),
+                "bytes": nbytes, "group": group, "phase": _PHASE}
+        for out in _LISTS:
+            out.append(call)
     for table in (STATS,) if _PHASE is None else \
             (STATS, _PHASES.setdefault(_PHASE, {})):
         s = table.setdefault(op, {"calls": 0, "bytes": 0})
@@ -146,6 +181,8 @@ class Mesh:
     in one order (``dist.new_group`` is collective over the world).  A
     rank outside the mesh holds a mesh it is no :attr:`member` of: it
     takes part in no collective of it."""
+
+    is_dry = False
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
                  device=None, ranks: Optional[Sequence[int]] = None):
@@ -189,6 +226,35 @@ class Mesh:
                     if me in row:
                         self._groups[names] = g
 
+    @classmethod
+    def dry(cls, shape: Sequence[int], axis_names: Sequence[str],
+            rank: int = 0) -> "Mesh":
+        """A dry mesh (module docstring): rank ``rank``'s coordinates of a
+        ``shape`` mesh, row-major as a real mesh's, on the ``meta``
+        device, with no process group and no groups."""
+        self = cls.__new__(cls)
+        shape, axis_names = tuple(shape), tuple(axis_names)
+        n = 1
+        for s in shape:
+            n *= s
+        if not 0 <= rank < n:
+            raise ValueError(f"rank {rank} is not in a mesh of {n} ranks")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+        self.device = torch.device("meta")
+        self.backend = "dry"
+        self.ranks = tuple(range(n))
+        self.member = True
+        self.is_dry = True
+        self._rank = rank
+        coords, r = [], rank
+        for size in reversed(shape):
+            coords.append(r % size)
+            r //= size
+        self._coords = dict(zip(axis_names, reversed(coords)))
+        self._groups = {}
+        return self
+
     @property
     def size(self) -> int:
         return len(self.ranks)
@@ -196,7 +262,7 @@ class Mesh:
     @property
     def rank(self) -> int:
         """This rank's global rank."""
-        return dist.get_rank()
+        return self._rank if self.is_dry else dist.get_rank()
 
     def names(self, axes: Axes) -> Tuple[str, ...]:
         """``axes`` as a tuple of this mesh's axis names, in mesh order.
@@ -235,6 +301,8 @@ class Mesh:
 
     def group(self, axes: Axes):
         self._check_member()
+        if self.is_dry:
+            raise RuntimeError("a dry mesh has no process groups")
         return self._groups[self.names(axes)]
 
 
@@ -269,12 +337,14 @@ _SCATTER = getattr(dist, "reduce_scatter_single", None) or \
 
 def _gather(x, mesh: Mesh, axes: Axes, dim: int, name: str):
     n = mesh.axis_size(axes)
-    _count(name, x)
-    w = _wire(x.movedim(dim, 0), staged(mesh, "all_gather", x))
-    out = torch.empty((n * w.shape[0],) + tuple(w.shape[1:]),
-                      dtype=w.dtype, device=w.device)
-    _GATHER(out, w, group=mesh.group(axes))
-    return _back(out, x).movedim(0, dim)
+    _count(name, x, n)
+    with own_work.inside():
+        w = _wire(x.movedim(dim, 0), staged(mesh, "all_gather", x))
+        out = torch.empty((n * w.shape[0],) + tuple(w.shape[1:]),
+                          dtype=w.dtype, device=w.device)
+        if not mesh.is_dry:
+            _GATHER(out, w, group=mesh.group(axes))
+        return _back(out, x).movedim(0, dim)
 
 
 def _scatter(x, mesh: Mesh, axes: Axes, dim: int, name: str):
@@ -282,22 +352,26 @@ def _scatter(x, mesh: Mesh, axes: Axes, dim: int, name: str):
     if x.shape[dim] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
                          f"does not divide into {n}")
-    _count(name, x)
-    w = _wire(x.movedim(dim, 0), staged(mesh, "reduce_scatter", x))
-    out = torch.empty((w.shape[0] // n,) + tuple(w.shape[1:]),
-                      dtype=w.dtype, device=w.device)
-    _SCATTER(out, w, group=mesh.group(axes))
-    return _back(out, x).movedim(0, dim)
+    _count(name, x, n)
+    with own_work.inside():
+        w = _wire(x.movedim(dim, 0), staged(mesh, "reduce_scatter", x))
+        out = torch.empty((w.shape[0] // n,) + tuple(w.shape[1:]),
+                          dtype=w.dtype, device=w.device)
+        if not mesh.is_dry:
+            _SCATTER(out, w, group=mesh.group(axes))
+        return _back(out, x).movedim(0, dim)
 
 
 def _reduce(x, mesh: Mesh, axes: Axes, op: str, name: str):
-    _count(name, x)
-    w = _wire(x, staged(mesh, f"all_reduce_{op}", x))
-    if w is x:
-        w = x.clone()
-    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    dist.all_reduce(w, op=red, group=mesh.group(axes))
-    return _back(w, x)
+    _count(name, x, mesh.axis_size(axes))
+    with own_work.inside():
+        w = _wire(x, staged(mesh, f"all_reduce_{op}", x))
+        if w is x:
+            w = x.clone()
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        if not mesh.is_dry:
+            dist.all_reduce(w, op=red, group=mesh.group(axes))
+        return _back(w, x)
 
 
 def _a2a(x, mesh: Mesh, axes: Axes, dim: int, name: str):
@@ -305,28 +379,33 @@ def _a2a(x, mesh: Mesh, axes: Axes, dim: int, name: str):
     if x.shape[dim] % n:
         raise ValueError(f"all_to_all: dim {dim} of {tuple(x.shape)} does "
                          f"not divide into {n}")
-    _count(name, x)
-    w = _wire(x.movedim(dim, 0), staged(mesh, "all_to_all", x))
-    out = torch.empty_like(w)
-    dist.all_to_all_single(out, w, group=mesh.group(axes))
-    return _back(out, x).movedim(0, dim)
+    _count(name, x, n)
+    with own_work.inside():
+        w = _wire(x.movedim(dim, 0), staged(mesh, "all_to_all", x))
+        out = torch.empty_like(w)
+        if not mesh.is_dry:
+            dist.all_to_all_single(out, w, group=mesh.group(axes))
+        return _back(out, x).movedim(0, dim)
 
 
 def _permute(x, mesh: Mesh, axis: str, perm, name: str):
     me = mesh.index(axis)
-    _count(name, x)
-    w = _wire(x, staged(mesh, "ppermute", x))
-    out = w.clone() if (me, me) in perm else torch.zeros_like(w)
-    group = mesh.group(axis)
-    ranks = dist.get_process_group_ranks(group)
-    ops = [dist.P2POp(dist.isend, w, ranks[d], group)
-           for s, d in perm if s == me != d]
-    ops += [dist.P2POp(dist.irecv, out, ranks[s], group)
-            for s, d in perm if d == me != s]
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    return _back(out, x)
+    _count(name, x, mesh.axis_size(axis))
+    with own_work.inside():
+        w = _wire(x, staged(mesh, "ppermute", x))
+        out = w.clone() if (me, me) in perm else torch.zeros_like(w)
+        if mesh.is_dry:
+            return _back(out, x)
+        group = mesh.group(axis)
+        ranks = dist.get_process_group_ranks(group)
+        ops = [dist.P2POp(dist.isend, w, ranks[d], group)
+               for s, d in perm if s == me != d]
+        ops += [dist.P2POp(dist.irecv, out, ranks[s], group)
+                for s, d in perm if d == me != s]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return _back(out, x)
 
 
 # -- their autograd: each backward is the forward's transpose (module

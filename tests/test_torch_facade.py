@@ -122,7 +122,9 @@ def test_port_imports_nothing_of_jax_or_repro():
     workload library, the DSE, the simulation service, the training path,
     the SPMD mechanisms, sharding rules and mesh launcher, and the mesh
     training path (the collectives' backward, ZeRO-1 banking, sharded
-    checkpoints, the mesh ``Trainer``) among them); no ``jax*``, no
+    checkpoints, the mesh ``Trainer``) and the costing tools (the
+    roofline, the counting of a dry run, the dry-run CLI, the kernels'
+    records) among them); no ``jax*``, no
     ``ml_dtypes`` and no ``repro`` / ``repro.*`` module may be loaded.
     (A spawned rank's modules are checked in
     ``tests/test_torch_spmd_models.py`` and, for the training ranks,
@@ -152,7 +154,9 @@ def test_port_imports_nothing_of_jax_or_repro():
         "          'parallel.comm', 'parallel.sharding', 'launch.mesh',\n"
         "          'launch.serve', 'models.transformer', 'models.moe',\n"
         "          'models.base', 'models.convert', 'optim', 'checkpoint',\n"
-        "          'runtime', 'parallel'):\n"
+        "          'runtime', 'parallel', 'launch.roofline',\n"
+        "          'launch.costing', 'launch.dryrun', 'kernels.record',\n"
+        "          'own_work'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")

@@ -663,3 +663,59 @@ def spmd_pipelines(rank, w, x, tf):
                                    for k, v in stage.items()})
     out["modules"] = loaded_modules(rank)
     return out
+
+
+# ---------------------------------------------------------------------------
+# costing: a real step's counts against the same cell's dry run
+# ---------------------------------------------------------------------------
+
+def _count_summary(got):
+    """What a counted run did, as plain data: comm_stats, phase_stats,
+    the kernel records, the collective calls, the aten ops outside
+    kernels and the cost."""
+    return {"comm": got.comm_stats, "phases": got.phase_stats,
+            "records": [dict(r) for r in got.records], "calls": got.calls,
+            "ops": got.ops, "cost": got.cost}
+
+
+def costing_cells(rank, cases, shape=(2, 4)):
+    """{name: {"real": summary, "dry": summary}} of each case (name, cfg,
+    ShapeConfig, strategy, rule overrides, {input: array}): the cell
+    built by ``build_cell`` on the real (data 2, model 4) mesh from
+    ``init_params`` and run once under ``costing.count_cost``, then the
+    same cell on ``Mesh.dry`` of the same shape at this rank's
+    coordinates (``meta``), counted the same way.  Then the first case's
+    real cell runs once more outside any count: ``"after"`` holds the
+    collectives it counted and how many call lists were left open."""
+    from repro_torch.launch import costing
+    from repro_torch.launch.step import build_cell, cell_rules
+    from repro_torch.models.convert import init_params
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.comm import Mesh
+    axes = ("data", "model")
+    mesh = make_test_mesh(shape, axes)
+    out = {"modules": loaded_modules(rank)}
+    cells = []
+    for name, cfg, shp, strategy, overrides, arrays in cases:
+        rules = cell_rules(mesh, cfg, shp, strategy, **overrides)
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                             rules=rules)
+        t = {k: torch.from_numpy(v) for k, v in arrays.items()}
+        inputs = {"tokens": t["tokens"]} if shp.kind == "decode" else \
+            {"batch": t}
+        real = build_cell(cfg, shp, mesh, strategy, params=params,
+                          inputs=inputs, **overrides)
+        dry = build_cell(cfg, shp, Mesh.dry(shape, axes, rank), strategy,
+                         **overrides)
+        out[name] = {
+            "real": _count_summary(costing.count_cost(real.run,
+                                                      keep_ops=True)),
+            "dry": _count_summary(costing.count_cost(dry.run,
+                                                     keep_ops=True))}
+        cells.append(real)
+    comm.reset_comm_stats()
+    cells[0].run()
+    out["after"] = {"calls": sum(v["calls"]
+                                 for v in comm.comm_stats().values()),
+                    "open_lists": len(comm._LISTS)}
+    return out
