@@ -118,7 +118,7 @@ Phases (any failure raises and exits nonzero):
    ``Server`` on the same weights, each with the launch counts set to 0
    just before it and read just after (every kernel and variant not named
    here 0), then where the time goes (the profiler over a warm prefill and
-   over 10 server ticks: device time by kernel category, the device's
+   over 3 server ticks: device time by kernel category, the device's
    idle share):
    - Jamba v0.1's widths, one period of 8 layers (13.27 B parameters):
      1 x 4096 tokens, 1 ``wgmma_tma`` flash, 7 ``tensor_core`` SSD and 12
@@ -171,7 +171,7 @@ Phases (any failure raises and exits nonzero):
    step 5 restored by a fresh ``Trainer``, whose next step's loss equals
    the uninterrupted run's step 6; (5) times, not gated: ms per warm step,
    tokens/s, model FLOP/s, peak memory, the profiler's device time by
-   category over 3 warm steps and the idle share, and the GMM's backward
+   category over one warm step and the idle share, and the GMM's backward
    products beside ``torch.bmm`` with their transposed copies;
 12. ``[spmd]``, serving on a mesh: 4 ranks (data 2 x model 2) started
    by ``repro_torch.launch.mesh.spawn`` share the card and talk over gloo
@@ -292,6 +292,28 @@ Phases (any failure raises and exits nonzero):
    (``qwen2-72b train_4k --mesh pod``, ``jamba-v0.1-52b decode_32k --mesh
    multipod --no-cost``): status ok, no JAX loaded.  The card's name,
    power limit and ``total_memory`` are printed beside ``HW``.
+17. ``[examples]`` (after phase 15): the nine ``examples/torch_*.py``.
+   (1) The four simulator examples through their ``main`` at their
+   defaults on the card (netsim_traffic at 16x32 and 800 cycles,
+   load_latency at 8x8 with every pattern and 300/500/500, mesh_endpoints
+   at 8x8, dse_sweep at 4x4), each with the router's launches by variant
+   read around it and its own assertions; the router's two variants
+   against the plain version at the pattern sweep's shape (1 lane of
+   16x32, one call of 800 cycles).  (2) Qwen1.5-32B's published widths,
+   4 of its 64 layers, fp32, through one card's ``Server`` on the
+   example's 10 requests (the yardstick; freed before the ranks start).
+   (3) One spawn of 8 ranks sharing the card over gloo: pgas,
+   pipeline_parallel, quickstart, serve_decode and train_lm
+   (``EX_TRAIN_LM_STEPS`` steps) at their defaults, then serve_decode at
+   Qwen1.5-32B's widths on data 2 x model 4; each example's report with
+   the reference's assertions, the Qwen tokens identical to the
+   yardstick's, train_lm's two faults and its re-shard, and on every rank
+   and example the flash and GMM launches by variant equal to the fp32
+   calls it made (quickstart and train_lm launch flash, quickstart the
+   GMM in training and decode; the others no kernel).  (4) Each distinct
+   kernel call of quickstart and train_lm against its plain version on
+   the card alone, with its times; the walls on ``[examples]`` lines and
+   the entries in the ``kernels`` line.
 
 It needs a card: without one it prints the reason to stderr and exits 1.
 """
@@ -1637,6 +1659,9 @@ MOONSHOT_TRAIN_LAYERS, MOONSHOT_TRAIN_STEPS = 2, 10
 # Moonshot again under each other remat policy, 3 steps from the same
 # weights on the same batch: losses against the full-remat run's first 3
 MOONSHOT_REMAT_STEPS = 3
+# warm steps under the profiler a training path (reading back the trace
+# of 3 Mamba-2 steps took ~55 s of host time)
+TRAIN_PROFILE_STEPS = 1
 # The model kernels' shapes on the main paths: (name, arch, batch, Sq, Sk,
 # causal) of each flash call of a prefill or a training step, (name, arch,
 # tokens) of each expert FFN's GMM pair (gate/up and down at the capacity
@@ -2101,7 +2126,7 @@ def _device_breakdown(prof, wall_s):
 
 
 def model_profile(device, cfg, params, label, seq=PREFILL_TOKENS,
-                  ticks=10, positions=False, B=1):
+                  ticks=3, positions=False, B=1):
     """Where the time goes: ``torch.profiler`` over one warm full-width
     prefill of B x ``seq`` tokens and over ``ticks`` steady server ticks
     (4 slots generating), device time by kernel category and the device's
@@ -2934,9 +2959,10 @@ def train_path(device, cfg, label, batch, steps, per_step, ckpt_dir=None,
           f"{flops / 1e12:.2f} TFLOP a step: 6 x active non-embedding "
           f"parameters x tokens + attention); first step "
           f"{step_s[0] * 1e3:.1f} ms; peak memory {peak / 2**30:.1f} GiB")
-    # where the time goes: 3 warm steps of the same step function
+    # where the time goes: warm steps of the same step function
+    n = TRAIN_PROFILE_STEPS
     bts = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in data.items()}] * 3
+            for k, v in data.items()}] * n
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2948,18 +2974,18 @@ def train_path(device, cfg, label, batch, steps, per_step, ckpt_dir=None,
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t1
     cats, busy, idle, prof_bwd_gmm = _train_breakdown(prof, pwall)
-    parts = ", ".join(f"{k} {v / 1e3 / 3:.2f} ms" for k, v in
+    parts = ", ".join(f"{k} {v / 1e3 / n:.2f} ms" for k, v in
                       sorted(cats.items(), key=lambda kv: -kv[1]))
-    print(f"[where the time goes] {card}: {label} training, 3 warm steps "
-          f"under the profiler: {pwall / 3 * 1e3:.1f} ms a step, device busy "
-          f"{busy / 3 * 1e3:.1f} ms (idle share {idle:.3f}); {parts}; "
-          f"backward GMM kernels in the profile {prof_bwd_gmm / 3:.0f} a "
+    print(f"[where the time goes] {card}: {label} training, {n} warm "
+          f"step(s) under the profiler: {pwall / n * 1e3:.1f} ms a step, "
+          f"device busy {busy / n * 1e3:.1f} ms (idle share {idle:.3f}); {parts}; "
+          f"backward GMM kernels in the profile {prof_bwd_gmm / n:.0f} a "
           f"step")
     del bts, prof
     rec = dict(losses=losses, total=total, data=data, warm=warm, wall=wall, peak=peak,
-               tokens=tokens, flops=flops, cats={k: v / 1e3 / 3 for k, v
+               tokens=tokens, flops=flops, cats={k: v / 1e3 / n for k, v
                                                  in cats.items()},
-               busy=busy / 3, idle=idle, pwall=pwall / 3,
+               busy=busy / n, idle=idle, pwall=pwall / n,
                bwd_gmm=bwd_gmm[0], nparams=nparams)
     return trainer, rec
 
@@ -5619,6 +5645,404 @@ def spmd_families_entries(fam, replaces):
 
 
 # ----------------------------------------------------------------------
+# [examples]: the nine examples/torch_*.py on the card
+# ----------------------------------------------------------------------
+EXAMPLES_DIR = os.path.join(HERE, "examples")
+EX_WORLD = 8                  # the reference's set_host_device_count(8)
+# train_lm's steps: a step takes 2.8-5.0 s with 8 ranks sharing an H100
+# 80GB HBM3 (700 W) through gloo, so 20 of the reference's 300.  The run
+# is deterministic; its first-10 minus last-10 mean loss, by step count:
+# 20 +0.025, 24 -0.0005 (batches 21-24 are hard ones), 30 +0.020, 40
+# +0.071, 60 +0.204 (PERF.md)
+EX_TRAIN_LM_STEPS = 20
+EX_QWEN_LAYERS = 4            # of Qwen1.5-32B's 64, at its published widths
+EX_LABEL = f"{EX_WORLD} ranks time-sharing one card through gloo"
+# (example key, module, rank function): the five rank examples at their
+# defaults, then torch_serve_decode again at Qwen1.5-32B's widths
+EX_RANK_RUNS = (("pgas", "torch_pgas_scatter_gather", "pgas_rank"),
+                ("pipeline", "torch_pipeline_parallel", "pipeline_rank"),
+                ("quickstart", "torch_quickstart", "quickstart_rank"),
+                ("serve", "torch_serve_decode", "serve_rank"),
+                ("train_lm", "torch_train_lm", "train_rank"),
+                ("serve_qwen1.5_32b", "torch_serve_decode", "serve_rank"))
+
+
+def _qwen_full_cfg():
+    """Qwen1.5-32B at its published widths (d 5120, 40 heads, QKV bias,
+    d_ff 27392, vocab 152064), 4 of its 64 layers, in fp32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen1.5-32b"),
+                               num_layers=EX_QWEN_LAYERS, dtype="float32")
+
+
+def _example_calls_log(calls):
+    """Log every flash and GMM call of ``kernels/ops.py`` (kind, shapes,
+    dtype, (causal, window)) into ``calls``; returns the undo."""
+    from repro_torch.kernels import ops
+    real_flash, real_gmm = ops.flash_attention, ops._gmm_kernel
+
+    def flash_log(q, k, v, **kw):
+        calls.append(("flash", (tuple(q.shape), tuple(k.shape),
+                                tuple(v.shape)), str(q.dtype)[6:],
+                      (kw.get("causal", True), kw.get("window"))))
+        return real_flash(q, k, v, **kw)
+
+    def gmm_log(lhs, rhs):
+        calls.append(("gmm", (tuple(lhs.shape), tuple(rhs.shape)),
+                      str(lhs.dtype)[6:], None))
+        return real_gmm(lhs, rhs)
+    ops.flash_attention, ops._gmm_kernel = flash_log, gmm_log
+
+    def undo():
+        ops.flash_attention, ops._gmm_kernel = real_flash, real_gmm
+    return undo
+
+
+def _examples_rank(rank, plan):
+    """The [examples] program of one rank (8 ranks sharing the card over
+    gloo): each rank example's rank function in turn, as its ``main``
+    would run it, with this rank's wall, launches by kernel and variant
+    (the counts set to 0 just before and read just after), router
+    launches and every flash/GMM call it made."""
+    import collections
+    import importlib
+    import torch
+    import torch.distributed as dist
+    calls = []
+    undo = _example_calls_log(calls)
+    kwargs = {"quickstart": {"ckpt_dir": plan["quickstart_dir"]},
+              "train_lm": plan["train_lm"],
+              "serve_qwen1.5_32b": {"cfg": _qwen_full_cfg()}}
+    out = {}
+    for key, module, fn in EX_RANK_RUNS:
+        run = getattr(importlib.import_module(module), fn)
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        zero_router()
+        calls.clear()
+        t0 = time.perf_counter()
+        res = run(rank, "cuda", **kwargs.get(key, {}))
+        torch.cuda.synchronize()
+        out[key] = dict(result=res, wall=time.perf_counter() - t0,
+                        variants=read_variants(), router=router_counts()[0],
+                        calls=collections.Counter(calls),
+                        peak=torch.cuda.max_memory_allocated())
+        torch.cuda.empty_cache()
+    undo()
+    out["modules"] = sorted(n for n in sys.modules
+                            if n == "jax" or n.startswith("jax.")
+                            or n == "repro" or n.startswith("repro."))
+    return out
+
+
+def _example_router(device, nx=16, ny=32, cycles=800):
+    """The router at torch_netsim_traffic's pattern-sweep shape (1 lane of
+    16x32, uniform traffic, one call of 800 cycles): both variants against
+    the plain version, every state leaf and done column; then each
+    variant's time a call, the plain version's and the bound:
+    {variant: record}."""
+    import torch
+    from repro_torch.kernels import router_step as rs
+    from repro_torch.mesh import MeshConfig, make_traffic
+    from repro_torch.netsim.sim import (STATE_LEAVES, flatten_state,
+                                        init_state, load_program)
+    cfg = MeshConfig(nx=nx, ny=ny, max_out_credits=32).to_sim()
+    prog = load_program(make_traffic("uniform", nx, ny, cycles, seed=0),
+                        device)
+    st = init_state(cfg, device=device)
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    ps, pd, _ = rs.router_step_plain(cfg, prog, st, cycles)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    out = {}
+    for v in rs.VARIANTS:
+        ks, kd, _ = rs._launch(cfg, prog, init_state(cfg, device=device),
+                               cycles, v)
+        err = max([int((kd - pd).abs().max())]
+                  + [int((a.long() - b.long()).abs().max()) for a, b in
+                     zip(flatten_state(ks), flatten_state(ps))])
+        bad = [n for n, a, b in zip(STATE_LEAVES, flatten_state(ks),
+                                    flatten_state(ps)) if not torch.equal(a, b)]
+        check(err == 0 and not bad,
+              f"[examples] router {v} differs from plain at 1 lane x "
+              f"{nx}x{ny}: {bad}")
+        out[v] = dict(err=err, ms=_event_ms(lambda: rs._launch(
+            cfg, prog, init_state(cfg, device=device), cycles, v), 3),
+            completions=int(ks.completed.sum()))
+    bound = _bound(rs.cycle_bytes(cfg, 1) * cycles,
+                   INT_OPS_PER_TILE_CYCLE * nx * ny * cycles, H100_OPS_PER_S)
+    for v, rec in out.items():
+        rec.update(plain_ms=plain_ms, bound=bound,
+                   shape=f"1 lane x {nx}x{ny}, one call of {cycles} cycles "
+                         f"(torch_netsim_traffic's pattern sweep)")
+        print(f"[examples] {card_line()}: router {v} at 1 lane x {nx}x{ny}"
+              f", {cycles} cycles: identical to plain ({rec['completions']}"
+              f" completions), {rec['ms']:.3f} ms a call, plain "
+              f"{plain_ms:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    return out
+
+
+def _example_kernel_check(device, call, seed):
+    """One logged flash/GMM call again on random inputs of its shapes and
+    dtype: kernel against plain, then kernel, plain, library call and
+    bound times: a record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm_mod
+    from repro_torch.kernels import ref
+    kind, shapes, dtype, opts = call
+    dt = getattr(torch, dtype)
+    rnd, _ = _rnd(device, dt, seed)
+    rate = BF16_OPS_PER_S if dt == torch.bfloat16 else H100_OPS_PER_S
+    if kind == "flash":
+        q, k, v = (rnd(*s) for s in shapes)
+        causal, window = opts
+        run = lambda: fa.flash_attention(  # noqa: E731
+            q, k, v, causal=causal, window=window)
+        plain = lambda: ref.flash_attention_ref(  # noqa: E731
+            q, k, v, causal=causal, window=window)
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal, enable_gqa=True)
+        else:
+            i = torch.arange(q.shape[2], device=device)
+            band = (i[None, :] <= i[:, None]) & \
+                (i[None, :] > i[:, None] - window)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=band, enable_gqa=True)
+        nb, ops_ = fa.flash_bound(q, k, causal=causal, window=window)
+        library = "scaled_dot_product_attention"
+    else:
+        lhs = rnd(*shapes[0])
+        rhs = rnd(*shapes[1], scale=shapes[1][1] ** -0.5)
+        run = lambda: gmm_mod.grouped_matmul(lhs, rhs)  # noqa: E731
+        plain = lambda: ref.grouped_matmul_ref(lhs, rhs)  # noqa: E731
+        lib = lambda: torch.bmm(lhs, rhs)  # noqa: E731
+        nb, ops_ = gmm_mod.gmm_bound(lhs, rhs)
+        library = "torch.bmm"
+    err = _compare(f"[examples] {kind}", f"{shapes} {opts}", run(), plain())
+    return dict(err=err, ms=_event_ms(run, 5), plain_ms=_event_ms(plain, 2),
+                library_ms=_event_ms(lib, 5), library=library,
+                bound=_bound(nb, ops_, rate))
+
+
+def examples_phase(device, train_lm_steps=EX_TRAIN_LM_STEPS):
+    """[examples]: the four simulator examples through their ``main`` at
+    their defaults on the card (router launches by variant each), the
+    router against plain at the pattern sweep's shape, Qwen1.5-32B's
+    widths (4 of 64 layers, fp32) through one card's ``Server`` (the
+    yardstick, freed before the ranks start), then one spawn of 8 ranks
+    sharing the card over gloo running the five rank examples and
+    torch_serve_decode at those widths; each example's report and
+    assertions on the ranks' results, launches by kernel and variant on
+    every rank, the Qwen tokens identical to the yardstick's, each
+    logged kernel call against plain on the card alone and timed.
+    Returns the phase's record."""
+    import collections
+    import gc
+    import importlib
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.serve import Server
+    if EXAMPLES_DIR not in sys.path:
+        sys.path.insert(0, EXAMPLES_DIR)    # the ranks inherit it
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="repro_torch_examples_")
+    walls, router = {}, {}
+    try:
+        sims = (("netsim_traffic", []),
+                ("load_latency", ["--out", f"{tmp}/load_latency.json"]),
+                ("mesh_endpoints", []),
+                ("dse_sweep", ["--cache", f"{tmp}/dse_cache",
+                               "--out", f"{tmp}/dse.json"]))
+        res = {}
+        for key, argv in sims:
+            mod = importlib.import_module(f"torch_{key}")
+            torch.cuda.synchronize()
+            zero_router()
+            t0 = time.perf_counter()
+            res[key] = mod.main(argv)          # on the card by default
+            torch.cuda.synchronize()
+            walls[key] = time.perf_counter() - t0
+            router[key] = router_counts()[1]
+            check(sum(router[key].values()) > 0,
+                  f"torch_{key} launched no router kernel")
+            print(f"[examples] {card}: torch_{key} at its defaults: "
+                  f"{walls[key]:.2f} s wall, router launches {router[key]}")
+        credits, thr = res["netsim_traffic"]["credits"]
+        check(thr == sorted(thr) and thr[-1] > thr[0],
+              f"credit sweep throughput not rising with credits: {thr}")
+        check(len(res["load_latency"]["curves"]) >= 5,
+              "load_latency wrote too few curves")
+        check(all(f["frontier"] for f in
+                  res["dse_sweep"]["frontiers"].values()),
+              "a DSE frontier is empty")
+        rtr = _example_router(device)
+
+        # the yardstick: Qwen1.5-32B's widths on the card alone
+        serve_ex = importlib.import_module("torch_serve_decode")
+        cfg = _qwen_full_cfg()
+        t0 = time.perf_counter()
+        server = Server(cfg, slots=serve_ex.SLOTS, max_seq=serve_ex.MAX_SEQ,
+                        device=device)
+        torch.cuda.synchronize()
+        draw = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        yard_ticks, yard = serve_ex.serve(server, cfg)
+        torch.cuda.synchronize()
+        yard_wall = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in server.model.parameters())
+        print(f"[examples] {card}: Qwen1.5-32B widths, {EX_QWEN_LAYERS} of "
+              f"64 layers, fp32 ({n_params / 1e9:.2f} B parameters) on the "
+              f"card alone: draw {draw:.1f} s, {len(yard)} requests in "
+              f"{yard_ticks} ticks, {yard_wall:.2f} s "
+              f"({yard_wall / yard_ticks * 1e3:.1f} ms a tick)")
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        plan = {"quickstart_dir": f"{tmp}/quickstart",
+                "train_lm": dict(steps=train_lm_steps, seq_len=256,
+                                 batch=16, ckpt_dir=f"{tmp}/train_lm")}
+        t0 = time.perf_counter()
+        ranks = spawn(_examples_rank, EX_WORLD, "gloo", device="cuda",
+                      args=(plan,), timeout=1200)
+        spawn_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(all(r["modules"] == [] for r in ranks),
+          f"a rank loaded jax or repro: {ranks[0]['modules']}")
+    lm = ranks[0]["train_lm"]["result"][0]
+    print(f"[examples] torch_train_lm: {len(lm)} steps of the reference's "
+          f"300, losses " + " ".join(f"{x:.3f}" for x in lm[:3]) + " ... "
+          + " ".join(f"{x:.3f}" for x in lm[-3:]))
+    for key, module, _fn in EX_RANK_RUNS:
+        print(f"[examples] {module} ({key}) report:")
+        importlib.import_module(module).report(
+            [r[key]["result"] for r in ranks])
+    qwen = [d[2] for d in ranks[0]["serve_qwen1.5_32b"]["result"][1]]
+    check(qwen == [d[2] for d in yard],
+          "Qwen1.5-32B on data 2 x model 4: tokens differ from the card "
+          "alone's")
+    check(ranks[0]["serve_qwen1.5_32b"]["result"][0] == yard_ticks,
+          "Qwen1.5-32B on the mesh took other ticks than the card alone")
+    events = [e["kind"] for e in ranks[0]["train_lm"]["result"][1]]
+    check(events == ["step_failure", "step_failure", "reshard"],
+          f"train_lm events {events}")
+
+    # launches by kernel and variant on every rank: each logged call one
+    # launch of its dtype's variant (fp32: f32), nothing else
+    kinds = {"flash": "flash_attention", "gmm": "moe_gmm"}
+    for r, rec in enumerate(ranks):
+        for key, _module, _fn in EX_RANK_RUNS:
+            run = rec[key]
+            check(run["router"] == 0, f"rank {r} {key}: router launched")
+            check(all(c[2] == "float32" for c in run["calls"]),
+                  f"rank {r} {key}: a kernel call not in fp32")
+            for kind, name in kinds.items():
+                n = sum(c for call, c in run["calls"].items()
+                        if call[0] == kind)
+                got = {v: c for v, c in run["variants"][name].items() if c}
+                check(got == ({"f32": n} if n else {}),
+                      f"rank {r} {key}: {name} launches {got} != its "
+                      f"{n} fp32 calls")
+            check(run["variants"]["ssd_scan"] == dict.fromkeys(
+                run["variants"]["ssd_scan"], 0), f"rank {r} {key}: SSD ran")
+        for key in ("quickstart", "train_lm"):
+            check(rec[key]["variants"]["flash_attention"].get("f32", 0) > 0,
+                  f"rank {r} {key}: no flash launch")
+        check(rec["quickstart"]["variants"]["moe_gmm"].get("f32", 0) > 0,
+              f"rank {r} quickstart: no GMM launch")
+    for key, module, _fn in EX_RANK_RUNS:
+        w = [r[key]["wall"] for r in ranks]
+        walls[key] = max(w)
+        print(f"[examples] {card}: {module} ({key}) {max(w):.2f} s wall "
+              f"(slowest rank; {EX_LABEL}), launches a rank "
+              + str({n: {v: c for v, c in d.items() if c} for n, d in
+                     ranks[0][key]["variants"].items()})
+              + f", peak {max(r[key]['peak'] for r in ranks) / 2**30:.2f} "
+              f"GiB a rank")
+    print(f"[examples] {card}: the spawn of {EX_WORLD} ranks "
+          f"{spawn_wall:.1f} s wall; the Qwen1.5-32B tokens identical to "
+          f"the card alone's ({len(yard)} requests, {yard_ticks} ticks)")
+
+    # each distinct kernel call against plain on the card alone, timed
+    checks = {}
+    for key in ("quickstart", "train_lm"):
+        seen = collections.Counter()
+        for rec in ranks:
+            seen.update(rec[key]["calls"])
+        for i, call in enumerate(sorted(seen)):
+            checks[call] = _example_kernel_check(device, call, 20 + i)
+        torch.cuda.empty_cache()
+    return dict(walls=walls, router=router, router_times=rtr, ranks=ranks,
+                checks=checks, spawn_wall=spawn_wall,
+                yardstick=dict(wall=yard_wall, ticks=yard_ticks, draw=draw,
+                               params=n_params))
+
+
+def examples_entries(ex, replaces):
+    """The ``kernels`` entries of [examples]: the router per variant with
+    its launches in the four simulator examples, and per rank example and
+    kernel its launches summed over the ranks, its error the worst of its
+    distinct calls against plain, its times at its most frequent call."""
+    import collections
+    out = []
+    for v, t in ex["router_times"].items():
+        by_example = {k: d.get(v, 0) for k, d in ex["router"].items()}
+        if not sum(by_example.values()):
+            continue
+        out.append({
+            "name": f"router_step_examples_{v}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/router_step.cu",
+            "replaces": "src/repro/kernels/router_step.py:114",
+            "launches": sum(by_example.values()),
+            "launches_by_example": by_example, "max_abs_err": t["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": None, "checked_against_plain": True,
+            "variant": v, "path": "[examples] the four simulator examples",
+            "shape": t["shape"]})
+    kinds = {"flash": "flash_attention", "gmm": "moe_gmm"}
+    for key in ("quickstart", "train_lm"):
+        for kind, name in kinds.items():
+            counts = collections.Counter()
+            for rec in ex["ranks"]:
+                counts.update({c: n for c, n in rec[key]["calls"].items()
+                               if c[0] == kind})
+            if not counts:
+                continue
+            top = max(counts, key=counts.get)
+            t = ex["checks"][top]
+            by_rank = [rec[key]["variants"][name]["f32"]
+                       for rec in ex["ranks"]]
+            out.append({
+                "name": f"{name}_examples_{key}", "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces[name], "launches": sum(by_rank),
+                "launches_by_rank": by_rank,
+                "max_abs_err": max(ex["checks"][c]["err"] for c in counts),
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "library_ms": t["library_ms"], "library": t["library"],
+                "checked_against_plain": True, "variant": "f32",
+                "path": f"[examples] torch_{key}, {EX_LABEL}",
+                "shape": f"local {top[1]} {top[2]}"
+                         + (" causal {} window {}".format(*top[3])
+                            if kind == "flash" else ""),
+                "distinct_calls_checked": len(counts)})
+    return out
+
+
+# ----------------------------------------------------------------------
 # [costing]: the costing tools' dry run of the card's own paths
 # ----------------------------------------------------------------------
 COSTING_BAR = 1.05   # a path's compute term may not exceed 1.05 x its wall
@@ -5896,6 +6320,7 @@ def main() -> int:
     spmd_train = spmd_train_phase("cuda")
     pipe = spmd_pipeline_phase("cuda")
     fam = spmd_families_phase("cuda")
+    ex = examples_phase("cuda")
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:86",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
                 "moe_gmm": "src/repro/kernels/moe_gmm.py:44"}
@@ -6009,6 +6434,7 @@ def main() -> int:
     kernels += spmd_train_entries(spmd_train, replaces)
     kernels += spmd_pipeline_entries(pipe, times, errs, bwd_times, replaces)
     kernels += spmd_families_entries(fam, replaces)
+    kernels += examples_entries(ex, replaces)
     for arch, r in trains.items():
         print(f"[summary] {card_line()}: {arch} training {r['tokens']} tokens "
               f"a step: warm step {r['warm'] * 1e3:.1f} ms, "
@@ -6025,6 +6451,9 @@ def main() -> int:
               f"{srv['ticks']} ticks {srv['wall']:.3f} s, "
               f"{srv['tokens'] / srv['wall']:.1f} generated tokens/s, "
               f"{srv['wall'] / srv['ticks'] * 1e3:.1f} ms per tick")
+    print(f"[summary] {card_line()}: [examples] walls "
+          + ", ".join(f"{k} {w:.2f} s" for k, w in ex["walls"].items())
+          + f"; the spawn of {EX_WORLD} ranks {ex['spawn_wall']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s; card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -39,8 +39,8 @@ import torch
 
 from repro_torch.parallel.comm import Mesh
 
-__all__ = ["make_production_mesh", "make_test_mesh", "spawn", "BACKENDS",
-           "HW"]
+__all__ = ["make_production_mesh", "make_test_mesh", "spawn", "rank_device",
+           "BACKENDS", "HW"]
 
 BACKENDS = ("gloo", "nccl")
 
@@ -82,6 +82,13 @@ def make_test_mesh(shape=(2, 4), axes=("data", "model"), device=None,
     """A small mesh over the ranks of the process group (or over
     ``ranks`` of it; collective over the whole group either way)."""
     return Mesh(shape, axes, device, ranks)
+
+
+def rank_device(device) -> str:
+    """The device of a rank that :func:`spawn` started with ``device``:
+    ``"cpu"``, or the card it set for the rank (``cuda:<index>``)."""
+    return "cpu" if str(device) == "cpu" else \
+        f"cuda:{torch.cuda.current_device()}"
 
 
 def _rank_main(fn, rank, world, backend, device, store, args_file,

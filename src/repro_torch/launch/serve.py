@@ -183,10 +183,9 @@ def _serve(cfg, args, mesh=None):
 def _serve_rank(rank, cfg, args):
     """One rank of ``--devices``: a mesh of ``--mesh-shape`` and its
     ``Server``; returns what the CLI prints."""
-    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.mesh import make_test_mesh, rank_device
     shape = tuple(int(x) for x in args.mesh_shape.split(","))
-    device = "cpu" if args.device == "cpu" else \
-        f"cuda:{torch.cuda.current_device()}"
+    device = rank_device(args.device)
     mesh = make_test_mesh(shape, ("data", "model"), device)
     return _serve(cfg, args, mesh)
 

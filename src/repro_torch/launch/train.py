@@ -88,11 +88,9 @@ def _run(cfg, args, mesh=None):
 def _train_rank(rank, cfg, args):
     """One rank of ``--devices``: a mesh of ``--mesh-shape`` and its
     ``Trainer``."""
-    import torch
-    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.mesh import make_test_mesh, rank_device
     shape = tuple(int(x) for x in args.mesh_shape.split(","))
-    device = "cpu" if args.device == "cpu" else \
-        f"cuda:{torch.cuda.current_device()}"
+    device = rank_device(args.device)
     return _run(cfg, args, make_test_mesh(shape, ("data", "model"), device))
 
 

@@ -171,6 +171,8 @@ def unflatten_state(leaves: Sequence[torch.Tensor]) -> SimState:
 
 
 def _per_lane(value, default: int, lanes: int, name: str) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        value = value.cpu().numpy()
     v = np.asarray(default if value is None else value, np.int64)
     if v.ndim == 0:
         v = np.full((lanes,), int(v), np.int64)
@@ -186,13 +188,14 @@ def init_state(cfg: SimConfig, fifo_depth=None, max_credits=None,
     program loaded).
 
     ``fifo_depth`` / ``max_credits`` default to the config capacities and
-    may be scalars or one value per lane (``lanes`` is then inferred).
+    may be scalars or one value per lane (a sequence, array or tensor;
+    ``lanes`` is then inferred).
     ``device`` is ``"cuda"`` unless the caller asks for ``"cpu"``; with no
     card and no explicit ``"cpu"`` this raises.
     """
     device = resolve_device(device)
     if lanes is None:
-        lanes = max([np.size(v) for v in (fifo_depth, max_credits)
+        lanes = max([len(v) for v in (fifo_depth, max_credits)
                      if v is not None and np.ndim(v) > 0] or [1])
     B, ny, nx, L = int(lanes), cfg.ny, cfg.nx, cfg.resp_latency
     d = _per_lane(fifo_depth, cfg.router_fifo, B, "fifo_depth")

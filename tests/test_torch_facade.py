@@ -164,3 +164,27 @@ def test_port_imports_nothing_of_jax_or_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 84
+
+
+def test_port_examples_import_nothing_of_jax_or_repro():
+    """A fresh interpreter imports every ``examples/torch_*.py`` (nine: the
+    counterparts of the reference's examples); no ``jax*``, no
+    ``ml_dtypes`` and no ``repro`` / ``repro.*`` module may be loaded.
+    (Their ranks' modules are checked in ``tests/test_torch_examples.py``.)"""
+    import pathlib
+    examples = pathlib.Path(__file__).resolve().parents[1] / "examples"
+    names = sorted(p.stem for p in examples.glob("torch_*.py"))
+    assert len(names) == 9, names
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(examples)!r})\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib'))\n"
+        "             or n == 'repro' or n.startswith('repro.')\n"
+        "             or n == 'ml_dtypes' or n.startswith('ml_dtypes.'))\n"
+        "assert not bad, bad\n"
+        f"assert all(n in sys.modules for n in {names!r})\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

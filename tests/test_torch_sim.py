@@ -227,6 +227,19 @@ def test_config_and_state_validation():
         init_state(cfg, fifo_depth=5, device="cpu")
     with pytest.raises(ValueError, match="one value per lane"):
         init_state(cfg, fifo_depth=[1, 2], lanes=3, device="cpu")
+
+
+@pytest.mark.parametrize("per_lane", [list, np.asarray, torch.tensor])
+def test_init_state_infers_lanes_from_per_lane_values(per_lane):
+    """One value a lane as a list, an array or a tensor: the lane count
+    is its length, each lane holds its own value."""
+    cfg = SimConfig(nx=2, ny=2, max_out_credits=64)
+    st = init_state(cfg, max_credits=per_lane([1, 2, 4]),
+                    fifo_depth=per_lane([2, 1, 2]), device="cpu")
+    assert st.cycle.shape == (3,)
+    assert st.max_credits.tolist() == [1, 2, 4]
+    assert st.fifo_depth.tolist() == [2, 1, 2]
+    assert st.credits[:, 0, 0].tolist() == [1, 2, 4]
     with pytest.raises(ValueError, match="cycles_per_call"):
         simulate(cfg, load_program(make_traffic("uniform", 2, 2, 2), "cpu"),
                  init_state(cfg, device="cpu"), 3, 0)

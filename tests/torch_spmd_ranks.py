@@ -719,3 +719,27 @@ def costing_cells(rank, cases, shape=(2, 4)):
                                  for v in comm.comm_stats().values()),
                     "open_lists": len(comm._LISTS)}
     return out
+
+
+# ---------------------------------------------------------------------------
+# the examples: the five rank examples of examples/torch_*.py in one world
+# ---------------------------------------------------------------------------
+
+def examples(rank, plan):
+    """Each rank example's rank function in turn, on the CPU, at the
+    sizes of ``plan`` (the example modules import by name: their
+    directory is on the parent's ``sys.path``, which the ranks inherit):
+    {example: its rank's result}, and the modules this rank loaded."""
+    import torch_pgas_scatter_gather as pgas_ex
+    import torch_pipeline_parallel as pipe_ex
+    import torch_quickstart as quick_ex
+    import torch_serve_decode as serve_ex
+    import torch_train_lm as train_ex
+    return {
+        "pgas": pgas_ex.pgas_rank(rank, "cpu"),
+        "pipeline": pipe_ex.pipeline_rank(rank, "cpu"),
+        "quickstart": quick_ex.quickstart_rank(rank, "cpu",
+                                               **plan["quickstart"]),
+        "serve": serve_ex.serve_rank(rank, "cpu"),
+        "train_lm": train_ex.train_rank(rank, "cpu", **plan["train_lm"]),
+        "modules": loaded_modules(rank)}
