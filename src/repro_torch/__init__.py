@@ -46,10 +46,12 @@ A package of its own beside the JAX reference ``repro``; it imports
   collectives, and the sharding rules (counterpart of ``repro.parallel``);
 * :mod:`repro_torch.core` — the paper's SPMD mechanisms (PGAS addressing,
   XY collectives, credits, remote store / load / CAS, token queues, the
-  endpoint, barrier and mutex), the network constants and the oracle.
+  endpoint, barrier and mutex), the network constants and the oracle;
+* :mod:`repro_torch.obs` — the program's spans and counters, on while a
+  profiler records.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 __all__ = ["checkpoint", "configs", "core", "data", "dse", "kernels",
-           "launch", "mesh", "models", "netsim", "optim", "parallel",
-           "runtime", "sim_service", "workloads"]
+           "launch", "mesh", "models", "netsim", "obs", "optim",
+           "parallel", "runtime", "sim_service", "workloads"]

@@ -50,9 +50,8 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
-from repro_torch import optim
+from repro_torch import obs, optim
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import Rules, make_rules
@@ -114,8 +113,8 @@ def train_step(model, opt_cfg: optim.OptConfig, opt_state: Dict[str, Any],
     before the loss and every gradient exist, so a step that raises before
     then can be retried.  Returns {"loss", "ce"[, "moe_aux"], "grad_norm",
     "lr"} as 0-d tensors, as the reference's step does.  The three phases
-    are profiler ranges (``train_step: loss``, ``: backward``,
-    ``: optimizer``), free unless a profiler runs.
+    are spans (``train_step: loss``, ``: backward``, ``: optimizer``;
+    ``repro_torch.obs``), free unless a profiler runs.
 
     On a mesh (``rules``, or the model's own; collective: every rank calls
     it in lockstep with the global batch) the loss is the global loss,
@@ -135,15 +134,15 @@ def train_step(model, opt_cfg: optim.OptConfig, opt_state: Dict[str, Any],
     # the backward, where a rematerialised layer slices them again
     # (models/base.py::TableModule.layer_views)
     with model.layer_views():
-        with record_function("train_step: loss"), _phase(rules, "loss"):
+        with obs.span("train_step: loss"), _phase(rules, "loss"):
             loss, metrics = model.loss(batch, remat=remat, **(
                 {} if rules is None else {"rules": rules}))
-        with record_function("train_step: backward"), \
+        with obs.span("train_step: backward"), \
                 _phase(rules, "backward"):
             loss.backward()
     grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
              for k, p in params.items()}
-    with record_function("train_step: optimizer"), \
+    with obs.span("train_step: optimizer"), \
             _phase(rules, "optimizer"):
         _, _, om = optim.apply(opt_cfg, params, grads, opt_state, **on_mesh)
     for p in params.values():
@@ -162,15 +161,18 @@ def prefill_step(model, batch: Dict[str, torch.Tensor],
                  rules: Optional[Rules] = None) -> torch.Tensor:
     """(B, V) next-token logits of ``batch["tokens"]`` (B, S) (optional
     ``batch["positions"]``, (B, S) or (3, B, S); ``batch["frames"]`` for
-    the audio family); on a mesh under ``rules``."""
+    the audio family); on a mesh under ``rules``.  The step is the root
+    span ``prefill_step`` (``repro_torch.obs``)."""
     kwargs = {}
     if model.cfg.family == "audio":
         kwargs["frames"] = batch["frames"]
     if rules is not None:
         kwargs["rules"] = rules
-    logits, _aux = model(batch["tokens"], positions=batch.get("positions"),
-                         last_only=True, **kwargs)
-    return logits[:, 0]
+    with obs.span("prefill_step"):
+        logits, _aux = model(batch["tokens"],
+                             positions=batch.get("positions"),
+                             last_only=True, **kwargs)
+        return logits[:, 0]
 
 
 @torch.no_grad()

@@ -28,10 +28,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                      create_selective_checkpoint_contexts)
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.parallel import comm
@@ -345,7 +345,7 @@ class TableModule(nn.Module):
         ``batch["labels"]`` (masked by ``batch["mask"]`` when present);
         for the ``moe`` families plus ``AUX_COEF`` times the load-balance
         loss.  Returns (loss, {"ce"[, "moe_aux"]})."""
-        with record_function("cross_entropy"):
+        with obs.span("cross_entropy"):
             ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
         if moe:
             return ce + AUX_COEF * aux, {"ce": ce, "moe_aux": aux}

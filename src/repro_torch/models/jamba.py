@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.sharding import Layout, Rules
 from . import mamba2, moe as moe_mod
@@ -182,9 +183,10 @@ class Jamba(TableModule):
             out, aux = moe_mod.moe_block(h, lp, cfg)
             return x + out, aux, (di, mi + 1)
         h = rms_norm(x, self._p("periods/mlp_norm")[per, di], cfg.norm_eps)
-        out = swiglu(h, self._p("periods/w_gate")[per, di],
-                     self._p("periods/w_up")[per, di],
-                     self._p("periods/w_down")[per, di])
+        with obs.span("mlp"):
+            out = swiglu(h, self._p("periods/w_gate")[per, di],
+                         self._p("periods/w_up")[per, di],
+                         self._p("periods/w_down")[per, di])
         return x + out, torch.zeros((), dtype=F32, device=x.device), \
             (di + 1, mi)
 
@@ -203,8 +205,9 @@ class Jamba(TableModule):
                 x = attn_block(x, lp, cfg, positions)
             else:
                 lp = self._mamba(per, i)
-                h = rms_norm(x, lp["norm"], cfg.norm_eps)
-                x = x + mamba2.mixer_apply(lp, h, cfg)
+                with obs.span("mamba"):
+                    h = rms_norm(x, lp["norm"], cfg.norm_eps)
+                    x = x + mamba2.mixer_apply(lp, h, cfg)
             x, a, counters = self._mlp(x, per, i, counters)
             aux = aux + a
         return x, aux
@@ -218,7 +221,9 @@ class Jamba(TableModule):
         ``last_only`` computes the logits of the last position only
         (serving prefill); ``remat="full"`` rematerialises each period in
         the backward.  On a mesh every rank passes the global tokens and
-        gets the global logits."""
+        gets the global logits.  On one card the embedding and the head
+        (final norm and LM head) are the spans ``embed`` and ``head``, each
+        mixer with its norm ``mamba``, each dense SwiGLU ``mlp``."""
         cfg = self.cfg
         NP = cfg.num_layers // cfg.attn_period
         B, S = tokens.shape
@@ -231,15 +236,17 @@ class Jamba(TableModule):
             x, aux = self._spmd_trunk(tokens, positions, rules, lay, remat)
             return self._spmd_out(x, last_only, rules, lay,
                                   self.layout_specs(cfg, rules)), aux
-        x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
+        with obs.span("embed"):
+            x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
         aux = torch.zeros((), dtype=F32, device=x.device)
         for per in range(NP):
             x, a = run_layer(self._period, remat, x, per, positions)
             aux = aux + a
-        if last_only:
-            x = x[:, -1:]
-        x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)
-        return x @ self._p("lm_head"), aux
+        with obs.span("head"):
+            if last_only:
+                x = x[:, -1:]
+            x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)
+            return x @ self._p("lm_head"), aux
 
     # -- on a mesh ---------------------------------------------------------
     def _spmd_mlp(self, x, per: int, i: int, counters, rules: Rules,

@@ -53,6 +53,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import ssd_scan_op
 from repro_torch.parallel import comm
@@ -162,7 +163,8 @@ def _causal_conv(x, w, b):
 def mixer_apply(lp: Dict[str, torch.Tensor], x: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """One Mamba-2 mixer over a sequence, x (B, S, D) -> (B, S, D)
-    (pre-norm and residual are the caller's)."""
+    (pre-norm and residual are the caller's); the SSD op, its layout
+    copies included, is the span ``mamba.ssd``."""
     s, di, nh, conv_dim, _ = _dims(cfg)
     Bsz, S, _D = x.shape
     G, N, P = s.num_groups, s.state_dim, s.head_dim
@@ -176,7 +178,8 @@ def mixer_apply(lp: Dict[str, torch.Tensor], x: torch.Tensor,
     Cmat = Cmat.reshape(Bsz, S, G, N)
     dt = F.softplus(dt.to(F32) + lp["dt_bias"])
     A = -torch.exp(lp["A_log"].to(F32))
-    y = ssd_scan_op(xs, dt.to(x.dtype), Bmat, Cmat, A, chunk=s.chunk)
+    with obs.span("mamba.ssd"):
+        y = ssd_scan_op(xs, dt.to(x.dtype), Bmat, Cmat, A, chunk=s.chunk)
     y = y + xs * lp["D_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(Bsz, S, di)
     y = rms_norm(y * F.silu(z.to(F32)).to(x.dtype), lp["gate_norm"],

@@ -45,16 +45,22 @@ passes with no gradient, and the GMM's backward runs at each rank's
 local experts and capacity rows.  Drops differ by layout at low
 capacity, as in the reference (each FIFO sees other tokens); with a
 capacity that drops nothing every mode computes the same function.
-:func:`counting_drops` collects the dropped assignments of each call.
+Every mode counts, while ``repro_torch.obs`` records, the assignments
+each FIFO stage dropped (``moe.dropped``) and, at the buffers that reach
+the expert FFN, the assignments kept (``moe.kept``) and the rows the
+grouped products compute (``moe.gmm_rows``), once a call;
+:func:`counting_drops` collects ``moe.dropped`` alone.  Its spans are
+``moe`` (the block), ``moe.route`` (routing and each FIFO),
+``moe.dispatch``, ``moe.gmm`` (each grouped product) and ``moe.combine``.
 """
 from __future__ import annotations
 
-import contextlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.kernels.ops import grouped_matmul
 from repro_torch.parallel import comm
@@ -63,25 +69,26 @@ from repro_torch.parallel.sharding import Layout
 __all__ = ["capacity", "router_topk", "moe_block", "moe_mode",
            "counting_drops"]
 
-_DROPS: Optional[List[torch.Tensor]] = None
-
-
-@contextlib.contextmanager
 def counting_drops():
-    """Within the block, each MoE call appends the number of assignments
-    this rank dropped (a 0-d tensor; no host sync) to the yielded list."""
-    global _DROPS
-    _DROPS, outer = [], _DROPS
-    try:
-        yield _DROPS
-    finally:
-        _DROPS = outer
+    """Within the block, each MoE call adds to the yielded list the
+    ``moe.dropped`` values it counts: each FIFO stage's number of
+    assignments this rank dropped, a 0-d tensor (no host sync).  Only
+    that counter is on (``obs.collecting``); no span records."""
+    return obs.collecting("moe.dropped")
 
 
 def _dropped(keep: torch.Tensor, valid=None) -> None:
-    if _DROPS is not None:
+    if obs.active("moe.dropped"):
         lost = ~keep if valid is None else valid & ~keep
-        _DROPS.append(lost.sum())
+        obs.count("moe.dropped", lost.sum())
+
+
+def _ffn_counts(keep: torch.Tensor, rows: int) -> None:
+    """Once a call, at the buffers that reach the expert FFN: the
+    assignments kept in them and the buffers' rows."""
+    if obs.active():
+        obs.count("moe.kept", keep.sum())
+        obs.count("moe.gmm_rows", rows)
 
 F32 = torch.float32
 
@@ -97,14 +104,15 @@ def router_topk(x2d: torch.Tensor, w_router: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routing in fp32.  x2d: (T, D).  Returns (idx (T, k), weights
     (T, k) renormalised, Switch load-balance aux loss)."""
-    logits = x2d.to(F32) @ w_router.to(F32)
-    probs = torch.softmax(logits, dim=-1)
-    weights, idx = torch.topk(probs, k, dim=-1)
-    weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
-    E = w_router.shape[-1]
-    me = probs.mean(0)
-    ce = _one_hot(idx[:, 0], E).to(F32).mean(0)
-    return idx, weights, E * (me * ce).sum()
+    with obs.span("moe.route"):
+        logits = x2d.to(F32) @ w_router.to(F32)
+        probs = torch.softmax(logits, dim=-1)
+        weights, idx = torch.topk(probs, k, dim=-1)
+        weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+        E = w_router.shape[-1]
+        me = probs.mean(0)
+        ce = _one_hot(idx[:, 0], E).to(F32).mean(0)
+        return idx, weights, E * (me * ce).sum()
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -117,42 +125,50 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 def _fifo_slots(assign: torch.Tensor, num_experts: int, cap: int):
     """Slot of each assignment in its expert's FIFO, in arrival order:
     (slot, keep = slot < cap)."""
-    onehot = _one_hot(assign, num_experts)
-    ranks = torch.cumsum(onehot, dim=0) - onehot
-    slot = ranks.gather(1, assign[:, None])[:, 0]
-    return slot, slot < cap
+    with obs.span("moe.route"):
+        onehot = _one_hot(assign, num_experts)
+        ranks = torch.cumsum(onehot, dim=0) - onehot
+        slot = ranks.gather(1, assign[:, None])[:, 0]
+        return slot, slot < cap
 
 
 def _dispatch(x2d, assign, slot, keep, num_experts: int, cap: int):
     """Scatter assignments into (E, cap, D) capacity buffers; dropped ones
     land in a sink row that is cut off."""
-    T_k = assign.shape[0]
-    token_of = torch.arange(T_k, device=x2d.device) // (T_k // x2d.shape[0])
-    e_idx = torch.where(keep, assign, num_experts)
-    buf = torch.zeros((num_experts + 1, cap, x2d.shape[1]), dtype=x2d.dtype,
-                      device=x2d.device)
-    buf.index_put_((e_idx, slot.clamp_max(cap - 1)), x2d[token_of],
-                   accumulate=True)
-    return buf[:num_experts]
+    with obs.span("moe.dispatch"):
+        T_k = assign.shape[0]
+        token_of = torch.arange(T_k, device=x2d.device) \
+            // (T_k // x2d.shape[0])
+        e_idx = torch.where(keep, assign, num_experts)
+        buf = torch.zeros((num_experts + 1, cap, x2d.shape[1]),
+                          dtype=x2d.dtype, device=x2d.device)
+        buf.index_put_((e_idx, slot.clamp_max(cap - 1)), x2d[token_of],
+                       accumulate=True)
+        return buf[:num_experts]
 
 
 def _combine(buf_out, assign, slot, keep, weights2d, T: int):
     """Gather expert outputs back to token order, weighted in fp32."""
-    gathered = buf_out[torch.where(keep, assign, 0),
-                       slot.clamp_max(buf_out.shape[1] - 1)]
-    gathered = torch.where(keep[:, None], gathered, 0)
-    k = assign.shape[0] // T
-    gathered = gathered.reshape(T, k, -1)
-    return (gathered.to(F32) * weights2d[..., None]).sum(1)
+    with obs.span("moe.combine"):
+        gathered = buf_out[torch.where(keep, assign, 0),
+                           slot.clamp_max(buf_out.shape[1] - 1)]
+        gathered = torch.where(keep[:, None], gathered, 0)
+        k = assign.shape[0] // T
+        gathered = gathered.reshape(T, k, -1)
+        return (gathered.to(F32) * weights2d[..., None]).sum(1)
 
 
 def _expert_ffn(buf, w_gate, w_up, w_down):
     """(E, cap, D) -> (E, cap, D): the expert SwiGLU as three grouped
-    matmuls."""
-    g = grouped_matmul(buf, w_gate)
-    u = grouped_matmul(buf, w_up)
+    matmuls (each a ``moe.gmm`` span; the activation between them is
+    the block's own)."""
+    with obs.span("moe.gmm"):
+        g = grouped_matmul(buf, w_gate)
+    with obs.span("moe.gmm"):
+        u = grouped_matmul(buf, w_up)
     h = (F.silu(g.to(F32)) * u.to(F32)).to(buf.dtype)
-    return grouped_matmul(h, w_down)
+    with obs.span("moe.gmm"):
+        return grouped_matmul(h, w_down)
 
 
 def _single(x, params, m):
@@ -165,6 +181,7 @@ def _single(x, params, m):
     cap = capacity(T, m)
     slot, keep = _fifo_slots(assign, m.num_experts, cap)
     _dropped(keep)
+    _ffn_counts(keep, m.num_experts * cap)
     buf = _dispatch(x2d, assign, slot, keep, m.num_experts, cap)
     out_buf = _expert_ffn(buf, params["w_gate"], params["w_up"],
                           params["w_down"])
@@ -210,11 +227,13 @@ def _moe_dense_layout(x, params, m, rules, lay: Layout, expert_axis,
         e0 = rules.mesh.index(expert_axis) * e_loc
         local = assign - e0
         mine = keep & (local >= 0) & (local < e_loc)
+        _ffn_counts(mine, e_loc * cap)
         buf = _dispatch(x2d, local, slot, mine, e_loc, cap)
         out_buf = _expert_ffn(buf, params["w_gate"], params["w_up"],
                               params["w_down"])
         out = _combine(out_buf, local, slot, mine, weights, T)
     else:
+        _ffn_counts(keep, m.num_experts * cap)
         buf = _dispatch(x2d, assign, slot, keep, m.num_experts, cap)
         out_buf = _expert_ffn(buf, params["w_gate"], params["w_up"],
                               params["w_down"])          # partial over F
@@ -247,6 +266,7 @@ def _moe_local(x, params, m, rules, lay: Layout):
     cap = capacity(T_l, m)                     # per-rank FIFO provisioning
     slot, keep = _fifo_slots(assign, m.num_experts, cap)
     _dropped(keep)
+    _ffn_counts(keep, m.num_experts * cap)
     buf = _dispatch(x2d, assign, slot, keep, m.num_experts, cap)
     out_buf = _expert_ffn(buf, params["w_gate"], params["w_up"],
                           params["w_down"])      # partial over ff shards
@@ -272,11 +292,12 @@ def _moe_local(x, params, m, rules, lay: Layout):
 def _slots_buffer(n, cap, idx, slot, rows, dtype):
     """(n, cap, ...) buffer of ``dtype`` with ``rows`` added at (idx,
     slot); ``idx == n`` is the discarded sink."""
-    buf = torch.zeros((n + 1, cap) + tuple(rows.shape[1:]), dtype=dtype,
-                      device=rows.device)
-    buf.index_put_((idx, slot.clamp_max(cap - 1)), rows.to(dtype),
-                   accumulate=True)
-    return buf[:n]
+    with obs.span("moe.dispatch"):
+        buf = torch.zeros((n + 1, cap) + tuple(rows.shape[1:]),
+                          dtype=dtype, device=rows.device)
+        buf.index_put_((idx, slot.clamp_max(cap - 1)), rows.to(dtype),
+                       accumulate=True)
+        return buf[:n]
 
 
 def _moe_xy(x, params, m, rules, lay: Layout):
@@ -342,6 +363,7 @@ def _moe_xy(x, params, m, rules, lay: Layout):
     slot3, keep3 = _fifo_slots(e_local.clamp(0, e_loc), e_loc + 1, cap3)
     keep3 &= e_here >= 0
     _dropped(keep3, e_here >= 0)
+    _ffn_counts(keep3, e_loc * cap3)
     el_idx = torch.where(keep3, e_local, e_loc)
     ebuf = _slots_buffer(e_loc, cap3, el_idx, slot3, toks, x.dtype)
     eout = _expert_ffn(ebuf, params["w_gate"], params["w_up"],
@@ -399,14 +421,15 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
     block."""
     m = cfg.moe
     mode = moe_mode(cfg, rules)
-    if rules is None:
-        return _single(x, params, m)
-    if mode in ("xy", "x"):
-        return _moe_xy(x, params, m, rules, layout)
-    if mode == "local":
-        return _moe_local(x, params, m, rules, layout)
-    if mode == "ep":
-        return _moe_dense_layout(x, params, m, rules, layout,
-                                 rules._clean(rules.experts), None)
-    return _moe_dense_layout(x, params, m, rules, layout, None,
-                             rules.dim_axis(rules.ff, m.d_ff_expert))
+    with obs.span("moe"):
+        if rules is None:
+            return _single(x, params, m)
+        if mode in ("xy", "x"):
+            return _moe_xy(x, params, m, rules, layout)
+        if mode == "local":
+            return _moe_local(x, params, m, rules, layout)
+        if mode == "ep":
+            return _moe_dense_layout(x, params, m, rules, layout,
+                                     rules._clean(rules.experts), None)
+        return _moe_dense_layout(x, params, m, rules, layout, None,
+                                 rules.dim_axis(rules.ff, m.d_ff_expert))

@@ -67,6 +67,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.parallel import comm
@@ -200,36 +201,43 @@ def attn_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
     The reference repeats KV to the H query heads before attention when it
     runs without rules; the flash kernel reads the K KV heads natively
     (query head h reads KV head h // (H / K)), which gives the same
-    result without the copy."""
+    result without the copy.  Spans: ``attention`` > ``attention.flash``
+    (the op, its layout copies included)."""
     B, S, _D = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    src = h if kv_x is None else kv_x
-    kp = positions if kv_positions is None else kv_positions
-    q, k, v = h @ lp["wq"], src @ lp["wk"], src @ lp["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = _rotate(q.reshape(B, S, H, hd), cfg, positions)
-    k = _rotate(k.reshape(B, src.shape[1], K, hd), cfg, kp)
-    v = v.reshape(B, src.shape[1], K, hd)
-    out = flash_attention_op(q, k, v, causal=causal,
-                             window=cfg.sliding_window)
-    return x + out.reshape(B, S, H * hd) @ lp["wo"]
+    with obs.span("attention"):
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        src = h if kv_x is None else kv_x
+        kp = positions if kv_positions is None else kv_positions
+        q, k, v = h @ lp["wq"], src @ lp["wk"], src @ lp["wv"]
+        if cfg.qkv_bias:
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q = _rotate(q.reshape(B, S, H, hd), cfg, positions)
+        k = _rotate(k.reshape(B, src.shape[1], K, hd), cfg, kp)
+        v = v.reshape(B, src.shape[1], K, hd)
+        with obs.span("attention.flash"):
+            out = flash_attention_op(q, k, v, causal=causal,
+                                     window=cfg.sliding_window)
+        return x + out.reshape(B, S, H * hd) @ lp["wo"]
 
 
 def mlp_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
               cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MLP (dense SwiGLU, MoE, or both) with its residual, x
-    (B, S, D); returns (x, MoE aux loss)."""
+    (B, S, D); returns (x, MoE aux loss).  The dense SwiGLU is the span
+    ``mlp``; the MoE's are ``moe_block``'s."""
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     aux = torch.zeros((), dtype=F32, device=x.device)
     if cfg.moe is None:
-        return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), aux
+        with obs.span("mlp"):
+            return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), \
+                aux
     out, aux = moe_mod.moe_block(
         h, {"router": lp["router"], "w_gate": lp["moe_gate"],
             "w_up": lp["moe_up"], "w_down": lp["moe_down"]}, cfg)
     if cfg.d_ff > 0:
-        out = out + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+        with obs.span("mlp"):
+            out = out + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
     return x + out, aux
 
 
@@ -477,7 +485,8 @@ class Transformer(TableModule):
         ``remat="full"`` rematerialises each layer in the backward.  On a
         mesh (the model's ``rules``, or ``rules`` laying the parameters
         out alike) every rank passes the global tokens and positions and
-        gets the global logits."""
+        gets the global logits.  On one card the embedding and the head
+        (final norm and LM head) are the spans ``embed`` and ``head``."""
         cfg = self.cfg
         if positions is None:
             positions = self._positions(tokens)
@@ -488,15 +497,17 @@ class Transformer(TableModule):
             x, aux = self._spmd_trunk(tokens, positions, rules, lay, remat)
             return self._spmd_out(x, last_only, rules, lay,
                                   self.layout_specs(cfg, rules)), aux
-        x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
+        with obs.span("embed"):
+            x = embed_lookup(self._p("embed"), tokens).to(cfg.param_dtype)
         aux = torch.zeros((), dtype=F32, device=x.device)
         for i in range(cfg.num_layers):
             x, a = run_layer(self._block, remat, x, i, positions)
             aux = aux + a
-        if last_only:
-            x = x[:, -1:]
-        x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)
-        return x @ self._head(), aux
+        with obs.span("head"):
+            if last_only:
+                x = x[:, -1:]
+            x = rms_norm(x, self._p("final_norm"), cfg.norm_eps)
+            return x @ self._head(), aux
 
     # -- on a mesh ---------------------------------------------------------
     def _spmd_mlp(self, x: torch.Tensor, lp, rules: Rules, lay: Layout,
