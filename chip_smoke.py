@@ -121,12 +121,14 @@ Phases (any failure raises and exits nonzero):
    over 3 server ticks: device time by kernel category, the device's
    idle share):
    - Jamba v0.1's widths, one period of 8 layers (13.27 B parameters):
-     1 x 4096 tokens, 1 ``wgmma_tma`` flash, 7 ``tensor_core`` SSD and 12
-     ``tma`` GMM; ``Server`` of 8 requests of 8 prompt tokens, 8 new
-     tokens each, 4 slots: 12 ``decode`` GMM a tick;
+     1 x 4096 tokens, 1 ``wgmma_tma`` flash, 7 ``tensor_core`` SSD and 8
+     GMM (in each of 4 MoE layers the fused gate/up, ``tma_swiglu``, and
+     the down product, ``tma``); ``Server`` of 8 requests of 8 prompt
+     tokens, 8 new tokens each, 4 slots: 12 ``decode`` GMM a tick (3 a
+     layer: a decode tick's rows are never fused);
    - Mixtral-8x7B's widths, 8 of 32 layers (11.87 B): 1 x 8192 tokens,
-     8 ``wgmma_tma`` flash and 24 ``tma`` GMM; the same ``Server``: 24
-     ``decode`` GMM a tick;
+     8 ``wgmma_tma`` flash, 8 ``tma_swiglu`` and 8 ``tma`` GMM; the same
+     ``Server``: 24 ``decode`` GMM a tick;
    - Qwen2-VL-72B's widths, 4 of 80 layers (6.00 B): 1 x 4096 tokens
      with (3, 1, S) positions, 4 ``wgmma_tma`` flash; a ``Server`` of 4
      requests (no kernel in decode);
@@ -142,7 +144,14 @@ Phases (any failure raises and exits nonzero):
    without the window), the GMM beside ``torch.bmm``, the SSD beside the
    models' own chunked PyTorch (``models/mamba2.py::ssd_chunked``, a
    yardstick, not a library call) with its passes' device time and its
-   fp32 (``cuda_core``) time; the decode/tma cut-over; then the ``kernels`` JSON line (one entry per
+   fp32 (``cuda_core``) time; the decode/tma cut-over; the fused gate/up
+   (``tma_swiglu``) at the benchmark cells' largest and smallest prefill
+   capacities (Mixtral 5,128 and 648 rows, Jamba 2,568 and 168) against
+   the unfused chain on the card (two ``tma`` launches, the fp32 SiLU x
+   up: every element within one bf16 ulp) and against its plain version
+   ``ref.grouped_swiglu_ref`` (within a bound derived from the rounding of
+   g and u, ``_swiglu_tol``, which must refuse gate and up swapped), both
+   timed, with the memory each allocates; then the ``kernels`` JSON line (one entry per
    kernel variant and shape on the main paths, the router's with its
    launches by path and one at the DSE bucket's shape) and the ``ok``
    line;
@@ -187,13 +196,15 @@ Phases (any failure raises and exits nonzero):
    same model unsharded on the card (within 2e-2 of the largest logit,
    the bf16 bar of ``[train ops]``); (3) Mixtral's widths, 2 of 32
    layers, a 2 x 8192 prefill in the ``xy``, ``ep`` and ``local``
-   dispatch modes at the published capacity factor (2 flash and 6 ``tma``
-   GMM a rank each, the drops printed) and again at a factor that drops
-   nothing (2 x 4096 tokens), where the three modes' logits agree within
-   2e-2; (4) each rank's distinct flash and GMM calls against their plain
-   versions at its local shapes; (5) the fp32 mesh ``Server`` at
-   Mixtral's widths (8 requests, 4 slots: rows over ``data``, the KV
-   cache over ``model``, the MoE ``ep``; 6 ``f32`` GMM a tick a rank),
+   dispatch modes at the published capacity factor (2 flash, 2
+   ``tma_swiglu`` and 2 ``tma`` GMM a rank each, the drops printed) and
+   again at a factor that drops nothing (2 x 4096 tokens), where the
+   three modes' logits agree within 2e-2; (4) each rank's distinct flash
+   and GMM calls against their plain versions at its local shapes, its
+   fused gate/up calls against the unfused chain on the card and against
+   ``ref.grouped_swiglu_ref`` (``_swiglu_check``); (5) the fp32 mesh ``Server`` at Mixtral's widths (8 requests,
+   4 slots: rows over ``data``, the KV cache over ``model``, the MoE
+   ``ep``; 6 ``f32`` GMM a tick a rank),
    its tokens identical to the single-card ``Server``'s; then the times
    of each local shape's kernel, plain version, library call and bound on
    the card alone, and the per-rank launches in the ``kernels`` line.
@@ -259,8 +270,9 @@ Phases (any failure raises and exits nonzero):
    Whisper on data 2 x model 2, Jamba on data 1 x model 4, the same runs:
    on every rank each prefill's launches by variant (bf16: Mamba-2 48
    ``tensor_core`` SSD at 16 local heads; Whisper 96 ``wgmma_tma`` flash
-   at 10; Jamba 1 flash, 7 SSD at 32 heads and 12 ``tma`` GMM at 4 local
-   experts; fp32 the same through the fp32 variants), the fp32 logits
+   at 10; Jamba 1 flash, 7 SSD at 32 heads, 4 ``tma_swiglu`` and 4
+   ``tma`` GMM at 4 local experts; fp32 the same with 12 ``f32`` GMM),
+   the fp32 logits
    within 2e-2 of the card alone's largest (random-init models amplify
    bf16 rounding: the bf16 errors are printed, see ``FAM_JAMBA_FP32_SEQ``),
    nothing dropped at capacity factor 8 (the drops at the published 1.25
@@ -283,7 +295,8 @@ Phases (any failure raises and exits nonzero):
    ``launch/costing.py::count_cost``: each kernel wrapper records its call
    instead of launching.  The records by (kernel, variant) must equal the
    launches the card counted (Jamba: 1 ``wgmma_tma`` flash, 7
-   ``tensor_core`` SSD, 12 ``tma`` GMM; Moonshot: 4 flash and 24 GMM a
+   ``tensor_core`` SSD, 4 ``tma_swiglu`` and 4 ``tma`` GMM; Moonshot: 4
+   flash and 24 GMM a
    step), and each path's compute term (counted FLOPs over the H100 SXM's
    989 TFLOP/s) may not exceed 1.05 x its measured warm wall; the memory
    term (counted bytes over 3.35 TB/s, each aten op's tensors charged to
@@ -1756,6 +1769,87 @@ def _compare(name, note, got, want):
     return worst
 
 
+def _bf16_ulp(x):
+    """One bf16 ulp of each element of fp32 ``x``."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(
+        x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def _swiglu_tol(g, u, h):
+    """The largest |h' - h| a correct fused gate/up may show against the
+    plain version's h = bf16(silu(g) u), from the plain version's bf16
+    products g and u (fp32 tensors of one expert).  The kernel's g' rounds
+    an fp32 sum of the same terms in another order, so it lies within one
+    bf16 ulp of g plus 1e-3 of g's RMS, the bound ``_compare`` holds a GMM
+    to: dg; u' likewise, du.  silu's slope lies in [-0.1, 1.1], so
+    |silu(g') u' - silu(g) u| <= 1.1 dg (|u| + du) + |silu(g)| du = d; each
+    side then rounds once to bf16, half an ulp each, at most one ulp of
+    (|h| + d)(1 + 2^-7)."""
+    import torch.nn.functional as F
+    dg = _bf16_ulp(g) + 1e-3 * float(g.square().mean().sqrt())
+    du = _bf16_ulp(u) + 1e-3 * float(u.square().mean().sqrt())
+    d = 1.1 * dg * (u.abs() + du) + F.silu(g).abs() * du
+    return d + _bf16_ulp((h.abs() + d) * (1 + 2 ** -7))
+
+
+def _swiglu_check(name, lhs, w_gate, w_up, got, swapped=False):
+    """The fused gate/up's output ``got`` on bf16 (lhs, w_gate, w_up) on
+    the card, held (1) to the unfused chain on the card (two ``tma``
+    launches, then ``F.silu(g.float()) * u.float()`` back to bf16): every
+    element within one bf16 ulp, the bit-equal share printed; (2) to its
+    plain version, ``ref.grouped_swiglu_ref``, expert by expert: every
+    element within :func:`_swiglu_tol`; and, with ``swapped``, (3) that
+    bound must refuse ``got`` against the plain version of a wrong kernel,
+    gate and up swapped (silu(lhs @ w_up) (lhs @ w_gate)).  Returns
+    dict(beyond_one_ulp, bit_equal_share, max_abs_err and beyond_plain
+    against the plain version, swapped_share: the share of elements the
+    bound refuses against the swapped kernel)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_gmm import grouped_matmul
+    want = (F.silu(grouped_matmul(lhs, w_gate).float())
+            * grouped_matmul(lhs, w_up).float()).to(lhs.dtype)
+    beyond = int(((got.float() - want.float()).abs()
+                  > _bf16_ulp(want.float())).sum())
+    equal = float((got == want).float().mean())
+    del want
+    worst, over, refused = 0.0, 0, 0
+    for e in range(lhs.shape[0]):
+        a, wg, wu = lhs[e:e + 1], w_gate[e:e + 1], w_up[e:e + 1]
+        h, ge = ref.grouped_swiglu_ref(a, wg, wu).float(), got[e:e + 1].float()
+        g = ref.grouped_matmul_ref(a, wg).float()
+        u = ref.grouped_matmul_ref(a, wu).float()
+        err = (ge - h).abs()
+        worst = max(worst, float(err.max()))
+        over += int((err > _swiglu_tol(g, u, h)).sum())
+        del h, err
+        if swapped:
+            hs = ref.grouped_swiglu_ref(a, wu, wg).float()
+            refused += int(((ge - hs).abs() > _swiglu_tol(u, g, hs)).sum())
+            del hs
+        del g, u, ge
+    share = refused / got.numel() if swapped else None
+    ok = beyond == 0 and over == 0 and (not swapped or refused > 0) \
+        and bool(torch.isfinite(got.float()).all())
+    print(f"[model kernels] {name}: against the chain on the card {beyond} "
+          f"elements beyond 1 bf16 ulp, {100 * equal:.4f}% bit-equal; "
+          f"against ref.grouped_swiglu_ref max_abs_err {worst:.3e}, {over} "
+          f"elements beyond the rounding bound (each product within 1 bf16 "
+          f"ulp + 1e-3 RMS, through silu's slope, + 1 ulp of h)"
+          + ("" if not swapped else
+             f"; gate and up swapped, the bound refuses {100 * share:.2f}% "
+             f"of the elements") + f" {'ok' if ok else 'FAIL'}")
+    check(ok, f"{name}: the fused gate/up differs from the chain by more "
+          f"than 1 bf16 ulp at {beyond} elements, from its plain version "
+          f"beyond the rounding bound at {over}"
+          + ("" if not swapped else
+             f", or the bound cannot see swapped gate and up ({refused})"))
+    return dict(beyond_one_ulp=beyond, bit_equal_share=equal,
+                max_abs_err=worst, beyond_plain=over, swapped_share=share)
+
+
 def _rnd(device, dtype, seed):
     import torch
     g = torch.Generator(device).manual_seed(seed)
@@ -2357,6 +2451,96 @@ def gmm_cutover(device, rows=(8, 16, 32, 64)):
         torch.cuda.empty_cache()
 
 
+# the fused gate/up kernel at the prefill capacities of the benchmark's
+# cells: Mixtral's largest and smallest (16,384 and 2,048 tokens: 5,128
+# and 648 rows), Jamba's (16,384 and 1,024 tokens: 2,568 and 168 rows)
+SWIGLU_CASES = (("Mixtral", MIXTRAL, 16384), ("Mixtral", MIXTRAL, 2048),
+                ("Jamba", JAMBA, 16384), ("Jamba", JAMBA, 1024))
+
+
+def swiglu_vs_chain(device):
+    """The fused gate/up kernel (``tma_swiglu``, one launch) against the
+    unfused chain on the card (two ``tma`` launches, then
+    ``F.silu(g.float()) * u.float()`` back to bf16) at SWIGLU_CASES, bf16
+    under ``no_grad``: the launch asserted, then held by
+    :func:`_swiglu_check` to the chain (every element within one bf16 ulp,
+    the bit-equal share printed) and to its plain version
+    ``ref.grouped_swiglu_ref`` (within :func:`_swiglu_tol`, which must
+    refuse gate and up swapped); then the fused call, the chain, its two
+    products and its activation timed
+    (CUDA events) beside the fused call's bound, and the device memory
+    each side allocates beyond its inputs.  Returns {case: record}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_gmm as gmm_mod
+    from repro_torch.models.moe import capacity
+    card = card_line()
+    out = {}
+    for name, arch, tokens in SWIGLU_CASES:
+        c = get_config(arch)
+        E, D, Fe = c.moe.num_experts, c.d_model, c.moe.d_ff_expert
+        m = capacity(tokens, c.moe)
+        rnd, _ = _rnd(device, torch.bfloat16, 7)
+        lhs = rnd(E, m, D)
+        w_gate, w_up = (rnd(E, D, Fe, scale=D ** -0.5) for _ in range(2))
+
+        def two():
+            return (gmm_mod.grouped_matmul(lhs, w_gate),
+                    gmm_mod.grouped_matmul(lhs, w_up))
+
+        def act(g, u):
+            return (F.silu(g.float()) * u.float()).to(torch.bfloat16)
+
+        def fused():
+            return gmm_mod.grouped_swiglu(lhs, w_gate, w_up)
+
+        def extra_bytes(fn):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_allocated() - base
+
+        with torch.no_grad():
+            before = read_variants()["moe_gmm"]
+            got = fused()
+            torch.cuda.synchronize()
+            after = read_variants()["moe_gmm"]
+            ran = {k: n - before[k] for k, n in after.items()
+                   if n != before[k]}
+            check(ran == {"tma_swiglu": 1},
+                  f"[swiglu] {name} {tokens}: launched {ran}, expected 1 "
+                  f"tma_swiglu")
+            chk = _swiglu_check(f"[swiglu] {name} {tokens}", lhs, w_gate,
+                                w_up, got, swapped=True)
+            del got
+            g, u = two()
+            nb, flops = gmm_mod.swiglu_bound(lhs, w_gate, w_up)
+            r = dict(shape=f"({E}, {m}, {D})@2x({E}, {D}, {Fe})", **chk,
+                     ms=_event_ms(fused, 5),
+                     chain_ms=_event_ms(lambda: act(*two()), 5),
+                     two_gmm_ms=_event_ms(two, 5),
+                     act_ms=_event_ms(lambda: act(g, u), 5),
+                     bound=_bound(nb, flops, BF16_OPS_PER_S),
+                     nbytes=nb, ops=flops)
+            del g, u
+            r["chain_extra_gib"] = extra_bytes(lambda: act(*two())) / 2**30
+            r["fused_extra_gib"] = extra_bytes(fused) / 2**30
+        print(f"[swiglu] {card}: {name} {tokens} tokens {r['shape']}: "
+              f"fused {r['ms']:.4f} ms, chain {r['chain_ms']:.4f} ms (two "
+              f"tma {r['two_gmm_ms']:.4f} ms + SiLU x up "
+              f"{r['act_ms']:.4f} ms), bound {r['bound'][0]:.4f} ms by "
+              f"{r['bound'][1]} ({nb} B, {flops} FLOP); allocated beyond "
+              f"the inputs: chain {r['chain_extra_gib']:.3f} GiB, fused "
+              f"{r['fused_extra_gib']:.3f} GiB")
+        out[f"{name} {tokens}"] = r
+        del lhs, w_gate, w_up
+        torch.cuda.empty_cache()
+    return out
+
+
 def _sdpa_backend(fn, reps=3):
     """The attention kernel a PyTorch call ran, by the profiler's name of
     its longest device kernel over ``reps`` calls; where the profiler
@@ -2511,10 +2695,12 @@ def family_paths(device):
     for arch, layers, B, seq, want, per_tick, srv_kw, positions in (
             (JAMBA, 8, 1, PREFILL_TOKENS,
              {"flash_attention": {"wgmma_tma": 1},
-              "ssd_scan": {"tensor_core": 7}, "moe_gmm": {"tma": 12}},
+              "ssd_scan": {"tensor_core": 7},
+              "moe_gmm": {"tma": 4, "tma_swiglu": 4}},
              {"moe_gmm": {"decode": 12}}, {}, False),
             (MIXTRAL, 8, 1, MIXTRAL_TOKENS,
-             {"flash_attention": {"wgmma_tma": 8}, "moe_gmm": {"tma": 24}},
+             {"flash_attention": {"wgmma_tma": 8},
+              "moe_gmm": {"tma": 8, "tma_swiglu": 8}},
              {"moe_gmm": {"decode": 24}}, {}, False),
             (QWEN2_VL, 4, 1, PREFILL_TOKENS,
              {"flash_attention": {"wgmma_tma": 4}}, {},
@@ -3458,13 +3644,16 @@ def _ssd_at(device, shapes, seed):
 
 def _spmd_kernel_checks(log, device, seed):
     """Each distinct kernel call a rank made (``log`` of ops-level
-    shapes: flash with its window or (causal, window), the GMM, the SSD
-    with its chunk), again on random inputs at that shape, against the
-    plain version: {shape: max_abs_err}."""
+    shapes: flash with its window or (causal, window), the GMM, the fused
+    gate/up (``swiglu``, (lhs, weight) shapes), the SSD with its chunk),
+    again on random inputs at that shape, against the plain version (the
+    fused gate/up by :func:`_swiglu_check`: within one bf16 ulp of the
+    unfused chain on the card, and within :func:`_swiglu_tol` of
+    ``ref.grouped_swiglu_ref``): {shape: max_abs_err}."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.moe_gmm import grouped_matmul
+    from repro_torch.kernels.moe_gmm import grouped_matmul, grouped_swiglu
     from repro_torch.kernels.ssd_scan import ssd_scan
     errs = {}
     for kind, shapes, opts in log:
@@ -3481,6 +3670,15 @@ def _spmd_kernel_checks(log, device, seed):
             ssd = _ssd_at(device, shapes, seed)
             got = ssd_scan(**ssd, chunk=opts)
             want = ref.ssd_scan_ref(**ssd)
+        elif kind == "swiglu":
+            lhs = rnd(*shapes[0])
+            w_gate, w_up = (rnd(*shapes[1], scale=shapes[1][1] ** -0.5)
+                            for _ in range(2))
+            got = grouped_swiglu(lhs, w_gate, w_up)
+            errs[(kind, shapes)] = _swiglu_check(
+                f"[spmd rank] swiglu {shapes}", lhs, w_gate, w_up,
+                got)["max_abs_err"]
+            continue
         else:
             lhs = rnd(*shapes[0])
             rhs = rnd(*shapes[1], scale=shapes[1][1] ** -0.5)
@@ -3526,8 +3724,15 @@ def _spmd_rank(rank, plan):
     def gmm_log(lhs, rhs):
         calls.append(("gmm", (tuple(lhs.shape), tuple(rhs.shape)), None))
         return real_gmm(lhs, rhs)
+
+    def swiglu_log(lhs, w_gate, w_up):
+        calls.append(("swiglu", (tuple(lhs.shape), tuple(w_gate.shape)),
+                      None))
+        return real_swiglu(lhs, w_gate, w_up)
     real_flash, real_gmm = ops.flash_attention, ops._gmm_kernel
+    real_swiglu = moe.grouped_swiglu
     ops.flash_attention, ops._gmm_kernel = flash_log, gmm_log
+    moe.grouped_swiglu = swiglu_log
     layer_comm = {}
     _spmd_layer_comm(layer_comm)
 
@@ -3602,6 +3807,7 @@ def _spmd_rank(rank, plan):
     # each distinct kernel call of the runs above, against its plain
     # version at that local shape (not counted: the paths are read)
     ops.flash_attention, ops._gmm_kernel = real_flash, real_gmm
+    moe.grouped_swiglu = real_swiglu
     seen = [c for c in out["qwen2"]["calls"]]
     for rec in out["mixtral"].values():
         seen += rec["published"]["calls"]
@@ -3682,6 +3888,24 @@ def _spmd_times(device, calls):
                 library="scaled_dot_product_attention",
                 bound=_bound(nb, ops, BF16_OPS_PER_S))
             del q, k, v, lib
+        elif kind == "swiglu":
+            lhs = rnd(*shapes[0])
+            w_gate, w_up = (rnd(*shapes[1], scale=shapes[1][1] ** -0.5)
+                            for _ in range(2))
+            nb, ops = gmm_mod.swiglu_bound(lhs, w_gate, w_up)
+
+            def lib():    # two torch.bmm and the fp32 SiLU x up
+                return (F.silu(torch.bmm(lhs, w_gate).float())
+                        * torch.bmm(lhs, w_up).float()).to(lhs.dtype)
+            out[(kind, shapes, opts)] = dict(
+                ms=_event_ms(lambda: gmm_mod.grouped_swiglu(
+                    lhs, w_gate, w_up), 5),
+                plain_ms=_event_ms(lambda: ref.grouped_swiglu_ref(
+                    lhs, w_gate, w_up), 2),
+                library_ms=_event_ms(lib, 5),
+                library="2 x torch.bmm, F.silu(g) * u in fp32",
+                bound=_bound(nb, ops, BF16_OPS_PER_S))
+            del lhs, w_gate, w_up
         else:
             lhs = rnd(*shapes[0])
             rhs = rnd(*shapes[1], scale=shapes[1][1] ** -0.5)
@@ -3786,9 +4010,12 @@ def spmd_phase(device):
                                for rec in ranks),
           f"[spmd] sharded qwen2 logits differ from unsharded by {qerr}")
 
-    # Mixtral: per mode and rank 6 tma GMM, 2 flash; no-drop logits agree
+    # Mixtral: per mode and rank 2 tma_swiglu and 2 tma GMM (the fused
+    # gate/up and the down product of each layer), 2 flash; no-drop logits
+    # agree
     want = {"flash_attention": {"wgmma_tma": L, "wgmma_loads": 0, "f32": 0},
-            "moe_gmm": {"tma": 3 * L, "decode": 0, "ragged": 0, "f32": 0}}
+            "moe_gmm": {"tma": L, "decode": 0, "ragged": 0, "f32": 0,
+                        "tma_swiglu": L}}
     for r, rec in enumerate(ranks):
         for mode, m in rec["mixtral"].items():
             for label, run in m.items():
@@ -3883,12 +4110,13 @@ def spmd_entries(spmd, replaces):
     out = []
     for label, mode, get in runs:
         calls = sorted({c for rec in ranks for c in get(rec)["calls"]})
-        for kind in ("flash", "gmm"):
+        for kind in ("flash", "gmm", "swiglu"):
             mine = [c for c in calls if c[0] == kind]
             if not mine or (kind == "flash" and mode not in (None, "xy")):
                 continue         # the modes share one flash shape: one entry
             name = "flash_attention" if kind == "flash" else "moe_gmm"
-            variant = "wgmma_tma" if kind == "flash" else "tma"
+            variant = {"flash": "wgmma_tma", "gmm": "tma",
+                       "swiglu": "tma_swiglu"}[kind]
             key = mine[0]
             by_rank = [get(rec)["variants"][name][variant] for rec in ranks]
             if kind == "flash" and mode == "xy":     # every mode's launches
@@ -3897,7 +4125,10 @@ def spmd_entries(spmd, replaces):
                            for rec in ranks]
             t = times[key]
             entry = {
-                "name": f"{name}_spmd_{label if kind == 'gmm' else label.split('_')[0]}",
+                "name": f"{name}_spmd_{label.split('_')[0]}"
+                        if kind == "flash" else
+                        f"{name}{'_swiglu' if kind == 'swiglu' else ''}"
+                        f"_spmd_{label}",
                 "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                 "replaces": replaces[name], "launches": sum(by_rank),
@@ -5042,15 +5273,16 @@ def _fam_launches(arch, label):
     """{kernel: {variant: launches}} of a family's prefill on every rank
     (and on the card alone): Mamba-2 48 SSD, whisper-large-v3 96 flash
     (32 encoder, 32 decoder self, 32 cross), Jamba's period 1 flash, 7
-    SSD and 12 GMM (3 in each of 4 MoE layers); bf16 through the tensor
-    cores, fp32 through the fp32 variants; every other 0."""
+    SSD and the GMMs of 4 MoE layers; bf16 through the tensor cores (each
+    layer's gate/up fused, ``tma_swiglu``, and its down product, ``tma``),
+    fp32 through the fp32 variants (3 GMMs a layer); every other 0."""
     tc = label == "bf16"
-    flash, ssd, gmm = (("wgmma_tma", "tensor_core", "tma") if tc else
-                       ("f32", "cuda_core", "f32"))
+    flash, ssd = ("wgmma_tma", "tensor_core") if tc else ("f32", "cuda_core")
+    gmm = {"tma": 4, "tma_swiglu": 4} if tc else {"f32": 12}
     want = {MAMBA2: {"ssd_scan": {ssd: 48}},
             WHISPER: {"flash_attention": {flash: 96}},
             JAMBA: {"flash_attention": {flash: 1}, "ssd_scan": {ssd: 7},
-                    "moe_gmm": {gmm: 12}}}[arch]
+                    "moe_gmm": gmm}}[arch]
     return {k: {v: want.get(k, {}).get(v, 0) for v in vs}
             for k, vs in read_variants().items()}
 
@@ -5316,13 +5548,19 @@ def _families_rank(rank, plan):
         calls.append(("gmm", (tuple(lhs.shape), tuple(rhs.shape)), None))
         return real["gmm"](lhs, rhs)
 
+    def swiglu_log(lhs, w_gate, w_up):
+        calls.append(("swiglu", (tuple(lhs.shape), tuple(w_gate.shape)),
+                      None))
+        return real["swiglu"](lhs, w_gate, w_up)
+
     def ssd_log(x, dt, B, C, A, chunk):
         calls.append(("ssd", (tuple(x.shape), tuple(B.shape)), chunk))
         return real["ssd"](x, dt, B, C, A, chunk=chunk)
     real = {"flash": ops.flash_attention, "gmm": ops._gmm_kernel,
-            "ssd": ops.ssd_scan}
+            "ssd": ops.ssd_scan, "swiglu": moe.grouped_swiglu}
     ops.flash_attention, ops._gmm_kernel, ops.ssd_scan = \
         flash_log, gmm_log, ssd_log
+    moe.grouped_swiglu = swiglu_log
     log = {}
     restore = _fam_comm_log(log, [
         (mamba2, "mixer_spmd", "mixer"),
@@ -5400,6 +5638,7 @@ def _families_rank(rank, plan):
         restore()
         ops.flash_attention, ops._gmm_kernel, ops.ssd_scan = \
             real["flash"], real["gmm"], real["ssd"]
+        moe.grouped_swiglu = real["swiglu"]
     # one rank at a time: each distinct kernel call of the bf16 prefills
     # against its plain version at that local shape (not counted)
     seen = sorted({c for r in out.values() for c in r["bf16"]["calls"]})
@@ -5588,14 +5827,15 @@ def spmd_families_entries(fam, replaces):
     import collections
     ranks, times = fam["ranks"], fam["times"]
     names = {"flash": ("flash_attention", "wgmma_tma"),
-             "ssd": ("ssd_scan", "tensor_core"), "gmm": ("moe_gmm", "tma")}
+             "ssd": ("ssd_scan", "tensor_core"), "gmm": ("moe_gmm", "tma"),
+             "swiglu": ("moe_gmm", "tma_swiglu")}
     out = []
     for arch, label in ((MAMBA2, "mamba2"), (WHISPER, "whisper"),
                         (JAMBA, "jamba")):
         by_rank = [collections.Counter(rec[arch]["bf16"]["calls"])
                    for rec in ranks]
         keys = sorted(set().union(*by_rank))
-        for kind in ("flash", "ssd", "gmm"):
+        for kind in ("flash", "ssd", "gmm", "swiglu"):
             mine = [k for k in keys if k[0] == kind]
             for i, key in enumerate(mine):
                 if kind == "gmm" and i:
@@ -5608,7 +5848,8 @@ def spmd_families_entries(fam, replaces):
                     role = "_self" if causal else \
                         "_cross" if q[2] != k[2] else "_encoder"
                 entry = {
-                    "name": f"{name}_spmd_{label}{role}",
+                    "name": f"{name}{'_swiglu' if kind == 'swiglu' else ''}"
+                            f"_spmd_{label}{role}",
                     "route": "cuda",
                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                     "replaces": replaces[name],
@@ -6310,6 +6551,7 @@ def main() -> int:
     paths = family_paths("cuda")
     times = kernel_timings("cuda")
     gmm_cutover("cuda")
+    swiglu = swiglu_vs_chain("cuda")
     grad_errs = train_ops_vs_plain("cuda")
     for arch in (JAMBA, MIXTRAL, QWEN2_VL, MAMBA2, WHISPER):
         reduced_training("cuda", arch)
@@ -6376,6 +6618,27 @@ def main() -> int:
                              "bound_by": d["bound"][1],
                              "max_abs_err": errs[case + " down"]}
         kernels.append(entry)
+    # the fused gate/up of each MoE prefill: launches on phase 9's path,
+    # the check and times at the cells' largest capacity
+    for key, arch, case in (("moe_gmm_swiglu", JAMBA, "Jamba 16384"),
+                            ("moe_gmm_swiglu_mixtral", MIXTRAL,
+                             "Mixtral 16384")):
+        lp = paths[arch][0]["variants"]["moe_gmm"]["tma_swiglu"]
+        check(lp > 0, f"{key} was never launched on the {arch} path")
+        t = swiglu[case]
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+            "replaces": replaces["moe_gmm"], "launches": lp,
+            "elements_beyond_one_ulp_of_chain": t["beyond_one_ulp"],
+            "bit_equal_share": t["bit_equal_share"],
+            "max_abs_err": t["max_abs_err"],
+            "elements_beyond_plain_bound": t["beyond_plain"],
+            "swapped_refused_share": t["swapped_share"], "ms": t["ms"],
+            "chain_ms": t["chain_ms"], "two_gmm_ms": t["two_gmm_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "checked_against_plain": True, "variant": "tma_swiglu",
+            "path": arch, "launches_prefill": lp, "shape": t["shape"]})
     # the training paths' kernels (phase 11): launches from the two runs;
     # the GMM's split into the backward's (d_lhs and d_rhs, one each per
     # forward GMM) and the rest (forward and remat forward)

@@ -30,6 +30,25 @@
 //    global memory, masked on ragged M and N.  The grid runs the row tiles
 //    of one column tile next to each other, so the rhs column block they
 //    share is read from DRAM about once.
+//  * tma_swiglu (bf16, M > 64, no autograd): the expert SwiGLU's first
+//    half, h = silu(lhs @ w_gate) * (lhs @ w_up), in one launch of the
+//    same kernel (gmm_tma_kernel<true>).  The ring, the wgmma and the
+//    multicast are tma's; only the mapping of the 256 columns changes.  A
+//    block's output tile is 128 rows x 128 columns of h: each stage's
+//    64 x 256 rhs tile holds w_gate columns n0 .. n0 + 127 (boxes 0, 1)
+//    and w_up columns n0 .. n0 + 127 (boxes 2, 3), and block c of the
+//    cluster loads operand c (its two boxes) for both blocks.  After the
+//    K loop a thread's 8-column block j < 16 holds g and block j + 16 the
+//    u of the same (row, column).  The epilogue rounds each to bf16, as
+//    the two separate products' outputs were rounded, computes silu(g) u
+//    in fp32 with torch's formula g / (1 + exp(-g)) (no fast math), and
+//    rounds once to bf16: the function of the unfused chain (two tma
+//    calls, F.silu(g.float()) * u.float(), back to bf16).  g and u never
+//    reach device memory, where the chain wrote them, read them back and
+//    moved three fp32 tensors of the same size.  The grid's y is N / 128.
+//    Bound of a call: 2 x 2 E M K N FLOPs; lhs and both weights read
+//    once, h written once (E M N bf16).  Above the ridge at the prefill
+//    shapes, as tma: the tensor cores bound it.
 //  * decode (bf16, M <= 64): "swap AB", out^T[e] = rhs[e]^T lhs[e]^T.
 //    The N axis of the weights (4096 or 14336) fills wgmma's 64-row side
 //    and M, rounded up to MP in {8, 16, 32, 64}, is its N.  A block streams
@@ -72,10 +91,24 @@ constexpr int T_A_BYTES = T_BM * T_BK * 2;              // 16 KB
 constexpr int T_B_BYTES = T_BK * T_BN * 2;              // 32 KB, 4 blocks
 constexpr int T_SMEM = T_STAGES * (T_A_BYTES + T_B_BYTES) + 1024 + 256;
 
+// The output columns a block covers: all 256 of the product, or (SWIGLU)
+// 128 of h, from 128 of w_gate and the same 128 of w_up.
+template <bool SWIGLU>
+__host__ __device__ constexpr int t_cols() {
+  return SWIGLU ? T_BN / 2 : T_BN;
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// map_c (w_up) is read only by SWIGLU.
+template <bool SWIGLU>
 __global__ void __cluster_dims__(T_CLUSTER, 1, 1)
 __launch_bounds__(T_THREADS, 1)
 gmm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
                const __grid_constant__ CUtensorMap map_b,
+               const __grid_constant__ CUtensorMap map_c,
                bf16* __restrict__ out, int M, int K, int N) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = hopper::align1024(smem_raw);
@@ -84,7 +117,8 @@ gmm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
   uint64_t* full = reinterpret_cast<uint64_t*>(
       b_tiles + T_STAGES * T_B_BYTES);
   uint64_t* empty = full + T_STAGES;
-  const int m0 = blockIdx.x * T_BM, n0 = blockIdx.y * T_BN, e = blockIdx.z;
+  const int m0 = blockIdx.x * T_BM, n0 = blockIdx.y * t_cols<SWIGLU>();
+  const int e = blockIdx.z;
   const int ktiles = (K + T_BK - 1) / T_BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const uint32_t rank = hopper::cluster_rank();
@@ -104,6 +138,7 @@ gmm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
     if (lane == 0) {
       hopper::tma_prefetch_desc(&map_a);
       hopper::tma_prefetch_desc(&map_b);
+      if constexpr (SWIGLU) hopper::tma_prefetch_desc(&map_c);
       for (int kt = 0; kt < ktiles; ++kt) {
         const int s = kt % T_STAGES;
         hopper::mbar_wait(&empty[s], ((kt / T_STAGES) & 1) ^ 1);
@@ -111,12 +146,16 @@ gmm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
         hopper::mbar_expect_tx(&full[s], T_A_BYTES + T_B_BYTES);
         hopper::tma_load_3d(a_tiles + s * T_A_BYTES, &map_a, &full[s],
                             kt * T_BK, m0, e);
+        // (SWIGLU: boxes 0, 1 of w_gate and 2, 3 of w_up at the same
+        // columns; HALF == PER, so block c loads operand c)
         constexpr int HALF = T_BN / 64 / T_CLUSTER;
+        constexpr int PER = t_cols<SWIGLU>() / 64;       // boxes an operand
 #pragma unroll
         for (int j = rank * HALF; j < (rank + 1) * HALF; ++j)
           hopper::tma_load_3d_multicast(
-              b_tiles + s * T_B_BYTES + j * (T_BK * 128), &map_b, &full[s],
-              n0 + 64 * j, kt * T_BK, e, (1u << T_CLUSTER) - 1);
+              b_tiles + s * T_B_BYTES + j * (T_BK * 128),
+              j < PER ? &map_b : &map_c, &full[s], n0 + 64 * (j % PER),
+              kt * T_BK, e, (1u << T_CLUSTER) - 1);
       }
     }
     __syncwarp();
@@ -155,21 +194,32 @@ gmm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
     hopper::fence_regs<T_BN / 2>(acc);
     // epilogue: accumulator registers straight to global memory.  Thread
     // (warp w, lane g * 4 + t) holds, for each 8-column block j, rows
-    // 16 w + g and + 8, columns 8 j + 2 t and + 1.
+    // 16 w + g and + 8, columns 8 j + 2 t and + 1 (SWIGLU: block j < 16
+    // of g, block j + 16 of u at the same row and column).
     const int w4 = warp % 4, g = lane / 4, t = lane % 4;
     const int r0 = m0 + wg * 64 + w4 * 16 + g;
     bf16* O = out + (size_t)e * M * N;
+    constexpr int UP = t_cols<SWIGLU>() / 2;        // u's offset in acc
 #pragma unroll
-    for (int j = 0; j < T_BN / 8; ++j) {
+    for (int j = 0; j < t_cols<SWIGLU>() / 8; ++j) {
       const int c = n0 + 8 * j + 2 * t;           // N % 8 == 0: c + 1 < N
       if (c >= N) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = r0 + 8 * h;
-        if (r < M)
-          *reinterpret_cast<__nv_bfloat162*>(&O[(size_t)r * N + c]) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * h],
-                                    acc[4 * j + 2 * h + 1]);
+        if (r >= M) continue;
+        float v[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          v[i] = acc[4 * j + 2 * h + i];
+          if constexpr (SWIGLU) {
+            const float gi = round_bf16(v[i]);
+            const float ui = round_bf16(acc[UP + 4 * j + 2 * h + i]);
+            v[i] = gi / (1.0f + expf(-gi)) * ui;
+          }
+        }
+        *reinterpret_cast<__nv_bfloat162*>(&O[(size_t)r * N + c]) =
+            __floats2bfloat162_rn(v[0], v[1]);
       }
     }
   }
@@ -440,21 +490,30 @@ int launch_decode(const bf16* lhs, const bf16* rhs, bf16* out, int E, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_tma(const bf16* lhs, const bf16* rhs, bf16* out, int E, int M,
-               int K, int N, cudaStream_t s) {
+// SWIGLU: rhs is w_gate and rhs_up w_up (else rhs_up is not read).
+template <bool SWIGLU>
+int launch_tma(const bf16* lhs, const bf16* rhs, const bf16* rhs_up,
+               bf16* out, int E, int M, int K, int N, cudaStream_t s) {
+  constexpr int cols = t_cols<SWIGLU>();
+  if ((N + cols - 1) / cols > 65535) return cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
   if (!hopper_host::make_map_3d(&map_a, lhs, K, M, E, T_BK, T_BM) ||
       !hopper_host::make_map_3d(&map_b, rhs, N, K, E, 64, T_BK))
     return cudaErrorInvalidValue;
+  CUtensorMap map_c = map_b;                  // read only by SWIGLU
+  if (SWIGLU && !hopper_host::make_map_3d(&map_c, rhs_up, N, K, E, 64, T_BK))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gmm_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
+      gmm_tma_kernel<SWIGLU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   // row tiles in whole clusters: a tile past M computes nothing but loads
   // its share of the rhs tile for the other block
   const int mtiles = (M + T_BM - 1) / T_BM;
   dim3 grid((mtiles + T_CLUSTER - 1) / T_CLUSTER * T_CLUSTER,
-            (N + T_BN - 1) / T_BN, E);
-  gmm_tma_kernel<<<grid, T_THREADS, T_SMEM, s>>>(map_a, map_b, out, M, K, N);
+            (N + cols - 1) / cols, E);
+  gmm_tma_kernel<SWIGLU><<<grid, T_THREADS, T_SMEM, s>>>(map_a, map_b, map_c,
+                                                         out, M, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -462,16 +521,19 @@ int launch_tma(const bf16* lhs, const bf16* rhs, bf16* out, int E, int M,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (lhs, rhs and out alike).  For bf16,
-// variant: 0 = ragged (WMMA), 1 = tma (M > 64), 2 = decode with MP = mp
-// (8, 16, 32 or 64, at least M); tma and decode need K and N multiples of
-// 8 and 16-byte aligned operands.  The caller chooses; nothing here falls
-// back to another variant.  Launches on `stream`, no host sync.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a dtype,
-// variant or size it does not take), 0 on success.
-int moe_gmm_launch(const void* lhs, const void* rhs, void* out, int E, int M,
-                   int K, int N, int dtype, int variant, int mp,
-                   void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (lhs, rhs, rhs_up and out alike).  For
+// bf16, variant: 0 = ragged (WMMA), 1 = tma (M > 64), 2 = decode with
+// MP = mp (8, 16, 32 or 64, at least M), 3 = tma_swiglu: out =
+// silu(lhs @ rhs) * (lhs @ rhs_up), rhs_up of rhs's shape (no other
+// variant reads rhs_up); tma, decode and tma_swiglu need K and N
+// multiples of 8 and 16-byte aligned operands.  The caller chooses;
+// nothing here falls back to another variant.  Launches on `stream`, no
+// host sync.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a dtype, variant or size it does not take),
+// 0 on success.
+int moe_gmm_launch(const void* lhs, const void* rhs, const void* rhs_up,
+                   void* out, int E, int M, int K, int N, int dtype,
+                   int variant, int mp, void* stream) {
   if (E <= 0 || M <= 0 || K <= 0 || N <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -500,9 +562,12 @@ int moe_gmm_launch(const void* lhs, const void* rhs, void* out, int E, int M,
                       reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                       E <= 65535;
   if (!tma_ok) return cudaErrorInvalidValue;
-  if (variant == 1) {
-    if ((N + T_BN - 1) / T_BN > 65535) return cudaErrorInvalidValue;
-    return launch_tma(a, b, o, E, M, K, N, s);
+  if (variant == 1) return launch_tma<false>(a, b, nullptr, o, E, M, K, N, s);
+  if (variant == 3) {
+    if (rhs_up == nullptr || reinterpret_cast<uintptr_t>(rhs_up) % 16 != 0)
+      return cudaErrorInvalidValue;
+    return launch_tma<true>(a, b, static_cast<const bf16*>(rhs_up), o, E, M,
+                            K, N, s);
   }
   if (variant == 2 && M <= mp) {
     switch (mp) {

@@ -4,7 +4,10 @@
 * :func:`flash_attention_op` — q (B, S, H, hd), k/v (B, S, K, hd);
 * :func:`ssd_scan_op` — x (b, S, H, P), dt (b, S, H), B/C (b, S, G, N),
   A (H,);
-* :func:`grouped_matmul` — (E, M, K) @ (E, K, N).
+* :func:`grouped_matmul` — (E, M, K) @ (E, K, N);
+* :func:`fuses_swiglu` — whether the fused gate/up kernel
+  (``moe_gmm.grouped_swiglu``: silu(lhs @ w_gate) * (lhs @ w_up) in one
+  launch, no backward) may stand in for two grouped matmuls and the SiLU.
 
 Each transposes into its kernel's layout as the reference does
 (``ops.py``'s ``_flash_fwd_impl`` and ``_ssd_fwd_impl``) and back, and
@@ -33,7 +36,9 @@ version), and
 * the GMM's backward is exact and two more GMMs, ``d_lhs = gmm(g, rhsᵀ)``
   and ``d_rhs = gmm(lhsᵀ, g)`` (``_gmm_vjp_bwd``): on a CUDA tensor two
   more launches of the Hopper kernel, each transposed operand first made
-  contiguous (one copy each).
+  contiguous (one copy each);
+* the fused SwiGLU has no backward: :func:`fuses_swiglu` is false where
+  autograd records (training takes the three grouped matmuls).
 
 The recompute is the reference's design for its backward (it has no
 backward kernel for flash or the SSD), not a plain version standing in
@@ -50,10 +55,11 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_gmm import grouped_matmul as _gmm_kernel
+from repro_torch.kernels.moe_gmm import swiglu_plan
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 __all__ = ["flash_attention_op", "ssd_scan_op", "grouped_matmul",
-           "ssd_chunk"]
+           "fuses_swiglu", "ssd_chunk"]
 
 
 def _t(t: torch.Tensor) -> torch.Tensor:
@@ -162,3 +168,14 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     accumulation; differentiable, its backward two more grouped
     matmuls."""
     return _GMM.apply(lhs, rhs)
+
+
+def fuses_swiglu(lhs: torch.Tensor, w_gate: torch.Tensor,
+                 w_up: torch.Tensor) -> bool:
+    """Whether ``moe_gmm.grouped_swiglu`` may compute silu(lhs @ w_gate) *
+    (lhs @ w_up): autograd records none of the operands (the fused kernel
+    has no backward), and they are bf16 operands the ``tma`` variant takes
+    (``moe_gmm.swiglu_plan``)."""
+    records = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (lhs, w_gate, w_up))
+    return not records and swiglu_plan(lhs, w_gate, w_up) is not None

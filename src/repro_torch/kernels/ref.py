@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 
 __all__ = ["flash_attention_ref", "ssd_scan_ref", "grouped_matmul_ref",
-           "NEG_INF"]
+           "grouped_swiglu_ref", "NEG_INF"]
 
 NEG_INF = -1e30
 F32 = torch.float32
@@ -81,3 +81,13 @@ def grouped_matmul_ref(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     ``lhs``'s dtype."""
     return torch.einsum("emk,ekn->emn", lhs.to(F32),
                         rhs.to(F32)).to(lhs.dtype)
+
+
+def grouped_swiglu_ref(lhs: torch.Tensor, w_gate: torch.Tensor,
+                       w_up: torch.Tensor) -> torch.Tensor:
+    """silu(lhs @ w_gate) * (lhs @ w_up) as the unfused expert FFN computes
+    it: each product by :func:`grouped_matmul_ref` (rounded to ``lhs``'s
+    dtype), the SiLU and the product in fp32, rounded once."""
+    g = grouped_matmul_ref(lhs, w_gate)
+    u = grouped_matmul_ref(lhs, w_up)
+    return (torch.nn.functional.silu(g.to(F32)) * u.to(F32)).to(lhs.dtype)

@@ -5,9 +5,13 @@ Tokens are routed top-k in fp32, ranked per expert in arrival order
 (token-major, k-minor: the order that decides which tokens an overflowing
 expert drops), scattered into (E, capacity, D) buffers with dropped
 assignments sent to a discarded sink row, run through the expert SwiGLU
-as three grouped matmuls (the Hopper GMM kernel on a CUDA tensor, its
-plain version on the CPU), and gathered back with the routing weights in
-fp32.
+(the Hopper GMM kernel on a CUDA tensor, its plain version on the CPU),
+and gathered back with the routing weights in fp32.  Where autograd does
+not record and the operands are bf16 at a ``tma`` shape (a prefill's
+capacity), the gate and up products and the SiLU between them are one
+fused kernel (``moe_gmm.grouped_swiglu``); elsewhere two grouped matmuls and
+the fp32 ``silu(g) * u``: the same function, bit for bit on the CPU.
+The down product follows.
 
 On a mesh (``rules``), :func:`moe_block` chooses the reference's dispatch
 mode by divisibility, and each rank runs its part on its activation block
@@ -47,8 +51,9 @@ capacity, as in the reference (each FIFO sees other tokens); with a
 capacity that drops nothing every mode computes the same function.
 Every mode counts, while ``repro_torch.obs`` records, the assignments
 each FIFO stage dropped (``moe.dropped``) and, at the buffers that reach
-the expert FFN, the assignments kept (``moe.kept``) and the rows the
-grouped products compute (``moe.gmm_rows``), once a call;
+the expert FFN, the assignments kept (``moe.kept``), the rows the
+grouped products compute (``moe.gmm_rows``) and whether the fused gate/up
+kernel ran (``moe.ffn_fused``, 1 or 0), once a call;
 :func:`counting_drops` collects ``moe.dropped`` alone.  Its spans are
 ``moe`` (the block), ``moe.route`` (routing and each FIFO),
 ``moe.dispatch``, ``moe.gmm`` (each grouped product) and ``moe.combine``.
@@ -62,7 +67,8 @@ import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.kernels.ops import grouped_matmul
+from repro_torch.kernels.moe_gmm import grouped_swiglu
+from repro_torch.kernels.ops import fuses_swiglu, grouped_matmul
 from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import Layout
 
@@ -159,14 +165,23 @@ def _combine(buf_out, assign, slot, keep, weights2d, T: int):
 
 
 def _expert_ffn(buf, w_gate, w_up, w_down):
-    """(E, cap, D) -> (E, cap, D): the expert SwiGLU as three grouped
-    matmuls (each a ``moe.gmm`` span; the activation between them is
-    the block's own)."""
-    with obs.span("moe.gmm"):
-        g = grouped_matmul(buf, w_gate)
-    with obs.span("moe.gmm"):
-        u = grouped_matmul(buf, w_up)
-    h = (F.silu(g.to(F32)) * u.to(F32)).to(buf.dtype)
+    """(E, cap, D) -> (E, cap, D): the expert SwiGLU, each kernel call a
+    ``moe.gmm`` span.  Where :func:`fuses_swiglu` holds (no autograd, bf16,
+    the ``tma`` shape), h = silu(g) u is one fused call; else g and u are
+    two grouped matmuls and the activation between them is the block's
+    own.  Then the down product."""
+    fused = fuses_swiglu(buf, w_gate, w_up)
+    if obs.active():
+        obs.count("moe.ffn_fused", int(fused))
+    if fused:
+        with obs.span("moe.gmm"):
+            h = grouped_swiglu(buf, w_gate, w_up)
+    else:
+        with obs.span("moe.gmm"):
+            g = grouped_matmul(buf, w_gate)
+        with obs.span("moe.gmm"):
+            u = grouped_matmul(buf, w_up)
+        h = (F.silu(g.to(F32)) * u.to(F32)).to(buf.dtype)
     with obs.span("moe.gmm"):
         return grouped_matmul(h, w_down)
 

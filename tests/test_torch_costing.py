@@ -581,6 +581,35 @@ def test_meta_wrappers_record_and_launch_nothing():
         gmm_mod.grouped_matmul(_meta(4, 32, 256), _meta(4, 128, 512))
 
 
+def test_swiglu_records_equal_on_meta_and_cpu(monkeypatch):
+    """The fused gate/up call records alike on ``meta`` (nothing runs) and
+    on the CPU (the plain chain runs): kernel ``moe_gmm``, variant
+    ``tma_swiglu``, its three operands and its bound; nothing launches.
+    With no recorder open it computes no bound."""
+    e, m, k, n = 4, 72, 128, 256
+    for dev in ("cpu", "meta"):
+        with monkeypatch.context() as mp:
+            mp.setattr(gmm_mod, "swiglu_bound", None)
+            w = torch.zeros(e, k, n, dtype=torch.bfloat16, device=dev)
+            gmm_mod.grouped_swiglu(torch.zeros(e, m, k, dtype=torch.bfloat16,
+                                               device=dev), w, w)
+    launches = gmm_mod.grouped_matmul.launches
+    got = {}
+    for dev in ("cpu", "meta"):
+        def t(*shape):
+            return torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        with record.recording() as recs:
+            out = gmm_mod.grouped_swiglu(t(e, m, k), t(e, k, n), t(e, k, n))
+        assert out.shape == (e, m, n) and out.device.type == dev
+        got[dev] = recs
+    assert got["meta"] == got["cpu"] == [{
+        "kernel": "moe_gmm", "variant": "tma_swiglu",
+        "shapes": ((e, m, k), (e, k, n), (e, k, n)), "dtype": "bfloat16",
+        "bytes": 2 * (e * m * k + 2 * e * k * n + e * m * n),
+        "flops": 2 * 2 * e * m * k * n}]
+    assert gmm_mod.grouped_matmul.launches == launches
+
+
 def test_no_record_built_without_a_recorder(monkeypatch):
     """With no recorder open (every serve or train call outside the
     costing tools), a wrapper on CPU or meta tensors neither chooses a

@@ -94,6 +94,8 @@ def _main_path_gmms():
 
 @pytest.mark.parametrize("what,e,m,k,n", _main_path_gmms())
 def test_main_path_gmms_take_the_tma_variants(what, e, m, k, n):
+    """A prefill's products run ``tma`` (its gate/up pair fused as
+    ``tma_swiglu``), a decode tick's ``decode`` (never fused)."""
     want = "tma" if what.startswith("prefill") else "decode"
     assert gmm_mod.gmm_variant(m, k, n) == want
     lhs = torch.empty(e, m, k, dtype=torch.bfloat16)
@@ -101,6 +103,9 @@ def test_main_path_gmms_take_the_tma_variants(what, e, m, k, n):
     variant, mp = gmm_mod.gmm_plan(lhs, rhs)
     assert variant == want
     assert mp == (8 if want == "decode" else 0)
+    if what.endswith("gate/up"):
+        assert gmm_mod.swiglu_plan(lhs, rhs, rhs) == (
+            "tma_swiglu" if want == "tma" else None)
 
 
 @pytest.mark.parametrize("shape,want", [
@@ -156,11 +161,14 @@ def test_gmm_kernel_constants_fit_the_card(variant, mp):
     stages that keep 1024-byte alignment, a producer warp beside the
     consumer warpgroups, and the shared memory a block asks for within
     the card's 227 KB; the rhs tile splits evenly over a cluster, and two
-    decode blocks fit an SM at MP = 8."""
+    decode blocks fit an SM at MP = 8.  ``tma_swiglu`` (the same kernel)
+    splits the tile into halves of whole boxes, one a weight, and block c
+    of the cluster loads weight c's half."""
     c = _constants("moe_gmm.cu")
     if variant == "tma":
         assert c["T_BK"] == 64 and c["T_BM"] <= 256
         assert c["T_BN"] % (64 * c["T_CLUSTER"]) == 0
+        assert c["T_BN"] // 2 % 64 == 0 and c["T_CLUSTER"] == 2
         assert c["T_THREADS"] == 128 * c["T_CONSUMERS"] + 32
         assert c["T_BM"] == 64 * c["T_CONSUMERS"]
         assert (c["T_A_BYTES"] + c["T_B_BYTES"]) % 1024 == 0

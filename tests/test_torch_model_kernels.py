@@ -225,6 +225,117 @@ def test_gmm_plain_matches_pallas_and_ref(shape, dtype):
 
 
 # ---------------------------------------------------------------------------
+# the fused SwiGLU gate/up: its plain version is the unfused chain
+# ---------------------------------------------------------------------------
+
+SWIGLU_SHAPES = [(2, 130, 64, 96), (4, 72, 128, 256), (1, 200, 40, 56)]
+
+
+def _swiglu_operands(e, m, k, n, device="cpu", seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    lhs = torch.randn(e, m, k, generator=g, device=device).bfloat16()
+    w_gate, w_up = ((torch.randn(e, k, n, generator=g, device=device)
+                     * k ** -0.5).bfloat16() for _ in range(2))
+    return lhs, w_gate, w_up
+
+
+def _chain(lhs, w_gate, w_up):
+    """The unfused expert FFN's first half: two grouped matmuls, then the
+    SiLU of g times u in fp32, rounded once."""
+    g = gmm_mod.grouped_matmul(lhs, w_gate)
+    u = gmm_mod.grouped_matmul(lhs, w_up)
+    return (torch.nn.functional.silu(g.float()) * u.float()).to(lhs.dtype)
+
+
+@pytest.mark.parametrize("shape", SWIGLU_SHAPES)
+def test_swiglu_plain_is_the_unfused_chain_bit_for_bit(shape):
+    lhs, w_gate, w_up = _swiglu_operands(*shape, seed=sum(shape))
+    assert gmm_mod.swiglu_plan(lhs, w_gate, w_up) == "tma_swiglu"
+    want = _chain(lhs, w_gate, w_up)
+    with torch.no_grad():
+        got = gmm_mod.grouped_swiglu(lhs, w_gate, w_up)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(
+        x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def _swiglu_tol(g, u, h):
+    """The largest |h' - h| a correct fused gate/up may show against h =
+    bf16(silu(g) u), from bf16 products g and u (fp32 tensors) that other
+    code computed from the same inputs: each of its products rounds an
+    fp32 sum of the same terms in another order, so lies within one bf16
+    ulp plus 1e-3 of the products' RMS (dg, du); silu's slope lies in
+    [-0.1, 1.1], so silu(g') u' lies within d = 1.1 dg (|u| + du) +
+    |silu(g)| du of silu(g) u; each side rounds once to bf16, one ulp of
+    (|h| + d)(1 + 2^-7) between them."""
+    dg = _bf16_ulp(g) + 1e-3 * float(g.square().mean().sqrt())
+    du = _bf16_ulp(u) + 1e-3 * float(u.square().mean().sqrt())
+    d = 1.1 * dg * (u.abs() + du) + torch.nn.functional.silu(g).abs() * du
+    return d + _bf16_ulp((h.abs() + d) * (1 + 2 ** -7))
+
+
+@pytest.mark.parametrize("shape", SWIGLU_SHAPES)
+def test_swiglu_plain_matches_pallas_gmm_and_silu(shape):
+    """The fused entry's plain version against the JAX package's expert
+    FFN first half (``repro.models.moe._expert_ffn``: two Pallas grouped
+    matmuls in interpret mode, then silu(g) u in fp32, rounded once):
+    within the rounding bound of :func:`_swiglu_tol`, which refuses gate
+    and up swapped."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import grouped_matmul as j_gmm
+    e, m, k, n = shape
+    rng = np.random.default_rng(sum(shape))
+    jl, lhs = _pair(rng.standard_normal((e, m, k)), "bfloat16")
+    jg, w_gate = _pair(rng.standard_normal((e, k, n)) * k ** -0.5,
+                       "bfloat16")
+    ju, w_up = _pair(rng.standard_normal((e, k, n)) * k ** -0.5, "bfloat16")
+    g = j_gmm(jl, jg, impl="pallas")
+    u = j_gmm(jl, ju, impl="pallas")
+    jh = (jax.nn.silu(g.astype(jnp.float32))
+          * u.astype(jnp.float32)).astype(jl.dtype)
+    g, u, jh = (torch.from_numpy(_np(x)) for x in (g, u, jh))
+    with torch.no_grad():
+        got = gmm_mod.grouped_swiglu(lhs, w_gate, w_up).float()
+    assert bool(((got - jh).abs() <= _swiglu_tol(g, u, jh)).all())
+    swapped = (torch.nn.functional.silu(u) * g).bfloat16().float()
+    assert bool(((got - swapped).abs() > _swiglu_tol(u, g, swapped)).any())
+
+
+def test_swiglu_takes_only_what_tma_takes():
+    """fp32, M <= 64 (decode's rows), a row TMA cannot describe, an
+    unaligned operand or two weights of other shapes: no plan, and the
+    fused entry raises.  It has no backward: ``fuses_swiglu`` is false
+    where autograd records."""
+    def bf(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16)
+    w = bf(2, 64, 96)
+    base = bf(2 * 130 * 64 + 8)
+    for lhs, w_gate, w_up in ((bf(2, 130, 64).float(), w.float(), w.float()),
+                              (bf(2, 64, 64), w, w),
+                              (bf(2, 130, 41), bf(2, 41, 96), bf(2, 41, 96)),
+                              (base[1:1 + 2 * 130 * 64].view(2, 130, 64), w,
+                               w),
+                              (bf(2, 130, 64), w, bf(2, 64, 88))):
+        assert gmm_mod.swiglu_plan(lhs, w_gate, w_up) is None
+        assert not ops.fuses_swiglu(lhs, w_gate, w_up)
+        with pytest.raises(ValueError, match="grouped_swiglu"):
+            gmm_mod.grouped_swiglu(lhs, w_gate, w_up)
+    lhs = bf(2, 130, 64)
+    assert ops.fuses_swiglu(lhs, w, w)
+    w_grad = w.clone().requires_grad_()
+    assert not ops.fuses_swiglu(lhs, w_grad, w)
+    with torch.no_grad():
+        assert ops.fuses_swiglu(lhs, w_grad, w)
+        assert torch.equal(gmm_mod.grouped_swiglu(lhs, w_grad, w),
+                           bf(2, 130, 96))
+
+
+# ---------------------------------------------------------------------------
 # the wrappers' contract
 # ---------------------------------------------------------------------------
 
@@ -276,6 +387,10 @@ def test_bounds_count_bytes_and_operations():
     lhs = torch.empty(3, 5, 7)
     assert gmm_mod.gmm_bound(lhs, torch.empty(3, 7, 11)) == (
         4 * (3 * 5 * 7 + 3 * 7 * 11 + 3 * 5 * 11), 2 * 3 * 5 * 7 * 11)
+    w = torch.empty(3, 7, 11, dtype=torch.bfloat16)
+    assert gmm_mod.swiglu_bound(lhs.bfloat16(), w, w) == (
+        2 * (3 * 5 * 7 + 2 * 3 * 7 * 11 + 3 * 5 * 11),
+        2 * 2 * 3 * 5 * 7 * 11)
     x = torch.empty(1, 2, 32, 4)
     nbytes, flops = ssd_mod.ssd_bound(x, torch.empty(1, 1, 32, 3), chunk=16)
     assert nbytes == 4 * (2 * 2 * 32 * 4 + 2 * 32 + 2 * 32 * 3) + 4 * 2
@@ -492,6 +607,46 @@ def test_gmm_variants_at_main_path_shapes_on_card():
                                    ref.grouped_matmul_ref(lhs, rhs).float(),
                                    **_card_tol(torch.bfloat16))
         del out
+
+
+def _beyond_one_ulp(got, want):
+    """Elements of ``got`` more than one bf16 ulp of ``want`` away."""
+    g, w = got.float(), want.float()
+    return int(((g - w).abs() > _bf16_ulp(w)).sum())
+
+
+@pytest.mark.gpu
+def test_swiglu_kernel_matches_the_chain_on_card():
+    """One ``tma_swiglu`` launch against the unfused chain on the card (two
+    ``tma`` launches, then the fp32 SiLU of g times u): within one bf16
+    ulp; and against its plain version, ``ref.grouped_swiglu_ref``, expert
+    by expert within :func:`_swiglu_tol`, which refuses gate and up
+    swapped; at ragged M with an N that is not a multiple of the
+    128-column tile, and at Mixtral's smallest prefill capacity."""
+    _need_card()
+    for shape in ((2, 200, 512, 200), (3, 72, 128, 256),
+                  (8, 648, 4096, 14336)):
+        lhs, w_gate, w_up = _swiglu_operands(*shape, device="cuda", seed=5)
+        with torch.no_grad():
+            want = _chain(lhs, w_gate, w_up)
+            ran, got = _launched(
+                gmm_mod.grouped_matmul,
+                lambda: gmm_mod.grouped_swiglu(lhs, w_gate, w_up))
+        assert ran == ["tma_swiglu"]
+        assert _beyond_one_ulp(got, want) == 0, shape
+        refused = 0
+        for e in range(shape[0]):
+            a, wg, wu = lhs[e:e + 1], w_gate[e:e + 1], w_up[e:e + 1]
+            g = ref.grouped_matmul_ref(a, wg).float()
+            u = ref.grouped_matmul_ref(a, wu).float()
+            h = ref.grouped_swiglu_ref(a, wg, wu).float()
+            err = (got[e:e + 1].float() - h).abs()
+            assert bool((err <= _swiglu_tol(g, u, h)).all()), (shape, e)
+            hs = ref.grouped_swiglu_ref(a, wu, wg).float()
+            refused += int(((got[e:e + 1].float() - hs).abs()
+                            > _swiglu_tol(u, g, hs)).sum())
+        assert refused > 0, shape
+        del got, want
 
 
 @pytest.mark.gpu

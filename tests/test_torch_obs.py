@@ -13,7 +13,12 @@
   capacity), rows = E x capacity; ``counting_drops`` yields each call's
   drops, turns on no span and no other counter, and keeps nothing after
   its block;
-* logits are bitwise equal with recording on and off.
+* logits are bitwise equal with recording on and off;
+* the expert FFN fuses its gate/up products (``moe_gmm.grouped_swiglu``)
+  only
+  where autograd does not record and the operands are bf16 at a ``tma``
+  shape, computes the same function either way, and counts
+  ``moe.ffn_fused`` (1 or 0) once a call.
 """
 import time
 
@@ -22,6 +27,7 @@ import torch
 
 from repro_torch import obs, optim
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.kernels import ref
 from repro_torch.launch.step import prefill_step, train_step
 from repro_torch.models import get_model, moe
 from repro_torch.models.convert import init_params
@@ -184,8 +190,67 @@ def test_moe_counters_equal_a_plain_count(tiny, monkeypatch):
             assigned + idx.numel()
     got = obs.counters()
     assert got["moe.kept"] == 2 * kept and got["moe.gmm_rows"] == 2 * rows
+    assert got["moe.ffn_fused"] == 0         # fp32: three grouped matmuls
     assert got["moe.dropped"] == 2 * (assigned - kept)
     assert kept < assigned
+
+
+@pytest.mark.parametrize("case,fused", [
+    ("bf16 inference", True), ("autograd records", False),
+    ("fp32", False), ("decode rows", False), ("ragged rows", False)])
+def test_expert_ffn_fuses_gate_up_only_in_bf16_inference(case, fused,
+                                                          monkeypatch):
+    e, m, k, n = 4, 64 if case == "decode rows" else 130, \
+        40 if case == "ragged rows" else 128, 64
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    g = torch.Generator().manual_seed(3)
+    buf = torch.randn(e, m, k, generator=g).to(dtype)
+    w_gate, w_up = (torch.randn(e, k, n, generator=g).mul(k ** -0.5)
+                    .to(dtype) for _ in range(2))
+    w_down = torch.randn(e, n, k, generator=g).mul(n ** -0.5).to(dtype)
+    if case == "ragged rows":        # a row of 40 + 1 bf16: 82 bytes
+        buf = torch.randn(e, m, k + 1, generator=g).to(dtype)
+        w_gate, w_up = (torch.randn(e, k + 1, n, generator=g).to(dtype)
+                        for _ in range(2))
+        w_down = torch.randn(e, n, k + 1, generator=g).to(dtype)
+    if case == "autograd records":
+        w_gate.requires_grad_()
+    calls = []
+    for name in ("grouped_matmul", "grouped_swiglu"):
+        def spy(*a, _name=name, _real=getattr(moe, name)):
+            calls.append(_name)
+            return _real(*a)
+        monkeypatch.setattr(moe, name, spy)
+    grad = case == "autograd records"
+    with torch.set_grad_enabled(grad), obs.recording():
+        out = moe._expert_ffn(buf, w_gate, w_up, w_down)
+    assert calls == (["grouped_swiglu", "grouped_matmul"] if fused
+                     else ["grouped_matmul"] * 3)
+    assert obs.counters()["moe.ffn_fused"] == int(fused)
+    assert out.requires_grad == grad
+    with torch.no_grad():
+        gg = ref.grouped_matmul_ref(buf, w_gate)
+        uu = ref.grouped_matmul_ref(buf, w_up)
+        h = (torch.nn.functional.silu(gg.float()) * uu.float()).to(dtype)
+        assert torch.equal(out.detach(), ref.grouped_matmul_ref(h, w_down))
+
+
+def test_ffn_fused_counts_once_a_call():
+    """A bf16 prefill whose capacity takes the ``tma`` variant (200 tokens,
+    128 rows an expert): every MoE call runs the fused gate/up kernel, and
+    ``moe.ffn_fused`` counts 1 a call, as many as the ``moe`` spans."""
+    cfg = reduced_config(get_config("mixtral-8x7b"), dtype="bfloat16")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = get_model(cfg)(cfg, "cpu", params=params)
+    assert moe.capacity(200, cfg.moe) == 128
+    tokens = torch.randint(0, cfg.vocab_size, (1, 200),
+                           generator=torch.Generator().manual_seed(1))
+    with obs.recording():
+        prefill_step(model, {"tokens": tokens})
+    n_moe = sum(1 for s in obs.records() if s.name == "moe")
+    assert n_moe == cfg.num_layers
+    assert obs.counters()["moe.ffn_fused"] == n_moe
+    assert sum(1 for s in obs.records() if s.name == "moe.gmm") == 2 * n_moe
 
 
 def test_counting_drops_alone_keeps_nothing(tiny):
